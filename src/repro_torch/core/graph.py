@@ -1,0 +1,189 @@
+"""Graph containers: the host ``Graph`` (numpy CSR, both directions) and
+the ``DeviceGraph`` of padded ELL tables the kernels read.
+
+Counterpart of ``repro/core/graph.py``. The host ``Graph`` is a copy of the
+JAX package's (numpy only), plus :meth:`Graph.from_arrays`, which carries a
+JAX-side graph's five arrays over. ``DeviceGraph`` holds the padded ELL
+in-/out-neighbour tables as int32 tensors on the engine's device:
+
+  padded ELL -- (n, cap) neighbour matrix padded with the sentinel value
+                ``n``; every frontier or count table carries one extra
+                row ``n`` of neutral values, so a pad entry is inert in the
+                BFS OR-gather and the enumeration gather.
+
+ELL capacities are bucketed to powers of two (``pow2_ceil`` of the largest
+degree), so every kernel shape is stable while the graph stays within its
+bucket. The destination-sorted edge lists of the JAX package's segment
+arm are not part of this port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+__all__ = ["Graph", "DeviceGraph", "EllView", "pow2_ceil"]
+
+
+def pow2_ceil(x: int) -> int:
+    """Smallest power of two >= x (1 for x <= 1) -- the shared shape-bucket
+    rounding of every device view."""
+    return 1 << max(int(x) - 1, 0).bit_length() if x > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class EllView:
+    """Padded ELL adjacency: idx[v, d] = d-th out-neighbor or n (sentinel)."""
+
+    idx: np.ndarray          # (n, cap) int32, padded with n
+    mask: np.ndarray         # (n, cap) bool
+    spill_src: np.ndarray    # (n_spill,) int32 COO remainder
+    spill_dst: np.ndarray    # (n_spill,) int32
+    cap: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Directed graph, CSR in both directions. Vertices are 0..n-1."""
+
+    n: int
+    indptr: np.ndarray       # (n+1,) int64 -- out-edges CSR
+    indices: np.ndarray      # (m,) int32, sorted within row
+    r_indptr: np.ndarray     # (n+1,) int64 -- in-edges CSR (reverse graph)
+    r_indices: np.ndarray    # (m,) int32
+
+    @staticmethod
+    def from_edges(n: int, src, dst, dedup: bool = True) -> "Graph":
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        if src.size:
+            keep = src != dst  # drop self loops: never on a simple path twice
+            src, dst = src[keep], dst[keep]
+        if dedup and src.size:
+            key = src * n + dst
+            _, uniq = np.unique(key, return_index=True)
+            src, dst = src[uniq], dst[uniq]
+        indptr, indices = _csr(n, src, dst)
+        r_indptr, r_indices = _csr(n, dst, src)
+        return Graph(n=n, indptr=indptr, indices=indices,
+                     r_indptr=r_indptr, r_indices=r_indices)
+
+    @staticmethod
+    def from_arrays(n: int, indptr, indices, r_indptr,
+                    r_indices) -> "Graph":
+        """Carry a graph's state over: the five CSR arrays of a
+        ``repro.core.graph.Graph`` (``n, indptr, indices, r_indptr,
+        r_indices``) in, this package's ``Graph`` out. The arrays are
+        copied with the dtypes above; the shapes are checked."""
+        n = int(n)
+        g = Graph(n=n,
+                  indptr=np.array(indptr, dtype=np.int64),
+                  indices=np.array(indices, dtype=np.int32),
+                  r_indptr=np.array(r_indptr, dtype=np.int64),
+                  r_indices=np.array(r_indices, dtype=np.int32))
+        if g.indptr.shape != (n + 1,) or g.r_indptr.shape != (n + 1,):
+            raise ValueError(f"indptr arrays must have n+1={n + 1} entries")
+        m = int(g.indices.shape[0])
+        if (g.r_indices.shape != (m,) or int(g.indptr[-1]) != m
+                or int(g.r_indptr[-1]) != m):
+            raise ValueError("CSR arrays disagree on the edge count")
+        return g
+
+    @property
+    def m(self) -> int:
+        return int(self.indices.shape[0])
+
+    def out_degree(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def in_degree(self) -> np.ndarray:
+        return np.diff(self.r_indptr)
+
+    def neighbors(self, v: int, reverse: bool = False) -> np.ndarray:
+        ip, ix = (self.r_indptr, self.r_indices) if reverse else (self.indptr, self.indices)
+        return ix[ip[v]:ip[v + 1]]
+
+    def ell(self, cap: Optional[int] = None, reverse: bool = False) -> EllView:
+        ip, ix = (self.r_indptr, self.r_indices) if reverse else (self.indptr, self.indices)
+        deg = np.diff(ip).astype(np.int64)
+        if cap is None:
+            cap = int(deg.max()) if self.n else 1
+        cap = max(int(cap), 1)
+        idx = np.full((self.n, cap), self.n, dtype=np.int32)
+        # vectorized fill of the first `cap` neighbors per row
+        take = np.minimum(deg, cap)
+        rows = np.repeat(np.arange(self.n), take)
+        cols = _ragged_arange(take)
+        flat = np.repeat(ip[:-1], take) + cols
+        idx[rows, cols] = ix[flat]
+        mask = idx != self.n
+        # spill: neighbors beyond cap
+        extra = deg - take
+        s_rows = np.repeat(np.arange(self.n, dtype=np.int32), extra)
+        s_cols = _ragged_arange(extra) + np.repeat(take, extra)
+        s_flat = np.repeat(ip[:-1], extra) + s_cols
+        return EllView(idx=idx, mask=mask,
+                       spill_src=s_rows, spill_dst=ix[s_flat].astype(np.int32),
+                       cap=cap)
+
+    def reverse(self) -> "Graph":
+        return Graph(n=self.n, indptr=self.r_indptr, indices=self.r_indices,
+                     r_indptr=self.indptr, r_indices=self.indices)
+
+
+def _csr(n: int, src: np.ndarray, dst: np.ndarray):
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    counts = np.bincount(src, minlength=n).astype(np.int64)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr, dst.astype(np.int32)
+
+
+def _ragged_arange(counts: np.ndarray) -> np.ndarray:
+    """[0..c0), [0..c1), ... concatenated."""
+    counts = counts.astype(np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    offs = np.repeat(np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    return np.arange(total, dtype=np.int64) - offs
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGraph:
+    """Padded ELL tables of a Graph on one device (built once per engine).
+
+    ``ell_idx`` holds out-neighbours (G), ``r_ell_idx`` in-neighbours
+    (G_r); both are (n, cap) int32 padded with ``n``, caps pow2-bucketed
+    per direction.
+    """
+
+    n: int
+    m: int
+    ell_idx: torch.Tensor     # (n, ell_cap) int32, pad = n
+    r_ell_idx: torch.Tensor   # (n, r_ell_cap) int32, pad = n
+    ell_cap: int
+    r_ell_cap: int
+
+    @staticmethod
+    def build(g: Graph, device: Union[torch.device, str]) -> "DeviceGraph":
+        """Materialize the ELL tables on ``device``, each direction's
+        capacity ``pow2_ceil(max degree)`` -- the same tables as the JAX
+        package's padded ``DeviceGraph``."""
+        deg = np.diff(g.indptr)
+        r_deg = np.diff(g.r_indptr)
+        ell = g.ell(cap=pow2_ceil(int(deg.max()) if deg.size else 1))
+        rell = g.reverse().ell(cap=pow2_ceil(int(r_deg.max())
+                                             if r_deg.size else 1))
+        return DeviceGraph(
+            n=g.n, m=g.m,
+            ell_idx=torch.from_numpy(ell.idx).to(device),
+            r_ell_idx=torch.from_numpy(rell.idx).to(device),
+            ell_cap=ell.cap, r_ell_cap=rell.cap)
+
+    def direction(self, reverse: bool) -> torch.Tensor:
+        """The out-neighbour table of a search direction (G or G_r)."""
+        return self.r_ell_idx if reverse else self.ell_idx

@@ -1,0 +1,78 @@
+"""Query index: per-source/target distance matrices and slack vectors.
+
+Counterpart of ``repro/core/index.py`` (its ELL route): PathEnum's
+light-weight index (Lemma 3.1) built for the whole batch with one
+multi-source BFS per direction (Alg 1/4 lines 1-2), plus the slack vectors
+the enumeration prunes with:
+
+  slack[v] = max over consumers (k_q - offset_q - dist(v, endpoint_q))
+
+A frontier vertex v at depth d survives iff d <= slack[v] (equivalently
+Lemma 3.1's |p| + dist(v, t) <= k). The walk-count DP of the reference
+(capacity planning, the "+" planners' split) is not part of this port yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .graph import DeviceGraph
+from .msbfs import INF_FOR, msbfs_dist_ell
+
+__all__ = ["QueryIndex", "build_index", "slack_from_dists"]
+
+Query = tuple[int, int, int]  # (s, t, k)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryIndex:
+    queries: tuple[Query, ...]
+    k_max: int
+    sources: np.ndarray       # (Su,) unique source vertices
+    targets: np.ndarray       # (Tu,) unique target vertices
+    src_col: np.ndarray       # (Q,) column of q.s in dist_s
+    tgt_col: np.ndarray       # (Q,) column of q.t in dist_t
+    dist_s: torch.Tensor      # (n+1, Su) int8 -- dist_G(s, v); row n = INF
+    dist_t: torch.Tensor      # (n+1, Tu) int8 -- dist_{G_r}(t, v) = dist_G(v, t)
+    INF: int
+
+
+def slack_from_dists(dist_cols: torch.Tensor, ks: np.ndarray,
+                     offsets: np.ndarray, INF: int) -> torch.Tensor:
+    """slack[v] = max_c (ks[c] - offsets[c] - dist_cols[v, c]); INF dist -> -1.
+
+    dist_cols: (n+1, C) int8; returns (n+1,) int8 (row n forced to -1).
+    """
+    d = dist_cols.to(torch.int32)
+    base = torch.as_tensor(np.asarray(ks, np.int32)
+                           - np.asarray(offsets, np.int32),
+                           device=d.device)
+    val = torch.where(d >= INF, -1, base[None, :] - d)
+    out = val.max(dim=1).values.clamp(-1, 127).to(torch.int8)
+    out[-1] = -1
+    return out
+
+
+def build_index(dg: DeviceGraph, queries: Sequence[Query]) -> QueryIndex:
+    """Multi-source BFS from all sources on G and all targets on G_r.
+
+    Forward distances gather the reverse ELL table (in-neighbours of G)
+    and vice versa; each level is one ``msbfs_step`` launch on the
+    device's kernel arm.
+    """
+    queries = tuple((int(s), int(t), int(k)) for s, t, k in queries)
+    k_max = max(k for _, _, k in queries)
+    srcs = np.unique(np.array([q[0] for q in queries], np.int32))
+    tgts = np.unique(np.array([q[1] for q in queries], np.int32))
+    src_col = np.searchsorted(srcs, [q[0] for q in queries]).astype(np.int32)
+    tgt_col = np.searchsorted(tgts, [q[1] for q in queries]).astype(np.int32)
+    dist_s = msbfs_dist_ell(dg.r_ell_idx, torch.from_numpy(srcs),
+                            n=dg.n, k_max=k_max)
+    dist_t = msbfs_dist_ell(dg.ell_idx, torch.from_numpy(tgts),
+                            n=dg.n, k_max=k_max)
+    return QueryIndex(queries=queries, k_max=k_max, sources=srcs,
+                      targets=tgts, src_col=src_col, tgt_col=tgt_col,
+                      dist_s=dist_s, dist_t=dist_t, INF=INF_FOR(k_max))

@@ -1,0 +1,106 @@
+"""Fixed-capacity path buffers (``PathSet``) and compaction utilities.
+
+Counterpart of ``repro/core/pathset.py``. A PathSet stores up to ``cap``
+paths as a dense int32 matrix on the device. The first ``count`` rows are
+valid and packed at the front; unused cells are -1. ``count`` and
+``overflow`` stay 0-d device tensors, so reading them (``int(ps.count)``)
+is a host sync, made where the engine needs the value, as in the
+reference.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = ["PathSet", "empty", "singleton", "compact_index", "compact_rows",
+           "concat", "to_host"]
+
+
+class PathSet(NamedTuple):
+    verts: torch.Tensor     # (cap, L) int32, row i cols 0..length_i are vertices
+    count: torch.Tensor     # () int64 -- number of valid (packed) rows
+    overflow: torch.Tensor  # () bool -- True if rows were dropped to fit cap
+
+    @property
+    def cap(self) -> int:
+        return self.verts.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.verts.shape[1]
+
+
+def empty(cap: int, width: int, device) -> PathSet:
+    return PathSet(verts=torch.full((cap, width), -1, dtype=torch.int32,
+                                    device=device),
+                   count=torch.zeros((), dtype=torch.int64, device=device),
+                   overflow=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def singleton(vertex: int, width: int, device) -> PathSet:
+    """PathSet holding the single length-0 path [vertex]."""
+    ps = empty(1, width, device)
+    ps.verts[0, 0] = vertex
+    return PathSet(ps.verts, torch.ones((), dtype=torch.int64, device=device),
+                   ps.overflow)
+
+
+def compact_index(mask: torch.Tensor, out_cap: int):
+    """Source row of each packed output slot.
+
+    mask: (N,) bool. Returns ``(src, count, overflow)``: ``src`` is
+    (out_cap,) int64 holding, in order, the indices where mask is True
+    (-1 past the last one); masked rows beyond out_cap are dropped
+    (overflow=True) and ``count`` is clamped to out_cap.
+    """
+    device = mask.device
+    pos = torch.cumsum(mask, dim=0, dtype=torch.int64) - 1
+    total = pos[-1] + 1 if mask.shape[0] > 0 else \
+        torch.zeros((), dtype=torch.int64, device=device)
+    # rejected rows all land on the dump slot out_cap, which is cut off:
+    # a plain assignment, whichever duplicate wins there is discarded
+    dest = torch.where(mask & (pos < out_cap), pos,
+                       torch.full_like(pos, out_cap))
+    src = torch.full((out_cap + 1,), -1, dtype=torch.int64, device=device)
+    src[dest] = torch.arange(mask.shape[0], device=device)
+    return src[:out_cap], torch.clamp(total, max=out_cap), total > out_cap
+
+
+def compact_rows(mask: torch.Tensor, payload: torch.Tensor, out_cap: int,
+                 fill: int = -1):
+    """Pack the payload rows where mask is True into (out_cap, ...).
+
+    mask: (N,) bool; payload: (N, ...) -- returns (out, count, overflow).
+    Rows beyond out_cap are dropped (overflow=True).
+    """
+    src, count, overflow = compact_index(mask, out_cap)
+    hit = src >= 0
+    out = payload[src.clamp(min=0)] if payload.shape[0] else \
+        payload.new_full((out_cap,) + payload.shape[1:], fill)
+    shape = (out_cap,) + (1,) * (payload.dim() - 1)
+    out = torch.where(hit.view(shape), out, torch.full_like(out, fill))
+    return out, count, overflow
+
+
+def concat(sets: list[PathSet]) -> PathSet:
+    """Concatenate packed PathSets (same width) into one packed PathSet:
+    the valid rows of each, in order, in a buffer of the summed capacity."""
+    sets = [s for s in sets if s is not None]
+    if not sets:
+        raise ValueError("concat of no PathSets")
+    if len(sets) == 1:
+        return sets[0]
+    verts = torch.cat([s.verts for s in sets])
+    device = verts.device
+    valid = torch.cat([torch.arange(s.cap, device=device) < s.count
+                       for s in sets])
+    out, count, _ = compact_rows(valid, verts, verts.shape[0])
+    overflow = torch.stack([s.overflow for s in sets]).any()
+    return PathSet(out, count, overflow)
+
+
+def to_host(ps: PathSet) -> np.ndarray:
+    """Valid rows as a host numpy array (n, L)."""
+    return ps.verts[:int(ps.count)].cpu().numpy()

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for the engine's hot spots, each beside its
+plain PyTorch version.
+
+Each op package has one ``ops`` module holding the plain version, the
+wrapper of the CUDA kernel in ``repro_torch/csrc`` and the function that
+picks between them by the tensors' device (:mod:`.registry`). The kernels
+build with ``nvcc`` at first use (:mod:`.build`).
+"""
+from .registry import (KERNELS, LAUNCHES, KernelArm,  # noqa: F401
+                       reset_launches, resolve_arm)
+
+__all__ = ["KernelArm", "resolve_arm", "KERNELS", "LAUNCHES",
+           "reset_launches"]

@@ -1,0 +1,109 @@
+"""Kernel arms and the rule that picks one.
+
+Every ported op has two interchangeable implementations:
+
+  ``torch`` -- the plain PyTorch version (runs on the CPU; the CPU tests
+               compare it with the JAX package's ``ref.py`` and Pallas
+               interpret mode)
+  ``cuda``  -- the hand-written CUDA C++ kernel in ``repro_torch/csrc``
+
+The arm follows the tensor's device: a CPU tensor takes ``torch``, a CUDA
+tensor takes ``cuda``. An explicit choice that contradicts the device
+raises ``ValueError`` (``torch`` for a CUDA tensor, ``cuda`` for a CPU
+tensor), and so does an unknown name, listing the valid ones. There is no
+environment variable and no "auto" rule: nothing routes a CUDA tensor to
+the plain version, so a kernel that fails to build or launch raises
+instead of silently running the plain path.
+
+``LAUNCHES`` counts the CUDA launches of each kernel (plain integers).
+"""
+from __future__ import annotations
+
+import enum
+from typing import Union
+
+import torch
+
+__all__ = ["KernelArm", "ArmLike", "resolve_arm", "check_tensor",
+           "KERNELS", "LAUNCHES", "reset_launches"]
+
+# the hand-written kernels; each wrapper adds one to its LAUNCHES entry
+# where it launches its kernel, and nowhere else, so a run can show that
+# the main path went through the kernels
+KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
+           "rowwise_overlap")
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+class KernelArm(str, enum.Enum):
+    """Typed kernel-arm selector (str subclass: compares to its value)."""
+
+    TORCH = "torch"
+    CUDA = "cuda"
+
+    @classmethod
+    def coerce(cls, value: Union["KernelArm", str]) -> "KernelArm":
+        if isinstance(value, cls):
+            return value
+        try:
+            return cls(str(value).lower())
+        except ValueError:
+            raise ValueError(
+                f"unknown kernel arm {value!r}; valid arms: "
+                f"{' | '.join(a.value for a in cls)}") from None
+
+    def __str__(self) -> str:
+        return self.value
+
+
+ArmLike = Union[KernelArm, str, None]
+
+_ARM_OF_DEVICE = {"cpu": KernelArm.TORCH, "cuda": KernelArm.CUDA}
+
+
+def resolve_arm(device: Union[torch.device, str],
+                arm: ArmLike = None) -> KernelArm:
+    """The arm for tensors on ``device``; an explicit ``arm`` must agree.
+
+    Raises ``ValueError`` for an unknown arm name, for an arm that
+    contradicts the device, and for a device type with no arm.
+    """
+    dev_type = torch.device(device).type
+    if dev_type not in _ARM_OF_DEVICE:
+        raise ValueError(f"no kernel arm for device type {dev_type!r}; "
+                         f"supported: {sorted(_ARM_OF_DEVICE)}")
+    native = _ARM_OF_DEVICE[dev_type]
+    if arm is None:
+        return native
+    chosen = KernelArm.coerce(arm)
+    if chosen is not native:
+        raise ValueError(
+            f"kernel arm {chosen.value!r} cannot run on a {dev_type} tensor "
+            f"(the {dev_type} arm is {native.value!r})")
+    return chosen
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
+                 ndim: int, *, strided_rows: bool = False) -> None:
+    """Shared argument check of the CUDA wrappers: dtype, rank, a CUDA
+    device, and contiguity -- full, or of the last dimension only where
+    the kernel takes a row stride (``strided_rows``)."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if x.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got shape "
+                         f"{tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, "
+                         f"got one on {x.device}")
+    ok = (x.numel() == 0 or x.stride(-1) == 1) if strided_rows \
+        else x.is_contiguous()
+    if not ok:
+        raise ValueError(f"{name}: not contiguous (shape {tuple(x.shape)}, "
+                         f"strides {x.stride()})")
