@@ -5,6 +5,11 @@
     python3 chip_smoke.py --n 65536 --queries 32 --sharing-queries 16
                                              # a quicker, smaller run
 
+Phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
+and BASIC); phases 6 and 7 the engine's default configuration
+(``EngineConfig()``: walk-count capacity planning on ``ell_spmm``) under
+every planner, and the cross-batch cache.
+
 Phases, each printing one JSON line (``"phase": ...``):
 
 1. device   -- the card's name and power limit (``nvidia-smi``), torch/CUDA.
@@ -14,9 +19,9 @@ Phases, each printing one JSON line (``"phase": ...``):
                256 random (s, t, k) queries, k in 4..6, from fixed seeds.
 4. main     -- ``PathSession(g, EngineConfig(plan_caps=False),
                device="cuda").run(queries, planner="batch")``: cold once
-               (the run whose kernel launches are counted), warm three
-               times; results checked against the brute-force oracle on a
-               few queries and against a ``Planner.BASIC`` run on all.
+               (the run whose kernel launches are counted), warm twice;
+               results checked against the brute-force oracle on a few
+               queries and against a ``Planner.BASIC`` run on all.
                Then one more run with the kernel wrappers wrapped, to keep
                the inputs of each kernel's heaviest call (not timed).
 5. sharing  -- a second batch on the same graph, 64 overlapping queries
@@ -25,13 +30,32 @@ Phases, each printing one JSON line (``"phase": ...``):
                paper is about and whose frontiers outgrow ``min_cap``:
                launches counted, oracle and BASIC checks, then a wrapped
                run that keeps the heaviest join-kernel inputs.
-6. peaks    -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+6. planners -- ``PathSession(g, EngineConfig(), device="cuda")``, the
+               default configuration, runs the sharing batch under
+               ``batch``, ``batch+``, ``basic+``, ``pathenum`` and
+               ``auto``, each with its own launch counts (``ell_spmm``
+               must launch) and stage times; every path set must equal
+               the ``plan_caps=False`` BATCH run of phase 5. The overflow
+               retries of node enumeration are counted with and without
+               ``plan_caps`` (by wrapping ``_run_node_once``). ``auto``
+               then answers the 256-query main batch (routes, wall time,
+               path sets equal to phase 4's), and a last wrapped
+               ``batch`` run keeps the inputs of the heaviest
+               ``ell_spmm`` call.
+7. cache    -- ``EngineConfig(cache_bytes=256 << 20)``: the sharing batch
+               twice (the second must materialize nothing, hit, and give
+               identical rows), then ``update_graph(g)`` and a run that
+               must materialize again.
+8. peaks    -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-7. kernels  -- each kernel again on the inputs of its heaviest call in the
+9. kernels  -- each kernel again on the inputs of its heaviest call in the
                main path (and, for the join kernels, in the sharing
-               batch), held against its plain PyTorch version on the card
-               (exact equality: all outputs are integers), timed with CUDA
+               batch; for ``ell_spmm`` also two synthetic shapes on the
+               graph's ELL table with random float32 features, F = 128
+               sum and F = 8 max), held against its plain PyTorch version
+               on the card (exact equality: the outputs are integers, or
+               float32 sums taken in the same order), timed with CUDA
                events (median of 10 warm runs) beside the plain version,
                one PyTorch library call where one computes the same
                function, and the least time the card could take.
@@ -62,6 +86,9 @@ HBM_BYTES_PER_S = 3.35e12
 # both popc and the 1-bit tensor-core MMA (phase "peaks").
 POPC_PER_CLK_SM = 16
 INT_PER_CLK_SM = 64
+# published H100 SXM float32 rate outside the tensor cores (NVIDIA data
+# sheet), operations/s
+F32_OPS_PER_S = 67e12
 
 KERNEL_ROWS = {
     "msbfs_step": ("src/repro_torch/csrc/msbfs_step.cu",
@@ -72,7 +99,15 @@ KERNEL_ROWS = {
                     "src/repro/kernels/path_join/kernel.py:109"),
     "rowwise_overlap": ("src/repro_torch/csrc/path_join.cu",
                         "src/repro/kernels/path_join/kernel.py:70"),
+    "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
+                 "src/repro/kernels/ell_spmm/kernel.py:47"),
 }
+# the kernels of the first slice's path (plan_caps=False), which phases 4
+# and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
+FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "path_member",
+               "rowwise_overlap")
+# the planners phase 6 drives with the default configuration
+PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -214,16 +249,17 @@ def check_results(g, queries, report, ks) -> tuple[int, float]:
     return len(picked), time.perf_counter() - t0
 
 
-def check_same(queries, batch, basic) -> None:
-    """Planner.BASIC must give the same path set as BATCH for every query."""
+def check_same(queries, batch, basic, what: str = "BATCH and BASIC") -> None:
+    """Two runs must give the same path set for every query."""
     from repro_torch.core import oracle
     for q, a, b in zip(queries, batch, basic):
         require(oracle.path_set(a.paths) == oracle.path_set(b.paths)
                 and len(a.paths) == len(b.paths),
-                f"query {q}: BATCH and BASIC disagree")
+                f"query {q}: {what} disagree")
 
 
 def make_recorders(torch, names) -> dict:
+    from repro_torch.kernels.ell_spmm import ops as eops
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     from repro_torch.kernels.path_join import ops as jops
@@ -240,6 +276,11 @@ def make_recorders(torch, names) -> dict:
         "rowwise_overlap": lambda: Recorder(
             jops, "rowwise_overlap_cuda",
             lambda a, out: a[0].shape[0] * a[0].shape[1] * a[1].shape[1]),
+        # every call has the same shape: the heaviest carries the most
+        # walks (non-zero features)
+        "ell_spmm": lambda: Recorder(
+            eops, "ell_spmm_cuda",
+            lambda a, out: int(torch.count_nonzero(a[1]))),
     }
     return {k: makers[k]() for k in names}
 
@@ -254,7 +295,7 @@ def recording(recorders: dict):
 
 def phase_main(torch, g, queries):
     from repro_torch.core import EngineConfig, PathSession
-    from repro_torch.kernels import LAUNCHES, KERNELS, reset_launches
+    from repro_torch.kernels import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
     session = PathSession(g, EngineConfig(plan_caps=False), device="cuda")
@@ -267,11 +308,11 @@ def phase_main(torch, g, queries):
     cold = session.run(queries, planner="batch")
     t_cold = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    require(all(launches[k] > 0 for k in KERNELS),
+    require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the main path never launched: {launches}")
 
     warm = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         rep = session.run(queries, planner="batch")
         counts = [r.count for r in rep]
@@ -288,7 +329,7 @@ def phase_main(torch, g, queries):
     basic_launches = dict(LAUNCHES)
     check_same(queries, cold, basic)
 
-    recorders = make_recorders(torch, KERNELS)
+    recorders = make_recorders(torch, FIRST_SLICE)
     with recording(recorders):
         rec = session.run(queries, planner="batch")
     require([r.count for r in rec] == counts, "recorded run differs")
@@ -310,12 +351,12 @@ def phase_main(torch, g, queries):
           "basic_stats": {k: basic.stats[k] for k in
                           ("t_build_index", "t_enumerate", "t_wall_s")},
           "basic_launches": basic_launches})
-    return session, recorders, launches
+    return session, recorders, launches, cold
 
 
 def phase_sharing(torch, g, session, nq: int):
     from repro_torch.core import generators
-    from repro_torch.kernels import LAUNCHES, KERNELS, reset_launches
+    from repro_torch.kernels import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
     queries = generators.similar_queries(g, nq, similarity=0.8,
@@ -326,7 +367,7 @@ def phase_sharing(torch, g, session, nq: int):
     rep = session.run(queries, planner="batch")
     t_run = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    require(all(launches[k] > 0 for k in KERNELS),
+    require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the sharing batch never launched: {launches}")
     require(rep.stats["n_shared"] > 0, "the sharing batch shared nothing")
     counts = [r.count for r in rep]
@@ -357,7 +398,118 @@ def phase_sharing(torch, g, session, nq: int):
           "launches": launches, "heaviest_join_rows": rows,
           "oracle_checked": n_oracle, "t_oracle_s": t_oracle,
           "basic_equal": True, "t_basic_s": t_basic})
-    return recorders, launches
+    return recorders, launches, queries, rep
+
+
+class RetryCounter:
+    """Counts an engine's node enumerations while active, and how many of
+    them the overflow retry repeated (``_run_node_once`` returns None when
+    a buffer overflowed and the node must run again with larger caps)."""
+
+    def __init__(self, engine):
+        self.engine, self.fn = engine, engine._run_node_once
+        self.calls = self.retries = 0
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.calls += 1
+        self.retries += out is None
+        return out
+
+    def __enter__(self):
+        self.engine._run_node_once = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._run_node_once       # back to the class's method
+
+    def as_dict(self) -> dict:
+        return {"node_runs": self.calls, "retries": self.retries}
+
+
+def phase_planners(torch, g, main_session, main_queries, main_report,
+                   queries, share_report):
+    from repro_torch.core import EngineConfig, PathSession
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    session = PathSession(g, EngineConfig(), device="cuda")
+    runs, launches = {}, {}
+    for planner in PLANNERS:
+        with RetryCounter(session.engine) as rc:
+            reset_launches()
+            t0 = time.perf_counter()
+            rep = session.run(queries, planner=planner)
+            host_wall = time.perf_counter() - t0
+            launches[planner] = dict(LAUNCHES)
+        require(launches[planner]["ell_spmm"] > 0,
+                f"{planner}: ell_spmm never launched on the default config")
+        check_same(queries, share_report, rep,
+                   f"plan_caps=False BATCH and default-config {planner}")
+        runs[planner] = {
+            "stats": {k: v for k, v in rep.stats.items()
+                      if k.startswith(("t_", "n_", "routed_"))},
+            "host_wall_s": host_wall, "launches": launches[planner],
+            "routes": None if rep.routes is None else
+            {r: rep.routes.count(r) for r in set(rep.routes)},
+            "retry": rc.as_dict()}
+    # the first slice's configuration on the same batch, for its retries
+    with RetryCounter(main_session.engine) as rc_off:
+        rep = main_session.run(queries, planner="batch")
+    check_same(queries, share_report, rep, "two plan_caps=False BATCH runs")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    auto = session.run(main_queries, planner="auto")
+    t_auto = time.perf_counter() - t0
+    auto_launches = dict(LAUNCHES)
+    check_same(main_queries, main_report, auto,
+               "plan_caps=False BATCH and default-config AUTO (main batch)")
+
+    recorders = make_recorders(torch, ("ell_spmm",))
+    with recording(recorders):
+        rec = session.run(queries, planner="batch")
+    check_same(queries, share_report, rec, "recorded batch run")
+    emit({"phase": "planners", "queries": len(queries), "runs": runs,
+          "retry_plan_caps_false_batch": rc_off.as_dict(),
+          "auto_main": {
+              "queries": len(main_queries), "host_wall_s": t_auto,
+              "routes": {r: auto.routes.count(r) for r in set(auto.routes)},
+              "cluster_planners": {
+                  p: auto.stats.get("cluster_planners", []).count(p)
+                  for p in ("basic", "batch")},
+              "stats": {k: v for k, v in auto.stats.items()
+                        if k.startswith(("t_", "n_", "routed_"))},
+              "launches": auto_launches, "paths_equal_main": True},
+          "paths_equal_sharing": True})
+    return recorders, launches["batch"]
+
+
+def phase_cache(g, queries, share_report):
+    import numpy as np
+    from repro_torch.core import EngineConfig, PathSession
+    session = PathSession(g, EngineConfig(cache_bytes=256 << 20),
+                          device="cuda")
+    keys = ("t_wall_s", "n_materialized", "n_cache_hits", "n_cache_misses")
+    out = {}
+    cold = session.run(queries)
+    warm = session.run(queries)
+    require(warm.stats["n_materialized"] == 0
+            and warm.stats["n_cache_hits"] > 0,
+            f"the warm run did not hit the cache: {warm.stats}")
+    for a, b in zip(cold, warm):
+        require(np.array_equal(a.paths, b.paths), "cache hit changed rows")
+    check_same(queries, share_report, cold, "BATCH and cached BATCH")
+    t0 = time.perf_counter()
+    session.update_graph(g)
+    t_update = time.perf_counter() - t0
+    after = session.run(queries)
+    require(after.stats["n_materialized"] > 0
+            and after.stats["n_cache_hits"] == 0,
+            f"update_graph left the cache warm: {after.stats}")
+    for name, rep in (("cold", cold), ("warm", warm), ("after_update", after)):
+        out[name] = {k: rep.stats[k] for k in keys}
+    emit({"phase": "cache", **out, "t_update_graph_s": t_update,
+          "cache_info": session.cache.info(), "rows_identical": True})
 
 
 def phase_peaks(torch, dev_info) -> dict:
@@ -431,8 +583,61 @@ def max_abs_err(torch, pairs) -> int:
     return err
 
 
+def float_err(torch, a, b) -> float:
+    """0.0 when two float tensors are equal bit for bit, else the largest
+    absolute difference (inf where only one side is finite or NaN)."""
+    require(a.shape == b.shape and a.dtype == b.dtype,
+            f"shape/dtype mismatch {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+    if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        return 0.0
+    d = (a.double() - b.double()).abs()
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+
+def csr_of_ell(torch, ell):
+    """The adjacency of a padded ELL table (pad = V) as a CSR matrix of
+    ones, pad entries dropped: ``A @ X[:V]`` is the ``sum`` aggregate."""
+    V = ell.shape[0]
+    keep = ell != V
+    crow = torch.zeros(V + 1, dtype=torch.int64, device=ell.device)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), dim=0)
+    col = ell[keep].to(torch.int64)
+    vals = torch.ones(col.shape[0], dtype=torch.float32, device=ell.device)
+    return torch.sparse_csr_tensor(crow, col, vals, size=(V, V))
+
+
+def measure_ell_spmm(torch, ell, xs, op) -> dict:
+    """Kernel against plain version (bit for bit), both timed, with the
+    ``torch.sparse.mm`` yardstick (sum only) and the bound."""
+    from repro_torch.kernels.ell_spmm import ops as eops
+    V, D = ell.shape
+    F = xs.shape[1]
+    err = float_err(torch, eops.ell_spmm_cuda(ell, xs, op),
+                    eops.ell_spmm_ref(ell, xs, op))
+    library_ms = None
+    if op == "sum":
+        a = csr_of_ell(torch, ell)
+        x = xs[:V].contiguous()
+        got = torch.sparse.mm(a, x)
+        # another order of summation: a yardstick of time, checked loosely
+        # (relative to the sum of magnitudes) only to show it computes the
+        # same function
+        scale = float(eops.ell_spmm_ref(ell, xs.abs(), op).max()) or 1.0
+        require(float((got - eops.ell_spmm_ref(ell, xs, op)).abs().max())
+                <= 1e-5 * scale, "torch.sparse.mm computes another function")
+        library_ms = cuda_ms(torch, torch.sparse.mm, lambda: (a, x))
+        del a, x, got
+    nbytes = V * D * 4 + (V + 1) * F * 4 + V * F * 4
+    return {"shape": {"V": V, "D": D, "F": F, "op": op}, "err": err,
+            "ms": cuda_ms(torch, eops.ell_spmm_cuda, lambda: (ell, xs, op)),
+            "plain_ms": cuda_ms(torch, eops.ell_spmm_ref,
+                                lambda: (ell, xs, op)),
+            "library_ms": library_ms, "nbytes": nbytes,
+            "t_ops_ms": V * D * F / F32_OPS_PER_S * 1e3}
+
+
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
-                  share_launches) -> list[dict]:
+                  share_launches, plan_rec, plan_launches) -> list[dict]:
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     from repro_torch.kernels.path_join import ops as jops
@@ -440,6 +645,8 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     clock_hz = dev_info["max_sm_clock_mhz"] * 1e6
     int_rate = INT_PER_CLK_SM * dev_info["sms"] * clock_hz
     rows = []
+    # each kernel's launches on the path that runs it
+    launches = dict(launches, ell_spmm=plan_launches["ell_spmm"])
 
     def bound(nbytes, t_ops_ms):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -547,6 +754,37 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
             sharing={"launches": share_launches[name], "shape": shape2,
                      "max_abs_err": err2, "ms": ms2, "plain_ms": plain2,
                      **bound(nbytes2, t_ops2)})
+
+    # -- ell_spmm: the heaviest call of the default configuration (F = 1,
+    # sum), then two synthetic shapes on the same ELL table with random
+    # float32 features: equal bit for bit only by the order of the adds
+    ell, xs, op = plan_rec["ell_spmm"].best
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    synthetic = []
+    for F, sop in ((128, "sum"), (8, "max")):
+        fill = 0.0 if sop == "sum" else float("-inf")
+        x = torch.randn((ell.shape[0], F), generator=gen, device="cuda")
+        xs_syn = torch.cat([x, torch.full((1, F), fill, device="cuda")])
+        del x
+        m = measure_ell_spmm(torch, ell, xs_syn, sop)
+        del xs_syn
+        require(m["err"] == 0, f"ell_spmm disagrees with its plain version "
+                               f"at {m['shape']}")
+        synthetic.append({"shape": m["shape"], "max_abs_err": m["err"],
+                          "ms": m["ms"], "plain_ms": m["plain_ms"],
+                          "library_ms": m["library_ms"],
+                          **bound(m["nbytes"], m["t_ops_ms"])})
+        torch.cuda.empty_cache()
+    m = measure_ell_spmm(torch, ell, xs, op)
+    row("ell_spmm", m["shape"], m["err"], m["ms"], m["plain_ms"],
+        nbytes=m["nbytes"], t_ops_ms=m["t_ops_ms"],
+        library_ms=m["library_ms"],
+        library_call="torch.sparse.mm of the CSR adjacency (pad entries "
+                     "dropped) and X[:V]; sum only",
+        launches_from="default-config BATCH run of the sharing batch "
+                      "(phase planners)",
+        nonzero_features=plan_rec["ell_spmm"].best_work,
+        synthetic=synthetic)
     return rows
 
 
@@ -572,12 +810,15 @@ def main(argv=None) -> int:
     dev_info = phase_device(torch)
     phase_build()
     g, queries = phase_workload(args.n, args.queries)
-    session, main_rec, launches = phase_main(torch, g, queries)
-    share_rec, share_launches = phase_sharing(torch, g, session,
-                                              args.sharing_queries)
+    session, main_rec, launches, main_report = phase_main(torch, g, queries)
+    share_rec, share_launches, share_queries, share_report = phase_sharing(
+        torch, g, session, args.sharing_queries)
+    plan_rec, plan_launches = phase_planners(
+        torch, g, session, queries, main_report, share_queries, share_report)
+    phase_cache(g, share_queries, share_report)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
-                         share_rec, share_launches)
+                         share_rec, share_launches, plan_rec, plan_launches)
     emit({"phase": "done", "t_total_s": time.perf_counter() - t_start})
     print(dev_info["nvidia_smi"], flush=True)
     emit({"kernels": rows})

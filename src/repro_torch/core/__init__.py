@@ -1,14 +1,19 @@
 """Core: batch HC-s-t simple path query processing (the paper's
 contribution), on PyTorch tensors."""
 from .graph import Graph, DeviceGraph
+from .cache import SharedPathCache
 from .query import (PathQuery, QueryResult, BatchReport, Planner, Output,
                     QueryLike, ResultStatus)
-from .engine import BatchPathEngine, EngineConfig, EngineOverflow
+from .engine import BatchPathEngine, EngineConfig, EngineOverflow, BatchResult
+from .planner import CostEstimate, CostRouter, Route, RouterConfig
 from .session import PathSession
 from .index import build_index, QueryIndex
-from . import generators, oracle
+from . import distributed, generators, oracle, planner
 
 __all__ = ["Graph", "DeviceGraph", "BatchPathEngine", "EngineConfig",
-           "EngineOverflow", "PathQuery", "QueryResult", "BatchReport",
-           "Planner", "Output", "QueryLike", "ResultStatus", "PathSession",
-           "build_index", "QueryIndex", "generators", "oracle"]
+           "EngineOverflow", "BatchResult", "SharedPathCache",
+           "PathQuery", "QueryResult", "BatchReport", "Planner", "Output",
+           "QueryLike", "ResultStatus", "PathSession",
+           "CostEstimate", "CostRouter", "Route", "RouterConfig",
+           "build_index", "QueryIndex", "distributed", "generators",
+           "oracle", "planner"]

@@ -1,9 +1,7 @@
 """DetectCommonQuery (Algorithm 3): build the query sharing graph Ψ and emit
 a static execution plan for the device enumerator.
 
-A numpy copy of ``repro/core/detect.py`` (host code), with its own copy of
-``repro/core/cache.py::node_signature``; the cross-batch cache itself is
-not part of this port yet.
+A numpy copy of ``repro/core/detect.py`` (host code).
 
 Host-side "query compiler". Level-synchronous over remaining hop budget
 (kappa = k_max .. 0), vectorized with numpy over each level's arrival set:
@@ -31,28 +29,14 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Iterable, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
+from .cache import node_signature
 from .graph import Graph
 
-__all__ = ["PlanNode", "DirectionPlan", "detect_common_queries",
-           "node_signature"]
-
-
-def node_signature(direction: str, src: int, budget: int,
-                   consumers: Iterable[tuple[int, int]],
-                   endpoints: dict[int, tuple[int, int]]) -> tuple:
-    """Canonical signature of a Ψ node (without the engine's stop vertex).
-
-    consumers : (query_idx, min_offset) pairs as built by detect.py.
-    endpoints : query_idx -> (endpoint_vertex, k) for this direction
-                (forward: (q.t, q.k); backward: (q.s, q.k)).
-    """
-    sig = tuple(sorted({(int(endpoints[qi][0]), int(endpoints[qi][1]) - int(off))
-                        for qi, off in consumers}))
-    return (direction, int(src), int(budget), sig)
+__all__ = ["PlanNode", "DirectionPlan", "detect_common_queries"]
 
 
 @dataclasses.dataclass

@@ -1,52 +1,56 @@
-"""BatchPathEngine: BasicEnum (Alg 1) and BatchEnum (Alg 4) on one device.
+"""BatchPathEngine: BasicEnum (Alg 1), BatchEnum (Alg 4), the "+" variants,
+the PathEnum baseline and cost-routed AUTO, on one device.
 
-Counterpart of ``repro/core/engine.py`` for ``Planner.BASIC`` and
-``Planner.BATCH`` with ``EngineConfig(plan_caps=False, plus=False,
-cache_bytes=0)``. The host planner (clustering + detection) emits
-per-cluster DirectionPlans; this module materializes HC-s path queries
-level by level (expand supersteps + splice joins) and assembles per-query
-HC-s-t results with the exact-split ⊕ join. Every buffer has a fixed
-capacity with overflow-retry (x4, up to ``hard_cap``).
+Counterpart of ``repro/core/engine.py``. The host planner (clustering +
+detection) emits per-cluster DirectionPlans; this module materializes HC-s
+path queries level by level (expand supersteps + splice joins), caches
+them across batches when a ``SharedPathCache`` is configured (the paper's
+R), and assembles per-query HC-s-t results with the exact-split ⊕ join.
+Every buffer has a capacity planned from walk counts (``plan_caps``, the
+default) with overflow-retry (x4, up to ``hard_cap``).
 
 The engine runs on one device (``"cuda"`` unless the caller passes
 ``device="cpu"``), and each kernel takes the arm of that device: the CUDA
 kernels on the card, their plain versions on the CPU.
 
 Not in this port yet, and refused with ``NotImplementedError`` instead of
-silently degrading: capacity planning from walk counts (``plan_caps=True``,
-the default -- callers pass ``plan_caps=False``), the "+" planners and
-``plus``, ``Planner.AUTO`` / ``PATHENUM``, the cross-batch cache
-(``cache_bytes > 0``), sharding (``mesh`` / ``n_devices > 1``), compile
+silently degrading: sharding (``mesh`` / ``n_devices > 1``), compile
 telemetry (``log_compiles``), span tracing (``trace*``), and the knobs of
-the segment arm, deltas and the AUTO router (``edge_chunk``,
-``delta_max_sources``, ``delta_backend``, ``router``) when set away from
-their defaults.
+the segment arm and of graph deltas
+(``edge_chunk``, ``delta_max_sources``, ``delta_backend``) when set away
+from their defaults.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .cache import SharedPathCache
 from .clustering import cluster_queries
 from .detect import DirectionPlan, PlanNode, detect_common_queries
 from .enumerate import (count_ending_at, expand_level, extract_rows,
                         prune_table, select_ending_at)
 from .graph import DeviceGraph, Graph
-from .index import QueryIndex, build_index, slack_from_dists
+from .index import QueryIndex, build_index, slack_from_dists, walk_counts_ell
 from .join import cross_join, keyed_join, keyed_join_count, sort_by_last
 from .pathset import PathSet, concat, empty, singleton
+from .planner import CostRouter, Route, RouterConfig
 from .query import (BatchReport, Output, PathQuery, PathsStore, Planner,
                     QueryLike, QueryResult, midpoint_split)
 from .similarity import similarity_matrix
 from ..kernels.registry import resolve_arm
+from ..obs import metrics as obsmetrics
 
 __all__ = ["EngineConfig", "BatchPathEngine", "EngineOverflow",
-           "resolve_device"]
+           "BatchResult", "resolve_device"]
+
+Query = tuple[int, int, int]
 
 # backward levels are produced lazily: basic planners skip the whole
 # backward enumeration when a forward level already answers exists-only
@@ -72,12 +76,11 @@ class EngineConfig:
     hard_cap: int = 1 << 22         # absolute limit before EngineOverflow
     join_cap: int = 1 << 21
     min_shared_budget: int = 2      # don't materialize trivially small shares
-    plus: bool = False              # cost-based fwd/bwd split (not ported)
+    plus: bool = False              # cost-based fwd/bwd split (the "+" variants)
     edge_chunk: int = 1 << 22       # segment-arm knob (not ported)
-    plan_caps: bool = True          # DP-based capacity planning (not
-    # ported: pass plan_caps=False)
+    plan_caps: bool = True          # DP-based capacity planning
     paper_faithful_shares: bool = False  # min_shared_budget -> 0
-    cache_bytes: int = 0            # cross-batch cache (not ported)
+    cache_bytes: int = 0            # >0: cross-batch SharedPathCache budget
     delta_max_sources: int = 1024   # delta knobs (deltas not ported)
     delta_backend: str = "host"
     log_compiles: bool = False      # compile telemetry (not ported)
@@ -87,7 +90,20 @@ class EngineConfig:
     trace: bool = False             # span tracing (not ported)
     trace_fence: bool = False
     trace_annotations: bool = False
-    router: Optional[object] = None  # Planner.AUTO thresholds (not ported)
+    router: Optional[RouterConfig] = None  # Planner.AUTO routing thresholds
+    # and output-kind weights (None = planner.RouterConfig defaults)
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Legacy aggregate (eager host matrices); produced only by the
+    deprecated :meth:`BatchPathEngine.process` shim. New code gets a
+    :class:`~repro_torch.core.query.BatchReport` from
+    :meth:`BatchPathEngine.run`.
+    """
+
+    paths: dict[int, np.ndarray]    # query idx -> (n_paths, k+1) int32 (pad -1)
+    stats: dict
 
 
 def resolve_device(device: Union[torch.device, str, None]) -> torch.device:
@@ -104,10 +120,6 @@ def resolve_device(device: Union[torch.device, str, None]) -> torch.device:
 def _check_config(cfg: EngineConfig) -> None:
     """Refuse every option whose code is not ported yet."""
     refused = {
-        "plan_caps=True (walk-count capacity planning; pass "
-        "plan_caps=False)": cfg.plan_caps,
-        "plus=True (the cost-based '+' split)": cfg.plus,
-        "cache_bytes>0 (the cross-batch cache)": cfg.cache_bytes > 0,
         "mesh (sharded execution)": cfg.mesh is not None,
         "n_devices>1 (sharded execution)": (cfg.n_devices or 0) > 1,
         "log_compiles=True (compile telemetry)": cfg.log_compiles,
@@ -116,7 +128,6 @@ def _check_config(cfg: EngineConfig) -> None:
         "edge_chunk (the segment arm)": cfg.edge_chunk != 1 << 22,
         "delta_max_sources / delta_backend (graph deltas)":
             cfg.delta_max_sources != 1024 or cfg.delta_backend != "host",
-        "router (Planner.AUTO)": cfg.router is not None,
     }
     for what, bad in refused.items():
         if bad:
@@ -153,7 +164,8 @@ def _bucket(x: int, min_cap: int = 256) -> int:
 
 class BatchPathEngine:
     def __init__(self, graph: Graph, config: Optional[EngineConfig] = None,
-                 *, device: Union[torch.device, str, None] = None):
+                 cache: Optional[SharedPathCache] = None, *,
+                 device: Union[torch.device, str, None] = None):
         self.device = resolve_device(device)
         self.g = graph
         self.cfg = config or EngineConfig()
@@ -162,6 +174,21 @@ class BatchPathEngine:
         self.kernel_arm = resolve_arm(self.device, self.cfg.kernel_backend)
         self.dg = DeviceGraph.build(graph, self.device)
         self._host_dists: Optional[tuple] = None   # (index, (dist_s, dist_t))
+        if cache is None and self.cfg.cache_bytes > 0:
+            cache = SharedPathCache(self.cfg.cache_bytes)
+        self.cache = cache
+        # Planner.AUTO tier routing + per-cluster planner choice
+        self.router = CostRouter(self.cfg.router)
+
+    def set_graph(self, graph: Graph) -> None:
+        """Swap the graph wholesale: rebuild the device views and drop
+        every piece of graph-derived state (the host-dist memo, the
+        cross-batch cache)."""
+        self.g = graph
+        self.dg = DeviceGraph.build(graph, self.device)
+        self._host_dists = None
+        if self.cache is not None:
+            self.cache.invalidate()
 
     # ------------------------------------------------------------------
     # public API
@@ -171,10 +198,9 @@ class BatchPathEngine:
             clusters: Optional[list[list[int]]] = None) -> BatchReport:
         """Execute a batch of :class:`PathQuery` (tuples are coerced).
 
-        planner : ``Planner.BATCH`` or ``Planner.BASIC`` (or their
-        string values); the other planners are not ported yet.
+        planner : execution strategy (:class:`Planner` or its string value).
         clusters : optional precomputed partition of query indices (batch
-        planner only).
+        planners and AUTO only).
 
         (The reference splits this into ``run`` and ``_run_impl`` for its
         compile telemetry, which is not ported.)
@@ -182,10 +208,7 @@ class BatchPathEngine:
         qs = tuple(PathQuery.coerce(q).check_bounds(self.g.n)
                    for q in queries)
         planner = Planner.coerce(planner)
-        if planner not in (Planner.BATCH, Planner.BASIC):
-            raise NotImplementedError(
-                f"Planner.{planner.name} is not ported yet; it comes with "
-                f"{_NEXT_SLICE} (ported: BATCH, BASIC)")
+        plus = planner.plus or self.cfg.plus
         stats: dict = {"planner": planner.value, "mode": planner.value,
                        "kernel_backend": self.kernel_arm.value,
                        "n_queries": len(qs), "n_rows_assembled": 0}
@@ -193,24 +216,51 @@ class BatchPathEngine:
             stats["t_build_index"] = stats["t_enumerate"] = 0.0
             return BatchReport(queries=qs, results=(), stats=stats)
         with _stage(self.device) as root:
-            with _stage(self.device) as sidx:
-                index = build_index(self.dg, [q.key for q in qs])
-            stats["t_build_index"] = sidx.duration
-            if planner is Planner.BATCH:
-                report = self._run_batch(qs, index, stats, clusters)
+            if planner is Planner.PATHENUM:
+                report = self._run_pathenum(qs, stats)
             else:
-                report = self._run_basic(qs, index, stats)
+                with _stage(self.device) as sidx:
+                    index = build_index(self.dg, [q.key for q in qs])
+                stats["t_build_index"] = sidx.duration
+                if planner is Planner.AUTO:
+                    report = self._run_auto(qs, index, plus, stats,
+                                            clusters)
+                elif planner.batched:
+                    report = self._run_batch(qs, index, plus, stats,
+                                             clusters)
+                else:
+                    report = self._run_basic(qs, index, plus, stats)
         stats["t_wall_s"] = root.duration
+        reg = obsmetrics.registry()
+        arm = self.kernel_arm.value
+        reg.histogram("engine_batch_wall_s", planner=planner.value,
+                      backend=arm).record(root.duration)
+        lat = reg.histogram("query_latency_s", planner=planner.value,
+                            backend=arm)
+        for r in report.results:
+            if r.time_s is not None:
+                lat.record(r.time_s)
         return report
+
+    def process(self, queries: Sequence[Query], mode: str = "batch",
+                clusters: Optional[list[list[int]]] = None) -> BatchResult:
+        """Deprecated tuple-in / dict-out API; thin shim over :meth:`run`."""
+        warnings.warn(
+            "BatchPathEngine.process(queries, mode=...) is deprecated; use "
+            "run(queries, planner=...) or the PathSession facade",
+            DeprecationWarning, stacklevel=2)
+        report = self.run(queries, planner=mode, clusters=clusters)
+        return BatchResult(paths=report.paths, stats=report.stats)
 
     # ------------------------------------------------------------------
     # BasicEnum (Alg 1): shared index, per-query bidirectional enumeration
     # ------------------------------------------------------------------
     def _direct_query(self, q: PathQuery, qi: int, index: QueryIndex,
-                      stats: dict) -> QueryResult:
+                      plus: bool, stats: dict) -> QueryResult:
         """One query through the Alg-1 direct plan: bidirectional
-        enumeration off the shared index, backward half lazy."""
-        a, b = self._split(qi, index)
+        enumeration off the shared index, backward half lazy. Shared by
+        the basic planners, AUTO's GREEN tier and basic-routed clusters."""
+        a, b = self._split(qi, index, plus)
         fs = self._dedicated_slack(index, qi, forward=True)
         fl = self._run_node(False, q.s, a, fs, [], stop_vertex=q.t)
 
@@ -220,41 +270,108 @@ class BatchPathEngine:
 
         return self._wrap(q, self._payload(q, fl, a, bwd, b, stats))
 
-    def _run_basic(self, queries, index: QueryIndex,
+    def _run_basic(self, queries, index: QueryIndex, plus: bool,
                    stats) -> BatchReport:
         with _stage(self.device) as senum:
             results = []
             for qi, q in enumerate(queries):
                 with _stage(self.device) as sq:
-                    r = self._direct_query(q, qi, index, stats)
+                    r = self._direct_query(q, qi, index, plus, stats)
                 r.time_s = sq.duration
                 results.append(r)
         stats["t_enumerate"] = senum.duration
         return BatchReport(queries=tuple(queries), results=tuple(results),
                            stats=stats)
 
+    def _cluster_basic(self, queries, index: QueryIndex, plus: bool,
+                       min_sb: int, cluster: list[int]):
+        """Direct per-query plan for one routed cluster (AUTO's
+        ``"basic"`` per-cluster choice, see ``CostRouter.cluster_planner``).
+        Same ``({qi: QueryResult}, cstats)`` contract as
+        :meth:`_cluster_work`, but no Ψ detection, no sharing, no cache:
+        a cluster with nothing to share skips that machinery's overhead.
+        """
+        del min_sb   # no shares to budget on the direct plan
+        cstats = {"n_psi_nodes": 0, "n_materialized": 0,
+                  "n_cache_hits": 0, "n_cache_misses": 0,
+                  "n_rows_assembled": 0, "n_shared": 0, "n_dedup": 0,
+                  "n_share_edges": 0, "t_detect": 0.0}
+        with _stage(self.device) as se:
+            results: dict[int, QueryResult] = {}
+            for qi in cluster:
+                q = queries[qi]
+                with _stage(self.device) as sq:
+                    results[qi] = self._direct_query(q, qi, index, plus,
+                                                     cstats)
+                results[qi].time_s = sq.duration
+        cstats["t_enumerate"] = se.duration
+        return results, cstats
+
+    def _run_pathenum(self, queries, stats) -> BatchReport:
+        """Per-query index construction + enumeration (the PathEnum
+        baseline)."""
+        results = []
+        t_idx = t_enum = 0.0
+        for q in queries:
+            with _stage(self.device) as sidx:
+                index = build_index(self.dg, [q.key])
+            t_idx += sidx.duration
+            with _stage(self.device) as sq:
+                a, b = self._split(0, index, False)
+                fs = self._dedicated_slack(index, 0, forward=True)
+                fl = self._run_node(False, q.s, a, fs, [], stop_vertex=q.t)
+
+                def bwd(q=q, b=b, index=index):
+                    bs = self._dedicated_slack(index, 0, forward=False)
+                    return self._run_node(True, q.t, b, bs, [],
+                                          stop_vertex=q.s)
+
+                r = self._wrap(q, self._payload(q, fl, a, bwd, b, stats))
+            t_enum += sq.duration
+            r.time_s = sidx.duration + sq.duration
+            results.append(r)
+        stats["t_build_index"] = t_idx
+        stats["t_enumerate"] = t_enum
+        return BatchReport(queries=tuple(queries), results=tuple(results),
+                           stats=stats)
+
     # ------------------------------------------------------------------
     # BatchEnum (Alg 4): cluster -> detect -> shared enumeration
     # ------------------------------------------------------------------
-    def _run_batch(self, queries, index: QueryIndex, stats,
+    def _run_batch(self, queries, index: QueryIndex, plus: bool, stats,
                    clusters: Optional[list[list[int]]] = None) -> BatchReport:
-        results = self._run_clustered(queries, index, stats, clusters)
+        results = self._run_clustered(queries, index, plus, stats, clusters)
         return BatchReport(queries=tuple(queries),
                            results=tuple(results[qi]
                                          for qi in range(len(queries))),
                            stats=stats)
 
-    def _run_clustered(self, queries, index: QueryIndex, stats,
-                       clusters: Optional[list[list[int]]] = None) -> dict:
-        """Cluster -> execute every cluster; returns ``{qi: QueryResult}``."""
-        qis = list(range(len(queries)))
+    def _run_clustered(self, queries, index: QueryIndex, plus: bool, stats,
+                       clusters: Optional[list[list[int]]] = None, *,
+                       subset: Optional[list[int]] = None,
+                       ests: Optional[dict] = None) -> dict:
+        """Cluster → (route) → execute; returns ``{qi: QueryResult}``.
+
+        The shared body of the batch planners and the AUTO YELLOW tier.
+        ``subset`` restricts clustering to those query indices (AUTO runs
+        it on the non-GREEN remainder; similarity rows are sliced, cluster
+        members stay *global* indices). With ``ests`` (qi →
+        :class:`~repro_torch.core.planner.CostEstimate`) the router picks
+        each cluster's planner (basic vs. batch) and tier (YELLOW: RED
+        needs a mesh, so no route is ever upgraded on one device).
+        """
+        qis = list(range(len(queries))) if subset is None else list(subset)
         with _stage(self.device) as sc:
             if clusters is None:
                 mu = similarity_matrix(index)
-                stats["mu_mean"] = float(
-                    (mu.sum() - len(queries)) /
-                    max(len(queries) * (len(queries) - 1), 1))
-                clusters = cluster_queries(mu, self.cfg.gamma)
+                if subset is None:
+                    stats["mu_mean"] = float(
+                        (mu.sum() - len(queries)) /
+                        max(len(queries) * (len(queries) - 1), 1))
+                else:
+                    mu = mu[np.ix_(qis, qis)]
+                local = cluster_queries(mu, self.cfg.gamma)
+                clusters = [[qis[i] for i in cl] for cl in local]
             else:
                 seen = [qi for cl in clusters for qi in cl]
                 if sorted(seen) != sorted(qis):
@@ -269,17 +386,120 @@ class BatchPathEngine:
                     "t_detect", "t_enumerate",
                     "n_shared", "n_dedup", "n_share_edges"):
             stats.setdefault(key, 0)
-        # one device: the reference executor's inline cluster loop
+
+        planners = None
+        if ests is not None:
+            planners = [self.router.cluster_planner(cl, ests,
+                                                    self.cache is not None)
+                        for cl in clusters]
+            stats["cluster_planners"] = list(planners)
+            stats["cluster_routes"] = [
+                self.router.cluster_route(cl, ests, False).value
+                for cl in clusters]
+        # one device: the reference executor's inline cluster loop, with
+        # the router's per-cluster planner choice
         results: dict = {}
-        for cluster in clusters:
-            out, cstats = self._cluster_work(queries, index, min_sb, cluster)
+        for ci, cluster in enumerate(clusters):
+            work = self._cluster_basic if (
+                planners is not None and planners[ci] == "basic") \
+                else self._cluster_work
+            out, cstats = work(queries, index, plus, min_sb, cluster)
             results.update(out)
             for key, val in cstats.items():
                 stats[key] = stats.get(key, 0) + val
         return results
 
-    def _cluster_work(self, queries, index: QueryIndex, min_sb: int,
-                      cluster: list[int]):
+    # ------------------------------------------------------------------
+    # AUTO: cost-routed GREEN/YELLOW/RED tiers (core.planner)
+    # ------------------------------------------------------------------
+    def _run_auto(self, queries, index: QueryIndex, plus: bool, stats,
+                  clusters: Optional[list[list[int]]] = None) -> BatchReport:
+        """Route each query by its index-derived cost estimate: GREEN
+        queries take the direct sweep (no clustering/detection/cache);
+        the remainder runs through :meth:`_run_clustered`, which also
+        picks each cluster's planner and tier. Exactness is
+        planner-independent, so routing can only move wall time."""
+        with _stage(self.device) as sr:
+            dists = self._dists_host(index)
+            ests = self.router.estimate(index, queries, dists)
+            routes = {e.qi: e.route for e in ests}
+            green = [e.qi for e in ests if e.route is Route.GREEN]
+            rest = [e.qi for e in ests if e.route is not Route.GREEN]
+        stats["t_route"] = sr.duration
+
+        # AUTO answers may skip whole stages; pre-zero the batch counters
+        # so report consumers see one stable schema across routes
+        for key in ("n_psi_nodes", "n_materialized",
+                    "n_cache_hits", "n_cache_misses",
+                    "t_detect", "t_enumerate", "t_cluster",
+                    "n_shared", "n_dedup", "n_share_edges"):
+            stats[key] = 0
+        stats["n_clusters"] = 0
+
+        results: dict[int, QueryResult] = {}
+        if green:
+            results.update(self._run_green(queries, index, plus, green,
+                                           stats))
+        if rest:
+            if clusters is not None:
+                # the caller's grouping covered every query; keep only the
+                # non-GREEN members (GREEN ones were just answered)
+                keep = set(rest)
+                clusters = [[qi for qi in cl if qi in keep]
+                            for cl in clusters]
+                clusters = [cl for cl in clusters if cl]
+            results.update(self._run_clustered(
+                queries, index, plus, stats, clusters,
+                subset=rest, ests={e.qi: e for e in ests}))
+
+        reg = obsmetrics.registry()
+        for route in Route:
+            n = sum(1 for r in routes.values() if r is route)
+            stats[f"routed_{route.value}"] = n
+            if n:
+                reg.counter(f"routed_{route.value}").inc(n)
+        return BatchReport(
+            queries=tuple(queries),
+            results=tuple(results[qi] for qi in range(len(queries))),
+            stats=stats,
+            routes=tuple(routes[qi].value for qi in range(len(queries))))
+
+    def _run_green(self, queries, index: QueryIndex, plus: bool,
+                   green: list[int], stats) -> dict:
+        """The GREEN tier: answer routed queries straight off the shared
+        index. exists-only and index-unreachable queries are decided by
+        the MS-BFS distances alone (``dist_G(s,t) <= k`` iff a ≤k-hop
+        simple path exists -- shortest walks are simple); the rest run the
+        direct per-query plan with no detection/clustering/cache."""
+        ds, _ = self._dists_host(index)
+        results: dict[int, QueryResult] = {}
+        with _stage(self.device) as sg:
+            for qi in green:
+                q = queries[qi]
+                with _stage(self.device) as sq:
+                    if int(ds[q.t, index.src_col[qi]]) > q.k:
+                        r = self._empty_result(q)
+                    elif q.output is Output.EXISTS:
+                        r = QueryResult(q, _exists=True)
+                    else:
+                        r = self._direct_query(q, qi, index, plus, stats)
+                r.time_s = sq.duration
+                results[qi] = r
+        stats["t_green"] = sg.duration
+        return results
+
+    def _empty_result(self, q: PathQuery) -> QueryResult:
+        """The (exact) empty answer, shaped like the enumerators': an
+        empty ``(0, k+1)`` path matrix / zero count / False."""
+        if q.output is Output.PATHS:
+            return QueryResult(q, _store=PathsStore(
+                empty(1, q.k + 1, self.device)))
+        if q.output is Output.EXISTS:
+            return QueryResult(q, _exists=False)
+        return QueryResult(q, _count=0, _exists=False)
+
+    def _cluster_work(self, queries, index: QueryIndex, plus: bool,
+                      min_sb: int, cluster: list[int]):
         """One sharing cluster end-to-end: detect → plan execution →
         per-query ⊕ assembly. Returns ``({qi: QueryResult}, cstats)``."""
         cstats = {"n_psi_nodes": 0, "n_materialized": 0,
@@ -292,7 +512,7 @@ class BatchPathEngine:
             ends_b = {}
             for qi in cluster:
                 s, t, k = queries[qi]
-                a, b = self._split(qi, index)
+                a, b = self._split(qi, index, plus)
                 halves_f[qi] = (s, a)
                 halves_b[qi] = (t, b)
                 ends_f[qi] = (t, k)
@@ -345,7 +565,8 @@ class BatchPathEngine:
         return results, cstats
 
     # ------------------------------------------------------------------
-    # plan execution: materialize the needed Ψ nodes in topological order
+    # plan execution: materialize needed Ψ nodes in topological order,
+    # consulting the cross-batch SharedPathCache first
     # ------------------------------------------------------------------
     @staticmethod
     def _plan_children(plan: DirectionPlan, node: PlanNode) -> list[int]:
@@ -375,18 +596,32 @@ class BatchPathEngine:
         children_of = {n.nid: self._plan_children(plan, n) for n in plan.nodes}
         stops = {n.nid: self._node_stop(plan, n, index, forward)
                  for n in plan.nodes}
+        keys: dict[int, tuple] = {}
+        if self.cache is not None:
+            keys = {n.nid: n.signature + (stops[n.nid],)
+                    for n in plan.nodes if n.signature is not None}
         # a node must be present iff it is a query half or spliced by a
-        # present node (no cache: every present node is materialized)
+        # materialized (cache-miss) node; children of hits are never touched.
+        # Cache fetches all happen here -- before any put -- so entries
+        # taken as device copies stay valid for this plan even if evicted
+        # later.
         need: set[int] = set()
+        mat: list[int] = []
         stack = sorted(set(plan.half_of_query.values()))
         while stack:
             nid = stack.pop()
             if nid in need:
                 continue
             need.add(nid)
-            stack.extend(children_of[nid])
+            got = self.cache.get(keys[nid], self.device) \
+                if nid in keys else None
+            if got is not None:
+                cache[nid] = got
+            else:
+                mat.append(nid)
+                stack.extend(children_of[nid])
         for nid in plan.topo:
-            if nid not in need:
+            if nid not in need or nid in cache:
                 continue
             node = plan.nodes[nid]
             slack = self._node_slack(index, node.consumers, forward)
@@ -394,9 +629,14 @@ class BatchPathEngine:
                         for cid in children_of[nid]]
             cache[nid] = self._run_node(not forward, node.src, node.budget,
                                         slack, children, stop_vertex=stops[nid])
+            if self.cache is not None and nid in keys:
+                self.cache.put(keys[nid], cache[nid])
         if stats is not None:
             stats["n_psi_nodes"] += len(plan.nodes)
-            stats["n_materialized"] += len(need)
+            stats["n_materialized"] += len(mat)
+            if self.cache is not None:
+                stats["n_cache_hits"] += len(need) - len(mat)
+                stats["n_cache_misses"] += len(mat)
         return cache
 
     # ------------------------------------------------------------------
@@ -404,7 +644,7 @@ class BatchPathEngine:
     # ------------------------------------------------------------------
     def _run_node(self, reverse: bool, source: int, budget: int, slack,
                   children, stop_vertex: int = -2):
-        caps = self._plan_caps(budget)
+        caps = self._plan_caps(reverse, source, budget, slack)
         for _ in range(8):
             out = self._run_node_once(reverse, source, budget, slack,
                                       children, stop_vertex, caps)
@@ -599,9 +839,25 @@ class BatchPathEngine:
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
-    def _split(self, qi: int, index: QueryIndex) -> tuple[int, int]:
-        """The midpoint split (the cost-based '+' split is not ported)."""
-        return midpoint_split(index.queries[qi][2])
+    def _split(self, qi: int, index: QueryIndex,
+               plus: bool) -> tuple[int, int]:
+        s, t, k = index.queries[qi]
+        a, b = midpoint_split(k)   # shared with cache.dedicated_keys
+        if not plus or k <= 2:
+            return a, b
+        # "+" variants: pick the split minimizing estimated search cost
+        # (float32 sums on the host, as in the reference: above 2**24 the
+        # walk totals, and so the split, may depend on summation order)
+        fs = self._dedicated_slack(index, qi, forward=True)
+        bs = self._dedicated_slack(index, qi, forward=False)
+        cf = self._walk_counts(False, s, fs, k - 1)
+        cb = self._walk_counts(True, t, bs, k - 1)
+        best, best_cost = a, None
+        for cand in range(1, k):
+            cost = cf[:cand + 1].sum() + cb[:k - cand + 1].sum()
+            if best_cost is None or cost < best_cost:
+                best, best_cost = cand, cost
+        return best, k - best
 
     def _dedicated_slack(self, index: QueryIndex, qi: int,
                          forward: bool) -> torch.Tensor:
@@ -642,10 +898,27 @@ class BatchPathEngine:
             cols = ds[:-1, index.src_col[list(cluster)]]
         return (cols.min(axis=1) <= k_max)
 
-    def _plan_caps(self, budget: int) -> list[int]:
-        """Per-level capacities: ``min_cap`` everywhere, grown by the
-        overflow retry (``plan_caps=False``; planning is not ported)."""
-        return [self.cfg.min_cap] * (budget + 1)
+    def _walk_counts(self, reverse: bool, source: int, slack: torch.Tensor,
+                     budget: int) -> np.ndarray:
+        """Per-level walk-count totals (``index.walk_counts_ell``: one
+        ``ell_spmm`` launch per level), copied to the host once. Totals are
+        integer-valued float32, exact below 2**24."""
+        # in-neighbour table of the swept direction: forward counts on G
+        # relax over r_ell (in-nbrs of G), reverse counts over ell
+        ell = self.dg.ell_idx if reverse else self.dg.r_ell_idx
+        return walk_counts_ell(ell, source, slack, n=self.dg.n,
+                               budget=budget).cpu().numpy()
+
+    def _plan_caps(self, reverse: bool, source: int, budget: int,
+                   slack: torch.Tensor) -> list[int]:
+        """Per-level capacities: the walk-count totals clamped to
+        ``max_cap`` and bucketed (``plan_caps``), else ``min_cap``
+        everywhere; either way grown by the overflow retry."""
+        if not self.cfg.plan_caps:
+            return [self.cfg.min_cap] * (budget + 1)
+        tot = self._walk_counts(reverse, source, slack, budget)
+        return [_bucket(min(int(min(t, 2**31)), self.cfg.max_cap),
+                        self.cfg.min_cap) for t in tot]
 
 
 def _pad_width(ps: PathSet, width: int) -> PathSet:

@@ -8,8 +8,9 @@ the enumeration prunes with:
   slack[v] = max over consumers (k_q - offset_q - dist(v, endpoint_q))
 
 A frontier vertex v at depth d survives iff d <= slack[v] (equivalently
-Lemma 3.1's |p| + dist(v, t) <= k). The walk-count DP of the reference
-(capacity planning, the "+" planners' split) is not part of this port yet.
+Lemma 3.1's |p| + dist(v, t) <= k). ``walk_counts_ell`` is the walk-count
+DP behind capacity planning and the "+" planners' split, on the ELL route
+(the reference's segment arm, ``walk_counts``, is not ported).
 """
 from __future__ import annotations
 
@@ -21,8 +22,10 @@ import torch
 
 from .graph import DeviceGraph
 from .msbfs import INF_FOR, msbfs_dist_ell
+from ..kernels.ell_spmm.ops import ell_aggregate
 
-__all__ = ["QueryIndex", "build_index", "slack_from_dists"]
+__all__ = ["QueryIndex", "build_index", "slack_from_dists",
+           "walk_counts_ell"]
 
 Query = tuple[int, int, int]  # (s, t, k)
 
@@ -76,3 +79,29 @@ def build_index(dg: DeviceGraph, queries: Sequence[Query]) -> QueryIndex:
     return QueryIndex(queries=queries, k_max=k_max, sources=srcs,
                       targets=tgts, src_col=src_col, tgt_col=tgt_col,
                       dist_s=dist_s, dist_t=dist_t, INF=INF_FOR(k_max))
+
+
+def walk_counts_ell(ell_in_idx: torch.Tensor, source: int,
+                    slack: torch.Tensor, *, n: int,
+                    budget: int) -> torch.Tensor:
+    """Per-level pruned-walk counts: upper bounds on the enumeration
+    frontier sizes. One ``ell_spmm`` launch (F = 1) per level.
+
+    ell_in_idx: (n, D) padded ELL *in*-neighbour table (forward counts on
+    G take ``dg.r_ell_idx``, reverse counts take ``dg.ell_idx`` -- the
+    convention of :func:`~repro_torch.core.msbfs.msbfs_dist_ell`);
+    slack: (n+1,) int8. Returns the (budget+1,) float32 totals (level 0
+    == 1) on the device, so that the caller copies them to the host once.
+    Totals are integer-valued float32, exact below 2**24 whatever the
+    order of summation.
+    """
+    idx = ell_in_idx[:n]                       # (n, D), pad = n
+    c = torch.zeros((n,), dtype=torch.float32, device=idx.device)
+    c[source] = 1.0
+    keep = slack[:-1]
+    totals = [torch.ones((), dtype=torch.float32, device=idx.device)]
+    for lvl in range(1, budget + 1):
+        nxt = ell_aggregate(idx, c[:, None], op="sum")[:, 0]
+        c = nxt * (keep >= lvl)
+        totals.append(c.sum())
+    return torch.stack(totals)

@@ -5,7 +5,8 @@ paths as a dense int32 matrix on the device. The first ``count`` rows are
 valid and packed at the front; unused cells are -1. ``count`` and
 ``overflow`` stay 0-d device tensors, so reading them (``int(ps.count)``)
 is a host sync, made where the engine needs the value, as in the
-reference.
+reference. ``HostPathSet`` / ``offload`` / ``upload`` are the cross-batch
+cache's storage form and its round trip.
 """
 from __future__ import annotations
 
@@ -14,8 +15,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["PathSet", "empty", "singleton", "compact_index", "compact_rows",
-           "concat", "to_host"]
+__all__ = ["PathSet", "HostPathSet", "empty", "singleton", "compact_index",
+           "compact_rows", "concat", "to_host", "offload", "upload",
+           "pathset_nbytes"]
+
+# per-PathSet bookkeeping charged on top of the vertex matrix (count +
+# overflow scalars); shared by HostPathSet.nbytes and the cache's
+# pre-transfer size estimate so the two can never diverge
+PATHSET_BOOKKEEPING_BYTES = 16
+
+
+def pathset_nbytes(cap: int, width: int, itemsize: int = 4) -> int:
+    """Bytes one (cap, width) path buffer accounts for -- the single
+    byte-math used both for ``HostPathSet.nbytes`` (LRU budget accounting)
+    and for size estimates taken from device shapes before any transfer."""
+    return int(cap) * int(width) * int(itemsize) + PATHSET_BOOKKEEPING_BYTES
 
 
 class PathSet(NamedTuple):
@@ -104,3 +118,42 @@ def concat(sets: list[PathSet]) -> PathSet:
 def to_host(ps: PathSet) -> np.ndarray:
     """Valid rows as a host numpy array (n, L)."""
     return ps.verts[:int(ps.count)].cpu().numpy()
+
+
+class HostPathSet(NamedTuple):
+    """Host copy of a PathSet (the cross-batch cache's storage form).
+
+    The full padded buffer is kept (not just the valid rows) so an upload
+    restores the exact capacity bucket of the original materialization.
+    """
+
+    verts: np.ndarray   # (cap, L) int32
+    count: int
+    overflow: bool
+
+    @property
+    def nbytes(self) -> int:
+        return pathset_nbytes(self.verts.shape[0], self.verts.shape[1],
+                              self.verts.itemsize)
+
+    @property
+    def cap(self) -> int:
+        return self.verts.shape[0]
+
+
+def offload(ps: PathSet) -> HostPathSet:
+    """Device -> host copy preserving capacity, count and overflow (a copy
+    on the CPU too: the entry never shares memory with a batch's tensors)."""
+    return HostPathSet(verts=ps.verts.to("cpu", copy=True).numpy(),
+                       count=int(ps.count),
+                       overflow=bool(ps.overflow))
+
+
+def upload(hps: HostPathSet, device) -> PathSet:
+    """Host -> ``device`` inverse of :func:`offload`, with the port's
+    dtypes (int32 vertices, int64 count, bool overflow)."""
+    return PathSet(verts=torch.from_numpy(hps.verts).to(device, copy=True),
+                   count=torch.tensor(hps.count, dtype=torch.int64,
+                                      device=device),
+                   overflow=torch.tensor(hps.overflow, dtype=torch.bool,
+                                         device=device))

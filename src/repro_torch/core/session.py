@@ -2,13 +2,15 @@
 
 Counterpart of ``repro/core/session.py`` for one-shot batches::
 
-    session = PathSession(graph, EngineConfig(plan_caps=False))  # on "cuda"
+    session = PathSession(graph, EngineConfig(cache_bytes=256 << 20))  # on "cuda"
     report = session.run([PathQuery(s, t, k), (s2, t2, k2)])
     report[0].paths            # lazy host matrix
     report[1].count            # no matrix transfer
+    session.update_graph(new_graph)   # rebuild + invalidate the cache
 
-Streaming (``submit`` / ``pump`` / ``results``) and graph mutation are not
-part of this port yet: those methods raise ``NotImplementedError``.
+Streaming (``submit`` / ``pump`` / ``results``) and incremental graph
+deltas (``apply_delta``) are not part of this port yet: those methods
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,13 +19,14 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from .cache import SharedPathCache
 from .engine import BatchPathEngine, EngineConfig
 from .graph import Graph
 from .query import BatchReport, Planner, QueryLike
 
 __all__ = ["PathSession"]
 
-_STREAMING = ("streaming serving and graph mutation are not ported yet; "
+_STREAMING = ("streaming serving and graph deltas are not ported yet; "
               "they come with a later slice of the PyTorch/CUDA port")
 
 
@@ -33,9 +36,12 @@ class PathSession:
     Parameters
     ----------
     graph : the graph to query (or an existing :class:`BatchPathEngine`
-        to wrap -- its config and device are reused).
+        to wrap -- its config, cache and device are reused).
     config : engine configuration (ignored when wrapping an engine).
     planner : default execution strategy for :meth:`run`.
+    cache : an explicit cross-batch :class:`SharedPathCache` (otherwise
+        one is created when ``config.cache_bytes > 0``). Ignored when
+        wrapping an engine.
     device : where the engine runs; ``None`` means ``"cuda"`` and raises
         when CUDA is absent -- pass ``"cpu"`` to run the plain kernel
         versions on the CPU.
@@ -46,6 +52,7 @@ class PathSession:
     def __init__(self, graph: Union[Graph, BatchPathEngine],
                  config: Optional[EngineConfig] = None, *,
                  planner: Union[Planner, str] = Planner.BATCH,
+                 cache: Optional[SharedPathCache] = None,
                  device: Union[torch.device, str, None] = None,
                  kernel_backend: Optional[str] = None):
         if isinstance(graph, BatchPathEngine):
@@ -54,7 +61,8 @@ class PathSession:
             if kernel_backend is not None:
                 config = dataclasses.replace(config or EngineConfig(),
                                              kernel_backend=kernel_backend)
-            self.engine = BatchPathEngine(graph, config, device=device)
+            self.engine = BatchPathEngine(graph, config, cache=cache,
+                                          device=device)
         self.planner = Planner.coerce(planner)
 
     def run(self, queries: Sequence[QueryLike],
@@ -74,6 +82,16 @@ class PathSession:
         """The engine's kernel arm ("torch" | "cuda")."""
         return self.engine.kernel_arm.value
 
+    @property
+    def cache(self) -> Optional[SharedPathCache]:
+        return self.engine.cache
+
+    def update_graph(self, graph: Graph) -> None:
+        """Swap the graph wholesale: rebuilds device views and invalidates
+        every piece of graph-derived state (host dists, cross-batch
+        cache)."""
+        self.engine.set_graph(graph)
+
     # -- not ported yet ------------------------------------------------
     def submit(self, query: QueryLike, now: Optional[float] = None) -> int:
         raise NotImplementedError(_STREAMING)
@@ -89,9 +107,6 @@ class PathSession:
 
     @property
     def batch_log(self) -> list:
-        raise NotImplementedError(_STREAMING)
-
-    def update_graph(self, graph: Graph) -> None:
         raise NotImplementedError(_STREAMING)
 
     def apply_delta(self, delta) -> None:

@@ -5,7 +5,9 @@ skips with the reason. Run them on a machine with a card::
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-The inputs are integers, so every comparison is exact equality.
+The inputs are integers, or (``ell_spmm``) float32 sums taken in the same
+order by the kernel and its plain version, so every comparison is exact
+equality.
 """
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LAUNCHES, build  # noqa: E402
+from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
+    ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
     msbfs_step_cuda, msbfs_step_ref, pack_bits)
 from repro_torch.kernels.pairwise_popcount.ops import (  # noqa: E402
@@ -113,7 +117,53 @@ def test_engine_on_card_matches_cpu(dev):
     cfg = EngineConfig(plan_caps=False)
     reset_launches()
     on_card = PathSession(g, cfg, device="cuda").run(qs)
-    assert all(LAUNCHES[k] > 0 for k in LAUNCHES), LAUNCHES
+    # every kernel but the walk-count DP's, which plan_caps=False skips
+    assert all(LAUNCHES[k] > 0 for k in LAUNCHES if k != "ell_spmm"), \
+        LAUNCHES
+    assert LAUNCHES["ell_spmm"] == 0
     on_cpu = PathSession(g, cfg, device="cpu").run(qs)
     for a, b in zip(on_card, on_cpu):
         assert np.array_equal(a.paths, b.paths)
+
+
+@pytest.mark.parametrize("V,D,F,op", [(1 << 20, 32, 1, "sum"),
+                                      (1 << 16, 32, 8, "max"),
+                                      (1000, 5, 3, "sum"), (37, 3, 128, "max"),
+                                      (50, 0, 2, "max"), (0, 4, 1, "sum")])
+def test_ell_spmm_matches_plain_bit_for_bit(dev, V, D, F, op):
+    r = np.random.default_rng(V + D + F)
+    ell = torch.from_numpy(_ell(r, V, D, 0.3)).to(dev)
+    ell[: min(V, 5)] = V                                  # all-pad rows
+    # arbitrary float32s: equal only because the order of adds is the same
+    x = torch.from_numpy((r.standard_normal((V, F)) * 10.0 ** r.integers(
+        -3, 4, (V, F))).astype(np.float32)).to(dev)
+    fill = 0.0 if op == "sum" else float("-inf")
+    xs = torch.cat([x, torch.full((1, F), fill, device=dev)])
+    before = LAUNCHES["ell_spmm"]
+    got = ell_spmm_cuda(ell, xs, op)
+    want = ell_spmm_ref(ell, xs, op)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_spmm"] == before + (V > 0 and D > 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    agg = ell_aggregate(ell, x, op)                      # the CUDA arm
+    assert torch.isfinite(agg).all()
+
+
+def test_default_config_engine_on_card_matches_cpu(dev):
+    from repro_torch.core import EngineConfig, PathSession, generators
+    from repro_torch.kernels import reset_launches
+    g = generators.community(3000, n_comm=6, avg_deg=6.0, seed=3)
+    qs = generators.random_queries(g, 12, k_range=(3, 5), seed=4)
+    on_card = PathSession(g, EngineConfig(cache_bytes=1 << 24),
+                          device="cuda")
+    on_cpu = PathSession(g, EngineConfig(cache_bytes=1 << 24), device="cpu")
+    for planner in ("batch", "batch+", "basic+", "pathenum", "auto"):
+        reset_launches()
+        a = on_card.run(qs, planner=planner)
+        assert LAUNCHES["ell_spmm"] > 0, planner
+        b = on_cpu.run(qs, planner=planner)
+        assert a.routes == b.routes
+        for key in ("n_materialized", "n_cache_hits"):
+            assert a.stats.get(key) == b.stats.get(key), (planner, key)
+        for x, y in zip(a, b):
+            assert np.array_equal(x.paths, y.paths), planner

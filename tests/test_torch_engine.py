@@ -12,6 +12,8 @@ compaction order), so rows are compared as arrays, not only as sets.
 Also here: the porting hazards of the path buffers and joins (argsort
 stability, the compaction dump row, count dtypes), each against the JAX
 function on the same inputs, and the refusal of every unported option.
+The default configuration and the other planners are held against the
+JAX engine in ``test_torch_planners.py``.
 """
 import pytest
 
@@ -33,7 +35,7 @@ from repro.core.pathset import concat as j_concat  # noqa: E402
 from repro.core.pathset import PathSet as JPathSet  # noqa: E402
 from repro.core.query import PathQuery as JPathQuery  # noqa: E402
 from repro_torch.core import (EngineConfig, Graph, PathQuery,  # noqa: E402
-                              PathSession, Planner, oracle)
+                              PathSession, oracle)
 from repro_torch.core.engine import BatchPathEngine  # noqa: E402
 from repro_torch.core.enumerate import expand_level, prune_table  # noqa: E402
 from repro_torch.core.join import (cross_join, keyed_join,  # noqa: E402
@@ -177,9 +179,6 @@ def test_empty_batch_and_precomputed_clusters(workload):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [
-    dict(),                                   # plan_caps=True by default
-    dict(plan_caps=False, plus=True),
-    dict(plan_caps=False, cache_bytes=1 << 20),
     dict(plan_caps=False, mesh=object()),
     dict(plan_caps=False, n_devices=2),
     dict(plan_caps=False, log_compiles=True),
@@ -187,24 +186,16 @@ def test_empty_batch_and_precomputed_clusters(workload):
     dict(plan_caps=False, edge_chunk=1 << 20),
     dict(plan_caps=False, delta_max_sources=64),
     dict(plan_caps=False, delta_backend="device"),
-    dict(plan_caps=False, router=object()),
 ])
 def test_unported_options_raise(workload, cfg):
     with pytest.raises(NotImplementedError, match="not ported"):
         BatchPathEngine(workload["g"], EngineConfig(**cfg), device=CPU)
 
 
-@pytest.mark.parametrize("planner", [Planner.AUTO, Planner.PATHENUM,
-                                     Planner.BASIC_PLUS, Planner.BATCH_PLUS])
-def test_unported_planners_raise(workload, planner):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        workload["session"].run(workload["queries"][:2], planner=planner)
-
-
 @pytest.mark.parametrize("call", [
     lambda s: s.submit((0, 1, 3)), lambda s: s.pump(), lambda s: s.results(),
     lambda s: s.result(0), lambda s: s.batch_log,
-    lambda s: s.update_graph(None), lambda s: s.apply_delta(None),
+    lambda s: s.apply_delta(None),
 ])
 def test_session_streaming_raises(workload, call):
     with pytest.raises(NotImplementedError, match="not ported"):

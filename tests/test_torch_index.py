@@ -1,8 +1,9 @@
 """The port's graph, index, similarity, clustering and detection against
 the JAX package, on the same graphs and queries (made from seeds).
 
-Everything compared is integer or float64 computed from integers, so the
-tolerance is exact equality throughout. The JAX side runs its kernels
+Everything compared is integer, float64 computed from integers, or
+integer-valued float32 below 2**24 (the walk counts), so the tolerance is
+exact equality throughout. The JAX side runs its kernels
 under the Pallas interpreter (``backend="interpret"``), as its own tests
 do on the CPU.
 """
@@ -20,13 +21,17 @@ from repro.core.detect import detect_common_queries as j_detect  # noqa: E402
 from repro.core.graph import DeviceGraph as JDeviceGraph  # noqa: E402
 from repro.core.index import build_index as j_build_index  # noqa: E402
 from repro.core.index import slack_from_dists as j_slack  # noqa: E402
+from repro.core.index import walk_counts as j_walk_counts  # noqa: E402
+from repro.core.index import walk_counts_ell as j_walk_counts_ell  # noqa: E402
+from repro.core.msbfs import edge_span as j_edge_span  # noqa: E402
 from repro.core.msbfs import msbfs_dist_ell as j_msbfs_dist_ell  # noqa: E402
 from repro.core.similarity import similarity_matrix as j_similarity  # noqa: E402
 from repro_torch.core import generators, oracle  # noqa: E402
 from repro_torch.core.clustering import cluster_queries  # noqa: E402
 from repro_torch.core.detect import detect_common_queries  # noqa: E402
 from repro_torch.core.graph import DeviceGraph, Graph, pow2_ceil  # noqa: E402
-from repro_torch.core.index import build_index, slack_from_dists  # noqa: E402
+from repro_torch.core.index import (build_index,  # noqa: E402
+                                    slack_from_dists, walk_counts_ell)
 from repro_torch.core.msbfs import (K_MAX_INT8, INF_FOR,  # noqa: E402
                                     msbfs_dist_ell)
 from repro_torch.core.query import midpoint_split  # noqa: E402
@@ -217,3 +222,50 @@ def test_detect_plans_identical(case, min_sb):
         ref = j_detect(case["jg"], cluster, halves, hop, reverse=reverse,
                        min_shared_budget=min_sb, endpoints=ends)
         assert _plan_tuple(mine) == _plan_tuple(ref)
+
+
+# ----------------------------------------------------------------------
+# walk-count DP (capacity planning and the "+" split)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_walk_counts_ell_equal_reference(case, reverse):
+    """Each query's dedicated slack, both directions, budget k: the port's
+    ELL DP against the JAX ELL DP (interpret-mode Pallas) and the JAX
+    segment DP. The counts stay far below 2**24 here, so the totals are
+    exact whatever the order of summation."""
+    index, dg, jdg, n = case["index"], case["dg"], case["jdg"], case["dg"].n
+    m_valid = j_edge_span(jdg.m, 1 << 22, jdg.m_cap)
+    for qi, (s, t, k) in enumerate(case["queries"][:4]):
+        dist, col, root = ((index.dist_s, index.src_col[qi], t) if reverse
+                           else (index.dist_t, index.tgt_col[qi], s))
+        slack = slack_from_dists(dist[:, int(col)][:, None],
+                                 np.array([k], np.int32),
+                                 np.array([0], np.int32), index.INF)
+        j_sl = jnp.asarray(slack.numpy())
+        got = walk_counts_ell(dg.ell_idx if reverse else dg.r_ell_idx, root,
+                              slack, n=n, budget=k)
+        assert got.dtype == torch.float32 and got.shape == (k + 1,)
+        ref_ell = j_walk_counts_ell(jdg.ell_idx if reverse else jdg.r_ell_idx,
+                                    root, j_sl, n=n, budget=k,
+                                    backend="interpret")
+        esrc, edst = ((jdg.r_esrc, jdg.r_edst) if reverse
+                      else (jdg.esrc, jdg.edst))
+        ref_seg = j_walk_counts(esrc, edst, root, j_sl, n=n, budget=k,
+                                m_valid=m_valid)
+        assert np.array_equal(got.numpy(), np.asarray(ref_ell))
+        assert np.array_equal(got.numpy(), np.asarray(ref_seg))
+        assert float(got[0]) == 1.0 and float(got.max()) < 2 ** 24
+
+
+def test_walk_counts_ell_counts_walks_on_a_path_graph():
+    # 0 -> 1 -> 2 -> 3 with no pruning: one walk of each length
+    g = Graph.from_edges(4, [0, 1, 2], [1, 2, 3])
+    dg = DeviceGraph.build(g, CPU)
+    slack = torch.full((5,), 9, dtype=torch.int8)
+    slack[-1] = -1
+    got = walk_counts_ell(dg.r_ell_idx, 0, slack, n=4, budget=4)
+    assert got.tolist() == [1.0, 1.0, 1.0, 1.0, 0.0]
+    slack[2] = 1                # vertex 2 survives only at depth <= 1
+    got = walk_counts_ell(dg.r_ell_idx, 0, slack, n=4, budget=4)
+    assert got.tolist() == [1.0, 1.0, 0.0, 0.0, 0.0]

@@ -56,7 +56,8 @@ def test_no_jax_or_repro_import_in_source(path):
 
 def test_every_kernel_module_imports_without_nvcc():
     import importlib
-    for name in ("msbfs_expand", "pairwise_popcount", "path_join"):
+    for name in ("msbfs_expand", "pairwise_popcount", "path_join",
+                 "ell_spmm"):
         importlib.import_module(f"repro_torch.kernels.{name}.ops")
     from repro_torch.kernels import build
     assert not any(build.BUILD_DIR.glob("*.tmp"))

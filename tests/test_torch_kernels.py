@@ -1,10 +1,12 @@
 """The port's plain kernel versions against the JAX package's kernels.
 
-For each of the four ported kernels, the same random inputs (made with
+For each of the five ported kernels, the same random inputs (made with
 numpy from a seed) go through the port's plain PyTorch version, the JAX
-``ref.py`` and the Pallas kernel under the interpreter. All outputs are
-integers: the tolerance is exact equality. Also: the kernel-arm rules, and
-that the CUDA wrappers refuse CPU tensors.
+``ref.py`` and the Pallas kernel under the interpreter. The tolerance is
+exact equality: the outputs are integers, or (``ell_spmm``) float32 sums
+taken in the same order as the Pallas kernel's, which agree bit for bit
+for any values. Also: the kernel-arm rules, and that the CUDA wrappers
+refuse CPU tensors.
 """
 import pytest
 
@@ -13,6 +15,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.ell_spmm.kernel import ell_spmm_pallas  # noqa: E402
+from repro.kernels.ell_spmm.ops import (  # noqa: E402
+    ell_aggregate as j_ell_aggregate)
 from repro.kernels.msbfs_expand.kernel import msbfs_step_pallas  # noqa: E402
 from repro.kernels.msbfs_expand.ref import (  # noqa: E402
     msbfs_step_ref as j_msbfs_step_ref, pack_bits as j_pack_bits)
@@ -27,6 +32,7 @@ from repro.kernels.path_join.ref import (  # noqa: E402
     path_member_ref as j_path_member_ref,
     rowwise_overlap_ref as j_rowwise_overlap_ref)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.ell_spmm import ops as eops  # noqa: E402
 from repro_torch.kernels.msbfs_expand import ops as mops  # noqa: E402
 from repro_torch.kernels.pairwise_popcount import ops as pops  # noqa: E402
 from repro_torch.kernels.path_join import ops as jops  # noqa: E402
@@ -198,6 +204,75 @@ def test_strided_rows_match_contiguous():
 
 
 # ----------------------------------------------------------------------
+# ell_spmm
+# ----------------------------------------------------------------------
+
+def _spmm_inputs(V, D, F, seed, *, pad_frac=0.3, pad_rows=0, floats=False):
+    r = np.random.default_rng(seed)
+    ell = r.integers(0, V, (V, D)).astype(np.int32) if V else \
+        np.zeros((0, D), np.int32)
+    ell[r.random((V, D)) < pad_frac] = V
+    ell[:pad_rows] = V                               # all-pad rows
+    if floats:      # arbitrary float32s: equal only by order of summation
+        x = (r.standard_normal((V, F)) * 10.0 ** r.integers(
+            -3, 4, (V, F))).astype(np.float32)
+    else:           # integer-valued, as the walk-count DP's
+        x = r.integers(-50, 50, (V, F)).astype(np.float32)
+    return ell, x
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("V,D,F,seed,kw", [
+    (40, 4, 1, 0, {}),
+    (300, 8, 3, 1, {}),
+    (33, 5, 1, 2, {"pad_rows": 33}),                # every row all-pad
+    (70, 6, 3, 3, {"pad_rows": 10, "pad_frac": 0.6}),
+])
+def test_ell_aggregate_matches_jax(op, V, D, F, seed, kw):
+    ell, x = _spmm_inputs(V, D, F, seed, **kw)
+    got = eops.ell_aggregate(torch.from_numpy(ell), torch.from_numpy(x), op)
+    assert got.dtype == torch.float32 and got.shape == (V, F)
+    for backend in ("jnp", "interpret"):
+        ref = j_ell_aggregate(jnp.asarray(ell), jnp.asarray(x), op=op,
+                              backend=backend)
+        assert np.array_equal(_np(got), np.asarray(ref)), backend
+    if kw.get("pad_rows") == V:
+        assert not got.any()            # neutral everywhere (max: -inf -> 0)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("V,D,F,seed", [(257, 16, 3, 5), (100, 32, 1, 6)])
+def test_ell_spmm_plain_bit_equal_to_pallas_for_any_floats(op, V, D, F, seed):
+    ell, x = _spmm_inputs(V, D, F, seed, floats=True)
+    fill = 0.0 if op == "sum" else -np.inf
+    xs = np.concatenate([x, np.full((1, F), fill, np.float32)])
+    got = eops.ell_spmm_ref(torch.from_numpy(ell), torch.from_numpy(xs), op)
+    ref = np.asarray(ell_spmm_pallas(jnp.asarray(ell), jnp.asarray(xs), op=op,
+                                     interpret=True))
+    # bit for bit, not merely close: the same order of float adds
+    assert np.array_equal(_np(got).view(np.int32), ref.view(np.int32))
+
+
+def test_ell_aggregate_zero_vertices_and_width():
+    for op in ("sum", "max"):
+        out = eops.ell_aggregate(torch.zeros((0, 4), dtype=torch.int32),
+                                 torch.zeros((0, 2)), op)
+        ref = j_ell_aggregate(jnp.zeros((0, 4), jnp.int32),
+                              jnp.zeros((0, 2), jnp.float32), op=op,
+                              backend="jnp")
+        assert out.shape == (0, 2) == ref.shape
+    ell, x = _spmm_inputs(20, 3, 0, 7)
+    assert eops.ell_aggregate(torch.from_numpy(ell),
+                              torch.from_numpy(x)).shape == (20, 0)
+
+
+def test_ell_aggregate_unknown_op_raises():
+    ell, x = _spmm_inputs(10, 2, 1, 8)
+    with pytest.raises(ValueError, match="sum | max"):
+        eops.ell_aggregate(torch.from_numpy(ell), torch.from_numpy(x), "mean")
+
+
+# ----------------------------------------------------------------------
 # arm rules, wrappers on the wrong device, builds without nvcc
 # ----------------------------------------------------------------------
 
@@ -232,6 +307,8 @@ def test_explicit_cuda_arm_on_cpu_tensor_raises():
         jops.path_member(x, x, arm="cuda")
     with pytest.raises(ValueError):
         pops.pairwise_popcount(x, arm="cuda")
+    with pytest.raises(ValueError):
+        eops.ell_aggregate(x, torch.zeros((2, 1)), arm="cuda")
 
 
 @pytest.mark.parametrize("call", [
@@ -241,6 +318,7 @@ def test_explicit_cuda_arm_on_cpu_tensor_raises():
     lambda x: pops.pairwise_popcount_cuda(x),
     lambda x: jops.path_member_cuda(x, x),
     lambda x: jops.rowwise_overlap_cuda(x, x),
+    lambda x: eops.ell_spmm_cuda(x, torch.zeros((3, 1))),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     from repro_torch.kernels import LAUNCHES
