@@ -8,7 +8,9 @@
 Phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
 and BASIC); phases 6 and 7 the engine's default configuration
 (``EngineConfig()``: walk-count capacity planning on ``ell_spmm``) under
-every planner, and the cross-batch cache.
+every planner, and the cross-batch cache; phase 8 incremental graph
+deltas under both ``delta_backend`` values; phase 9 the kernel ops API
+(``msbfs_hop_packed``, ``path_overlap`` and the join-validity matrices).
 
 Phases, each printing one JSON line (``"phase": ...``):
 
@@ -46,19 +48,49 @@ Phases, each printing one JSON line (``"phase": ...``):
                twice (the second must materialize nothing, hit, and give
                identical rows), then ``update_graph(g)`` and a run that
                must materialize again.
-8. peaks    -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+8. delta    -- ``EngineConfig(cache_bytes=256 << 20)`` with
+               ``delta_backend="host"`` and ``"msbfs"``, two sessions side
+               by side on one batch: the sharing batch, else (when its hop
+               balls leave fewer than 8 x 128 vertices outside them) the
+               main batch, else the main batch's k = 4 queries. A cold
+               run, then four deltas, each applied to both sessions and
+               followed by a rerun: *far* (128 deletions + 128 absent
+               insertions among the vertices beyond every query's hop
+               radius: the cache stays warm), *near* (one edge of a
+               returned path: evicts, and the path is gone), *wide*
+               (0.25% of m deletions + as many insertions: full
+               invalidation) and *cap* (in-edges into a vertex of maximum
+               in-degree past ``r_ell_cap``: the tables are rebuilt with
+               caps that do not shrink). The two reports must agree; the
+               ``"msbfs"`` session must launch ``msbfs_step`` in
+               ``apply_delta`` and its distances equal ``host_set_dist``'s
+               within the radius; every rerun's path sets equal a fresh
+               session's on the new graph, and a few queries the oracle's.
+               ``t_apply_s`` is printed beside an ``update_graph`` of the
+               same graph.
+9. ops      -- the ops API on the main path's inputs: ``msbfs_hop_packed``
+               on the frontier of the heaviest ``msbfs_step`` call of the
+               main batch, ``path_overlap`` on 4096 x 4096 rows of 6
+               vertex ids with -1 pads, ``splice_join_valid`` on the
+               sharing batch's heaviest splice join and
+               ``keyed_join_valid`` on its heaviest keyed join with
+               NA*NB <= 2**26, whose valid-pair sums must equal the joins'
+               counts.
+10. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-9. kernels  -- each kernel again on the inputs of its heaviest call in the
+11. kernels -- each kernel again on the inputs of its heaviest call in the
                main path (and, for the join kernels, in the sharing
-               batch; for ``ell_spmm`` also two synthetic shapes on the
-               graph's ELL table with random float32 features, F = 128
-               sum and F = 8 max), held against its plain PyTorch version
-               on the card (exact equality: the outputs are integers, or
-               float32 sums taken in the same order), timed with CUDA
-               events (median of 10 warm runs) beside the plain version,
-               one PyTorch library call where one computes the same
-               function, and the least time the card could take.
+               batch; for ``msbfs_step`` also the W = 1 sweep of phase
+               ``delta``; for ``ell_spmm`` also two synthetic shapes on
+               the graph's ELL table with random float32 features, F = 128
+               sum and F = 8 max; for ``path_overlap`` also the splice
+               join of phase ``ops``), held against its plain PyTorch
+               version on the card (exact equality: the outputs are
+               integers, or float32 sums taken in the same order), timed
+               with CUDA events (median of 10 warm runs) beside the plain
+               version, one PyTorch library call where one computes the
+               same function, and the least time the card could take.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -101,6 +133,10 @@ KERNEL_ROWS = {
                         "src/repro/kernels/path_join/kernel.py:70"),
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm/kernel.py:47"),
+    "msbfs_expand": ("src/repro_torch/csrc/msbfs_step.cu",
+                     "src/repro/kernels/msbfs_expand/kernel.py:44"),
+    "path_overlap": ("src/repro_torch/csrc/path_join.cu",
+                     "src/repro/kernels/path_join/kernel.py:39"),
 }
 # the kernels of the first slice's path (plan_caps=False), which phases 4
 # and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
@@ -108,6 +144,14 @@ FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "path_member",
                "rowwise_overlap")
 # the planners phase 6 drives with the default configuration
 PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
+# the kernels of the ops API, which phase 9 drives
+OPS_KERNELS = ("msbfs_expand", "path_overlap")
+# phase 8: the far delta's deletions and insertions (exp10's background
+# churn), and the pool it needs beyond every hop ball (exp10's "strict")
+FAR_EDGES = 128
+FAR_POOL = 8 * FAR_EDGES
+# the wide delta's deletions (and insertions) per edge: exp10's rate
+WIDE_RATE = 0.0025
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -171,6 +215,52 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.fn_name, self.fn)
+
+
+class JoinRecorder:
+    """Wraps one of the engine module's joins while active; keeps a copy
+    of the valid rows of both sides of the heaviest call that did not
+    overflow (by the number of row pairs it considered, at most
+    ``max_pairs``) with its column arguments and output count."""
+
+    def __init__(self, name: str, sides, max_pairs: int = 1 << 62):
+        from repro_torch.core import engine
+        self.module, self.name, self.sides = engine, name, sides
+        self.fn = getattr(engine, name)
+        self.max_pairs = max_pairs
+        self.best, self.best_work = None, -1
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        a, b = self.sides(args)
+        work = a.shape[0] * b.shape[0]
+        if (not bool(out.overflow) and work <= self.max_pairs
+                and work > self.best_work):
+            self.best_work = work
+            self.best = {"a": a.clone(), "b": b.clone(), "args": args,
+                         "kw": dict(kw), "count": int(out.count)}
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def join_recorders() -> dict:
+    """The splice join (``cross_join``: prefix rows x cached child rows)
+    and the keyed join (``keyed_join``: sorted forward rows x backward
+    rows, NA*NB <= 2**26) of the engine."""
+    return {
+        "splice": JoinRecorder(
+            "cross_join", lambda a: (a[0][:int(a[1])], a[2][:int(a[3])])),
+        "keyed": JoinRecorder(
+            "keyed_join", lambda a: (a[0].verts[:int(a[0].count)],
+                                     a[1][:int(a[2])]),
+            max_pairs=1 << 26),
+    }
 
 
 # ----------------------------------------------------------------------
@@ -379,9 +469,12 @@ def phase_sharing(torch, g, session, nq: int):
 
     joins = ("path_member", "rowwise_overlap")
     recorders = make_recorders(torch, joins)
-    with recording(recorders):
+    join_rec = join_recorders()
+    with recording(recorders), recording(join_rec):
         rec = session.run(queries, planner="batch")
     require([r.count for r in rec] == counts, "recorded run differs")
+    require(all(r.best is not None for r in join_rec.values()),
+            "the sharing batch ran no splice or no keyed join")
     rows = {k: recorders[k].best[0].shape[0] for k in joins}
     require(all(n > session.engine.cfg.min_cap for n in rows.values()),
             f"the sharing batch never outgrew min_cap: {rows}")
@@ -396,9 +489,13 @@ def phase_sharing(torch, g, session, nq: int):
           "total_paths": sum(counts), "max_paths": max(counts),
           "queries_without_paths": sum(1 for c in counts if c == 0),
           "launches": launches, "heaviest_join_rows": rows,
+          "heaviest_joins": {k: {"rows": [r.best["a"].shape[0],
+                                          r.best["b"].shape[0]],
+                                 "count": r.best["count"]}
+                             for k, r in join_rec.items()},
           "oracle_checked": n_oracle, "t_oracle_s": t_oracle,
           "basic_equal": True, "t_basic_s": t_basic})
-    return recorders, launches, queries, rep
+    return recorders, join_rec, launches, queries, rep
 
 
 class RetryCounter:
@@ -510,6 +607,354 @@ def phase_cache(g, queries, share_report):
         out[name] = {k: rep.stats[k] for k in keys}
     emit({"phase": "cache", **out, "t_update_graph_s": t_update,
           "cache_info": session.cache.info(), "rows_identical": True})
+
+
+def edge_keys(g):
+    """The sorted ``src * n + dst`` keys of a graph's edges (CSR order)."""
+    import numpy as np
+    return np.repeat(np.arange(g.n, dtype=np.int64),
+                     np.diff(g.indptr)) * g.n + g.indices
+
+
+def absent_pairs(g, verts, count: int, rng, keys):
+    """``count`` distinct absent non-loop edges between vertices of
+    ``verts`` (exp10's ``_absent_pairs``, with the membership test on the
+    sorted key array instead of a Python set of 8 M edges)."""
+    import numpy as np
+    got = np.zeros(0, np.int64)
+    while got.size < count:
+        u = rng.choice(verts, size=4 * count)
+        v = rng.choice(verts, size=4 * count)
+        key = (u * g.n + v)[u != v]
+        pos = np.minimum(np.searchsorted(keys, key), keys.size - 1)
+        key = np.concatenate([got, key[keys[pos] != key]])
+        _, first = np.unique(key, return_index=True)
+        got = key[np.sort(first)]                  # draw order, no repeats
+    got = got[:count]
+    return list(zip((got // g.n).tolist(), (got % g.n).tolist()))
+
+
+def churn_pool(torch, dg, queries):
+    """Vertices beyond every query's hop radius (exp10's ``_churn_pool``):
+    the batch's own index distances, ``dist(s, v) > k`` and
+    ``dist(v, t) > k`` for every query, which give the set that exp10's
+    per-query host BFS gives."""
+    from repro_torch.core import build_index
+    index = build_index(dg, queries)
+    ks = torch.tensor([q[2] for q in queries], dtype=torch.int8,
+                      device=index.dist_s.device)
+    n = dg.n
+    cols_s = torch.from_numpy(index.src_col.astype("int64")).to(ks.device)
+    cols_t = torch.from_numpy(index.tgt_col.astype("int64")).to(ks.device)
+    hot = (index.dist_s[:n][:, cols_s] <= ks).any(dim=1)
+    hot |= (index.dist_t[:n][:, cols_t] <= ks).any(dim=1)
+    return torch.nonzero(~hot).flatten().cpu().numpy()
+
+
+def far_delta(g, pool, rng):
+    """FAR_EDGES deletions of existing edges inside the pool and as many
+    absent insertions between pool vertices (exp10's ``_make_delta``)."""
+    import numpy as np
+    from repro_torch.core import GraphDelta
+    keys = edge_keys(g)
+    cold = np.zeros(g.n, bool)
+    cold[pool] = True
+    cand = np.flatnonzero(cold[keys // g.n] & cold[keys % g.n])
+    require(cand.size >= FAR_EDGES, f"the pool holds {cand.size} edges")
+    pick = cand[rng.choice(cand.size, size=FAR_EDGES, replace=False)]
+    dels = list(zip((keys[pick] // g.n).tolist(),
+                    (keys[pick] % g.n).tolist()))
+    return GraphDelta.from_pairs(
+        add=absent_pairs(g, pool, FAR_EDGES, rng, keys), remove=dels)
+
+
+def wide_delta(g, rng):
+    """WIDE_RATE * m deletions of existing edges anywhere and as many
+    absent insertions (exp10's rate)."""
+    import numpy as np
+    from repro_torch.core import GraphDelta
+    keys = edge_keys(g)
+    count = int(WIDE_RATE * g.m)
+    pick = keys[rng.choice(keys.size, size=count, replace=False)]
+    dels = list(zip((pick // g.n).tolist(), (pick % g.n).tolist()))
+    return GraphDelta.from_pairs(
+        add=absent_pairs(g, np.arange(g.n), count, rng, keys), remove=dels)
+
+
+def cap_delta(g, dg, rng):
+    """In-edges into a vertex of maximum in-degree until its in-degree
+    passes the in-neighbour table's cap."""
+    import numpy as np
+    from repro_torch.core import GraphDelta
+    v = int(np.argmax(g.in_degree()))
+    need = dg.r_ell_cap - int(g.in_degree()[v]) + 1
+    have = np.append(g.neighbors(v, reverse=True), v)
+    cand = np.setdiff1d(rng.choice(g.n, size=4 * need, replace=False), have)
+    return GraphDelta.from_pairs(add=[(int(u), v) for u in cand[:need]])
+
+
+class DistsRecorder:
+    """Keeps what an engine's ``_delta_dists`` priced while active."""
+
+    def __init__(self, engine):
+        self.engine, self.fn = engine, engine._delta_dists
+        self.calls = []
+
+    def __call__(self, applied, k_max):
+        out = self.fn(applied, k_max)
+        self.calls.append((applied, k_max, out))
+        return out
+
+    def __enter__(self):
+        self.engine._delta_dists = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._delta_dists          # back to the class's method
+
+
+def phase_delta(torch, g, batches):
+    """Phase 8 (see the module docstring). ``batches``: the candidate
+    (name, queries) in order of preference."""
+    import numpy as np
+    from repro_torch.core import (DeviceGraph, EngineConfig, GraphDelta,
+                                  PathSession, host_set_dist, oracle)
+    from repro_torch.core.graph import pow2_ceil
+    from repro_torch.core.msbfs import K_MAX_INT8, msbfs_set_dist_ell
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    dg0 = DeviceGraph.build(g, "cuda")
+    pools = {}
+    for batch, queries in batches:
+        pool = churn_pool(torch, dg0, queries)
+        pools[batch] = int(pool.size)
+        if pool.size >= FAR_POOL:
+            break
+    require(pool.size >= FAR_POOL, f"no batch leaves a churn pool: {pools}")
+    del dg0
+    t_pool = time.perf_counter() - t0
+    emit({"phase": "delta_pool", "pool_sizes": pools, "batch": batch,
+          "queries": len(queries), "t_pool_s": t_pool})
+
+    backends = ("host", "msbfs")
+    sessions = {b: PathSession(g, EngineConfig(cache_bytes=256 << 20,
+                                               delta_backend=b),
+                               device="cuda") for b in backends}
+    cold, last = {}, None
+    for b, sess in sessions.items():
+        t0 = time.perf_counter()
+        rep = sess.run(queries)
+        cold[b] = dict({k: rep.stats[k] for k in
+                        ("t_wall_s", "n_materialized", "n_cache_hits")},
+                       host_wall_s=time.perf_counter() - t0)
+        if last is not None:
+            check_same(queries, last, rep, "the two cold delta sessions")
+        last = rep
+    require(len(sessions["host"].cache) > 0, "the cold run cached nothing")
+
+    rng = np.random.default_rng(3)
+    steps, w1_rec, near_path = [], None, None
+    for step in ("far", "near", "wide", "cap"):
+        g_old = sessions["host"].engine.g
+        dg_old = sessions["host"].engine.dg
+        if step == "far":
+            delta = far_delta(g_old, pool, rng)
+        elif step == "near":
+            qi = max(range(len(queries)), key=lambda i: last[i].count)
+            row = [int(x) for x in last[qi].paths[0] if x >= 0]
+            near_path = (qi, tuple(row))
+            delta = GraphDelta.from_pairs(remove=[(row[0], row[1])])
+        elif step == "wide":
+            delta = wide_delta(g_old, rng)
+        else:
+            delta = cap_delta(g_old, dg_old, rng)
+        out = {"step": step, "n_add": delta.n_add, "n_del": delta.n_del}
+        reports, reruns = {}, {}
+        for b, sess in sessions.items():
+            entries = len(sess.cache)
+            with DistsRecorder(sess.engine) as drec:
+                reset_launches()
+                rep = sess.apply_delta(delta)
+                launches = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            after = sess.run(queries)
+            t_rerun = time.perf_counter() - t0
+            reports[b], reruns[b] = rep, after
+            out[b] = {"report": rep, "entries_before": entries,
+                      "msbfs_step_launches": launches["msbfs_step"],
+                      "rerun": dict({k: after.stats[k] for k in
+                                     ("t_wall_s", "n_materialized",
+                                      "n_cache_hits")},
+                                    host_wall_s=t_rerun)}
+            swept = rep["cache_mode"] == "delta" and entries > 0
+            if b == "msbfs":
+                require((launches["msbfs_step"] > 0) == swept,
+                        f"{step}: msbfs_step launches {launches} in "
+                        f"apply_delta (cache mode {rep['cache_mode']})")
+                for applied, k_max, dists in drec.calls:
+                    for name, reverse in (("from", False), ("to", True)):
+                        host = host_set_dist(g_old, applied, k_max, reverse)
+                        dev = dists[name].astype(np.int32)
+                        near = (host <= k_max) | (dev <= k_max)
+                        require(np.array_equal(host[near], dev[near]),
+                                f"{step}: msbfs {name} distances differ "
+                                f"from host_set_dist")
+                if step == "far" and drec.calls:
+                    # the W = 1 sweep's heaviest level, for phase kernels
+                    applied, k_max, _ = drec.calls[0]
+                    seed = torch.zeros(g.n + 1, dtype=torch.int8,
+                                       device="cuda")
+                    seed[torch.from_numpy(applied.touched).cuda()] = 1
+                    w1_rec = make_recorders(torch, ("msbfs_step",))
+                    with recording(w1_rec):
+                        msbfs_set_dist_ell(
+                            dg_old.r_ell_idx, seed, n=g.n,
+                            k_max=min(pow2_ceil(k_max), K_MAX_INT8))
+            else:
+                require(launches["msbfs_step"] == 0,
+                        f"{step}: the host backend launched msbfs_step")
+        same = [{k: v for k, v in r.items() if k != "t_apply_s"}
+                for r in reports.values()]
+        require(same[0] == same[1], f"{step}: the backends' reports "
+                                    f"differ: {reports}")
+        rep = reports["host"]
+        eng = sessions["host"].engine
+        require(rep["n_added"] + rep["n_removed"] > 0, f"{step}: no-op")
+        if step == "far":
+            require(rep["cache_mode"] == "delta"
+                    and rep["device_update"] == "incremental"
+                    and rep["cache_kept"] > 0, f"far: {rep}")
+            for b in backends:
+                require(reruns[b].stats["n_materialized"]
+                        < cold[b]["n_materialized"],
+                        f"far: the {b} rerun materialized as much as cold")
+        elif step == "near":
+            require(rep["cache_evicted"] > 0, f"near: evicted nothing {rep}")
+            qi, row = near_path
+            for b in backends:
+                require(row not in oracle.path_set(reruns[b][qi].paths),
+                        f"near: the {b} rerun still returns {row}")
+        elif step == "wide":
+            require(rep["cache_mode"] == "full"
+                    and rep["device_update"] == "incremental",
+                    f"wide: {rep}")
+        else:
+            require(rep["device_update"] == "rebuild"
+                    and eng.dg.ell_cap >= dg_old.ell_cap
+                    and eng.dg.r_ell_cap > dg_old.r_ell_cap,
+                    f"cap: {rep}, caps {dg_old.ell_cap}/{dg_old.r_ell_cap}"
+                    f" -> {eng.dg.ell_cap}/{eng.dg.r_ell_cap}")
+        out["caps"] = [eng.dg.ell_cap, eng.dg.r_ell_cap]
+        # a fresh session on the new graph, shared by both backends
+        t0 = time.perf_counter()
+        fresh = PathSession(eng.g, EngineConfig(), device="cuda")
+        frep = fresh.run(queries)
+        t_fresh = time.perf_counter() - t0
+        for b in backends:
+            check_same(queries, frep, reruns[b],
+                       f"{step}: a fresh session and the {b} rerun")
+        t0 = time.perf_counter()
+        fresh.update_graph(eng.g)
+        torch.cuda.synchronize()
+        out["t_update_graph_s"] = time.perf_counter() - t0
+        out["t_fresh_s"] = t_fresh
+        del fresh
+        picked = sorted({0, len(queries) - 1}
+                        | ({near_path[0]} if step == "near" else set()))
+        t0 = time.perf_counter()
+        for i in picked:
+            s, t, k = queries[i]
+            expect = oracle.path_set(
+                oracle.enumerate_paths_bruteforce(eng.g, s, t, k))
+            require(oracle.path_set(reruns["host"][i].paths) == expect,
+                    f"{step}: query {queries[i]} disagrees with the oracle")
+        out["oracle_checked"] = len(picked)
+        out["t_oracle_s"] = time.perf_counter() - t0
+        emit({"phase": "delta_step", **out})
+        steps.append(out)
+        last = reruns["host"]
+    emit({"phase": "delta", "batch": batch, "queries": len(queries),
+          "pool_sizes": pools, "cold": cold,
+          "t_apply_s": {st["step"]: {b: st[b]["report"]["t_apply_s"]
+                                     for b in backends} for st in steps},
+          "t_update_graph_s": {st["step"]: st["t_update_graph_s"]
+                               for st in steps}})
+    return w1_rec
+
+
+def overlap_rows(torch, n: int, N: int, L: int, gen):
+    """(N, L) int32 rows of random vertex ids below n, each cut to a
+    random length of 1..L with -1 pads after it."""
+    ids = torch.randint(0, n, (N, L), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    lens = torch.randint(1, L + 1, (N, 1), generator=gen, device="cuda")
+    pos = torch.arange(L, device="cuda")[None, :]
+    return torch.where(pos < lens, ids, -1).to(torch.int32).contiguous()
+
+
+def phase_ops(torch, g, main_rec, join_rec) -> dict:
+    """Phase 9 (see the module docstring): the four calls of the ops API,
+    counted, then checked against the engine's own kernels and joins."""
+    from repro_torch.core.join import keyed_join_count
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.msbfs_expand import ops as mops
+    from repro_torch.kernels.path_join import ops as jops
+
+    ell, fr, vis, dist, hop = main_rec["msbfs_step"].best
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a4k = overlap_rows(torch, g.n, 4096, 6, gen)
+    b4k = overlap_rows(torch, g.n, 4096, 6, gen)
+    sp, ky = join_rec["splice"].best, join_rec["keyed"].best
+    p_col, c_col = sp["kw"]["p_col"], sp["kw"]["c_col"]
+    a_col, b_col = ky["kw"]["a_col"], ky["kw"]["b_col"]
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    nxt = mops.msbfs_hop_packed(ell, fr)
+    ov = jops.path_overlap(a4k, b4k)
+    splice = jops.splice_join_valid(sp["a"], p_col, sp["b"], c_col)
+    keyed = jops.keyed_join_valid(ky["a"], a_col, ky["b"], b_col)
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    require(launches["msbfs_expand"] == 1 and launches["path_overlap"] == 3,
+            f"the ops API did not launch its kernels: {launches}")
+
+    # the hop, deduplicated against the visited words, is the level that
+    # the fused msbfs_step kernel computed on the same inputs
+    level = mops.msbfs_step_cuda(ell, fr, vis.clone(), dist.clone(), hop)
+    require(torch.equal(nxt[:-1] & ~vis, level[:-1]) and not nxt[-1].any(),
+            "msbfs_hop_packed disagrees with msbfs_step")
+    require(int(ov.min()) >= 0 and int(ov.max()) <= 36
+            and ov.shape == (4096, 4096), "path_overlap out of range")
+    n_splice = int(splice.sum())
+    require(n_splice == sp["count"],
+            f"splice_join_valid counts {n_splice}, the join {sp['count']}")
+    sa, b_verts, b_count = ky["args"]
+    n_keyed, ovf = keyed_join_count(sa, b_verts, b_count, a_col=a_col,
+                                    b_col=b_col, pair_cap=ky["kw"]["out_cap"])
+    require(not bool(ovf) and int(keyed.sum()) == int(n_keyed)
+            == ky["count"], f"keyed_join_valid counts {int(keyed.sum())}, "
+                            f"keyed_join_count {int(n_keyed)}, the join "
+                            f"{ky['count']}")
+    out = {"phase": "ops", "launches": {k: launches[k] for k in OPS_KERNELS},
+           "t_ops_s": t_ops,
+           "msbfs_hop_packed": {"V": ell.shape[0], "D": ell.shape[1],
+                                "W": fr.shape[1],
+                                "next_bits": popcount_total(torch, nxt)},
+           "path_overlap": {"NA": 4096, "NB": 4096, "LA": 6, "LB": 6,
+                            "nonzero": int(torch.count_nonzero(ov))},
+           "splice_join_valid": {"NP": sp["a"].shape[0],
+                                 "NC": sp["b"].shape[0], "p_col": p_col,
+                                 "c_col": c_col, "valid": n_splice},
+           "keyed_join_valid": {"NA": ky["a"].shape[0],
+                                "NB": ky["b"].shape[0], "a_col": a_col,
+                                "b_col": b_col, "valid": int(n_keyed)}}
+    emit(out)
+    return {"launches": out["launches"], "a4k": a4k, "b4k": b4k,
+            "splice": (sp["a"][:, :p_col + 1], sp["b"][:, :c_col + 1])}
 
 
 def phase_peaks(torch, dev_info) -> dict:
@@ -637,7 +1082,8 @@ def measure_ell_spmm(torch, ell, xs, op) -> dict:
 
 
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
-                  share_launches, plan_rec, plan_launches) -> list[dict]:
+                  share_launches, plan_rec, plan_launches, ops,
+                  w1_rec) -> list[dict]:
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     from repro_torch.kernels.path_join import ops as jops
@@ -646,7 +1092,8 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     int_rate = INT_PER_CLK_SM * dev_info["sms"] * clock_hz
     rows = []
     # each kernel's launches on the path that runs it
-    launches = dict(launches, ell_spmm=plan_launches["ell_spmm"])
+    launches = dict(launches, ell_spmm=plan_launches["ell_spmm"],
+                    **ops["launches"])
 
     def bound(nbytes, t_ops_ms):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -666,25 +1113,38 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         require(err == 0, f"{name}: kernel disagrees with its plain version")
         rows.append(r)
 
-    # -- msbfs_step: in place on visited/dist, so each run gets copies
-    ell, fr, vis, dist, hop = main_rec["msbfs_step"].best
-    V, D = ell.shape
-    W = fr.shape[1]
+    # -- msbfs_step: in place on visited/dist, so each run gets copies;
+    # the main batch's heaviest level, and the delta sweep's (W = 1)
+    def msbfs_step(rec):
+        ell, fr, vis, dist, hop = rec["msbfs_step"].best
+        V, D = ell.shape
+        W = fr.shape[1]
 
-    def fresh():
-        return ell, fr, vis.clone(), dist.clone(), hop
+        def fresh():
+            return ell, fr, vis.clone(), dist.clone(), hop
 
-    a, b = fresh(), fresh()
-    out_k = mops.msbfs_step_cuda(*a)
-    out_p = mops.msbfs_step_ref(*b)
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, [(out_k, out_p), (a[2], b[2]), (a[3], b[3])])
-    new_bits = popcount_total(torch, out_k)
-    row("msbfs_step", {"V": V, "D": D, "W": W, "hop": hop}, err,
-        cuda_ms(torch, mops.msbfs_step_cuda, fresh),
-        cuda_ms(torch, mops.msbfs_step_ref, fresh),
-        nbytes=V * D * 4 + (V + 1) * W * 4 * 2 + V * W * 4 * 2 + new_bits,
-        t_ops_ms=V * W * D / int_rate * 1e3, new_bits=new_bits)
+        a, b = fresh(), fresh()
+        out_k = mops.msbfs_step_cuda(*a)
+        out_p = mops.msbfs_step_ref(*b)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [(out_k, out_p), (a[2], b[2]),
+                                  (a[3], b[3])])
+        new_bits = popcount_total(torch, out_k)
+        return ({"V": V, "D": D, "W": W, "hop": hop}, err,
+                cuda_ms(torch, mops.msbfs_step_cuda, fresh),
+                cuda_ms(torch, mops.msbfs_step_ref, fresh),
+                V * D * 4 + (V + 1) * W * 4 * 2 + V * W * 4 * 2 + new_bits,
+                V * W * D / int_rate * 1e3, new_bits)
+
+    shape2, err2, ms2, plain2, nbytes2, t_ops2, bits2 = msbfs_step(w1_rec)
+    require(err2 == 0, "msbfs_step disagrees with its plain version on the "
+                       "delta sweep")
+    shape, err, ms, plain_ms, nbytes, t_ops, new_bits = msbfs_step(main_rec)
+    row("msbfs_step", shape, err, ms, plain_ms, nbytes=nbytes,
+        t_ops_ms=t_ops, new_bits=new_bits,
+        delta_sweep={"shape": shape2, "max_abs_err": err2, "ms": ms2,
+                     "plain_ms": plain2, "new_bits": bits2,
+                     **bound(nbytes2, t_ops2)})
 
     # -- pairwise_popcount: out is symmetric, so the function needs the
     # Q(Q+1)/2 pairs i <= j only. Two units can do that work: the CUDA
@@ -785,6 +1245,44 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                       "(phase planners)",
         nonzero_features=plan_rec["ell_spmm"].best_work,
         synthetic=synthetic)
+
+    # -- msbfs_expand: the ops API's hop on the main batch's heaviest
+    # msbfs_step frontier
+    ell, fr = main_rec["msbfs_step"].best[:2]
+    V, D = ell.shape
+    W = fr.shape[1]
+    err = max_abs_err(torch, [(mops.msbfs_expand_cuda(ell, fr),
+                               mops.msbfs_expand_ref(ell, fr))])
+    row("msbfs_expand", {"V": V, "D": D, "W": W}, err,
+        cuda_ms(torch, mops.msbfs_expand_cuda, lambda: (ell, fr)),
+        cuda_ms(torch, mops.msbfs_expand_ref, lambda: (ell, fr)),
+        nbytes=V * D * 4 + (V + 1) * W * 4 * 2,
+        t_ops_ms=V * W * D / int_rate * 1e3,
+        launches_from="phase ops (msbfs_hop_packed)")
+
+    # -- path_overlap: 4096 x 4096 rows of 6, then the splice join's
+    # half rows; a compare and an add per (p, q) pair of each output
+    def path_overlap(a_v, b_v):
+        NA, LA = a_v.shape
+        NB, LB = b_v.shape
+        err = max_abs_err(torch, [(jops.path_overlap_cuda(a_v, b_v),
+                                   jops.path_overlap_ref(a_v, b_v))])
+        return ({"NA": NA, "NB": NB, "LA": LA, "LB": LB}, err,
+                cuda_ms(torch, jops.path_overlap_cuda, lambda: (a_v, b_v)),
+                cuda_ms(torch, jops.path_overlap_ref, lambda: (a_v, b_v)),
+                (NA * LA + NB * LB + NA * NB) * 4,
+                2 * NA * NB * LA * LB / int_rate * 1e3)
+
+    shape2, err2, ms2, plain2, nbytes2, t_ops2 = path_overlap(*ops["splice"])
+    require(err2 == 0, "path_overlap disagrees with its plain version on "
+                       "the splice join")
+    shape, err, ms, plain_ms, nbytes, t_ops = path_overlap(ops["a4k"],
+                                                           ops["b4k"])
+    row("path_overlap", shape, err, ms, plain_ms, nbytes=nbytes,
+        t_ops_ms=t_ops, launches_from="phase ops (path_overlap, "
+                                      "splice_join_valid, keyed_join_valid)",
+        splice_join={"shape": shape2, "max_abs_err": err2, "ms": ms2,
+                     "plain_ms": plain2, **bound(nbytes2, t_ops2)})
     return rows
 
 
@@ -811,14 +1309,19 @@ def main(argv=None) -> int:
     phase_build()
     g, queries = phase_workload(args.n, args.queries)
     session, main_rec, launches, main_report = phase_main(torch, g, queries)
-    share_rec, share_launches, share_queries, share_report = phase_sharing(
-        torch, g, session, args.sharing_queries)
+    share_rec, join_rec, share_launches, share_queries, share_report = \
+        phase_sharing(torch, g, session, args.sharing_queries)
     plan_rec, plan_launches = phase_planners(
         torch, g, session, queries, main_report, share_queries, share_report)
     phase_cache(g, share_queries, share_report)
+    w1_rec = phase_delta(torch, g, (
+        ("sharing", share_queries), ("main", queries),
+        ("main, k = 4", [q for q in queries if q[2] == 4])))
+    ops = phase_ops(torch, g, main_rec, join_rec)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
-                         share_rec, share_launches, plan_rec, plan_launches)
+                         share_rec, share_launches, plan_rec, plan_launches,
+                         ops, w1_rec)
     emit({"phase": "done", "t_total_s": time.perf_counter() - t_start})
     print(dev_info["nvidia_smi"], flush=True)
     emit({"kernels": rows})

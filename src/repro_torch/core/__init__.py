@@ -2,6 +2,8 @@
 contribution), on PyTorch tensors."""
 from .graph import Graph, DeviceGraph
 from .cache import SharedPathCache
+from .delta import (GraphDelta, AppliedDelta, apply_delta,
+                    update_device_graph, host_set_dist)
 from .query import (PathQuery, QueryResult, BatchReport, Planner, Output,
                     QueryLike, ResultStatus)
 from .engine import BatchPathEngine, EngineConfig, EngineOverflow, BatchResult
@@ -12,6 +14,8 @@ from . import distributed, generators, oracle, planner
 
 __all__ = ["Graph", "DeviceGraph", "BatchPathEngine", "EngineConfig",
            "EngineOverflow", "BatchResult", "SharedPathCache",
+           "GraphDelta", "AppliedDelta", "apply_delta",
+           "update_device_graph", "host_set_dist",
            "PathQuery", "QueryResult", "BatchReport", "Planner", "Output",
            "QueryLike", "ResultStatus", "PathSession",
            "CostEstimate", "CostRouter", "Route", "RouterConfig",

@@ -34,15 +34,18 @@ Entries are stored host-side (``HostPathSet``) with byte-accurate
 accounting; the cache is a bytes-budgeted LRU. It is only valid for one
 graph, tracked per entry by an epoch: a wholesale swap must call
 :meth:`SharedPathCache.invalidate` (``BatchPathEngine.set_graph`` does
-this). Hop-scoped invalidation after an edge delta
-(:meth:`SharedPathCache.invalidate_delta`) comes with graph deltas, in a
-later slice. Not thread-safe; each engine owns its cache.
+this); after an incremental edge delta,
+:meth:`SharedPathCache.invalidate_delta` evicts only the entries whose hop
+radius the damage reaches and re-stamps the rest. Not thread-safe; each
+engine owns its cache.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter, OrderedDict
 from typing import Iterable, Optional
+
+import numpy as np
 
 from .pathset import HostPathSet, PathSet, offload, pathset_nbytes, upload
 from .query import midpoint_split
@@ -232,12 +235,82 @@ class SharedPathCache:
         self.stats.invalidations += 1
         self._m_bytes.set(0)
 
+    def max_radius(self) -> int:
+        """Largest hop radius any live entry's validity depends on: its
+        enumeration budget or a consumer's remaining-hop prune radius --
+        the ``k_max`` the invalidation MS-BFS from the touched frontier
+        must cover."""
+        r = 0
+        for key in self._entries:
+            _, _, budget, sig = key[0], key[1], key[2], key[3]
+            r = max(r, int(budget), max((int(rr) for _, rr in sig), default=0))
+        return r
+
     def invalidate_delta(self, touched, dists: dict) -> dict:
-        """Hop-scoped eviction after an incremental graph delta: not ported
-        yet (it comes with graph deltas); call :meth:`invalidate`."""
-        raise NotImplementedError(
-            "SharedPathCache.invalidate_delta is not ported yet; it comes "
-            "with graph deltas in a later slice of the PyTorch/CUDA port")
+        """Hop-scoped eviction after an incremental graph delta.
+
+        touched : the delta's touched vertices (endpoints of every changed
+            edge); only used for reporting/no-op detection -- the hop
+            geometry arrives pre-computed in ``dists``.
+        dists : two ``(n+1,)`` arrays of min hop distances **to/from the
+            touched frontier** (both endpoints of every changed edge are
+            seeds, so these agree on the old, new, and union graphs -- one
+            BFS pair certifies cached state and its fresh recomputation
+            alike; see ``delta.host_set_dist``):
+
+            * ``dists["to"][v]``   -- min hops v -> any touched vertex
+                                      along forward edges,
+            * ``dists["from"][v]`` -- min hops any touched vertex -> v.
+
+        An entry ``(direction, source, budget, sig, stop)`` is evicted iff
+        the damage intersects either radius that defines its result set:
+
+        * its **enumeration ball** -- some touched vertex within ``budget``
+          hops of ``source`` in the entry's search direction (a cached
+          path could traverse, or a fresh enumeration could newly reach,
+          a changed edge); or
+        * a **consumer prune radius** -- some touched vertex within
+          ``r = k_c - off_c`` hops of a consumer endpoint in the *prune*
+          direction (the slack prune reads ``dist(v, endpoint)``; a
+          changed edge inside that radius can loosen the prune and admit
+          paths the cached levels never enumerated).
+
+        Everything else provably equals a fresh materialization on the new
+        graph and stays warm, re-stamped with the bumped epoch.
+        """
+        d_to = np.asarray(dists["to"])
+        d_from = np.asarray(dists["from"])
+        self.epoch += 1
+        self.stats.delta_invalidations += 1
+        if len(touched) == 0:
+            for entry in self._entries.values():
+                entry.epoch = self.epoch
+            self.stats.delta_kept += len(self._entries)
+            return {"evicted": 0, "kept": len(self._entries),
+                    "epoch": self.epoch}
+        stale = []
+        for key in self._entries:
+            direction, src, budget, sig = key[0], key[1], key[2], key[3]
+            if direction == "f":
+                hit = d_to[src] <= budget or any(d_from[e] <= r
+                                                 for e, r in sig)
+            else:
+                hit = d_from[src] <= budget or any(d_to[e] <= r
+                                                   for e, r in sig)
+            if hit:
+                stale.append(key)
+        for key in stale:
+            entry = self._entries.pop(key)
+            self._nbytes -= entry.nbytes
+            self._drop_root(key)
+        for entry in self._entries.values():
+            entry.epoch = self.epoch
+        self.stats.delta_evictions += len(stale)
+        self.stats.delta_kept += len(self._entries)
+        self._m_evictions.inc(len(stale))
+        self._m_bytes.set(self._nbytes)
+        return {"evicted": len(stale), "kept": len(self._entries),
+                "epoch": self.epoch}
 
     # -- reporting -----------------------------------------------------
     def info(self) -> dict:

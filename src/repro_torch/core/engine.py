@@ -13,12 +13,15 @@ The engine runs on one device (``"cuda"`` unless the caller passes
 ``device="cpu"``), and each kernel takes the arm of that device: the CUDA
 kernels on the card, their plain versions on the CPU.
 
+Incremental edge deltas (:meth:`BatchPathEngine.apply_delta`) patch the
+device tables and invalidate the cache hop-scoped, pricing the damage on
+the host (``delta_backend="host"``) or with the set-seeded MS-BFS on the
+``msbfs_step`` kernel (any other value, as in the reference).
+
 Not in this port yet, and refused with ``NotImplementedError`` instead of
 silently degrading: sharding (``mesh`` / ``n_devices > 1``), compile
-telemetry (``log_compiles``), span tracing (``trace*``), and the knobs of
-the segment arm and of graph deltas
-(``edge_chunk``, ``delta_max_sources``, ``delta_backend``) when set away
-from their defaults.
+telemetry (``log_compiles``), span tracing (``trace*``), and the knob of
+the segment arm (``edge_chunk``) when set away from its default.
 """
 from __future__ import annotations
 
@@ -33,11 +36,14 @@ import torch
 
 from .cache import SharedPathCache
 from .clustering import cluster_queries
+from .delta import (AppliedDelta, GraphDelta, apply_delta as _merge_delta,
+                    host_set_dist, pow2_ceil as _pow2, update_device_graph)
 from .detect import DirectionPlan, PlanNode, detect_common_queries
 from .enumerate import (count_ending_at, expand_level, extract_rows,
                         prune_table, select_ending_at)
 from .graph import DeviceGraph, Graph
 from .index import QueryIndex, build_index, slack_from_dists, walk_counts_ell
+from .msbfs import K_MAX_INT8, msbfs_set_dist_ell
 from .join import cross_join, keyed_join, keyed_join_count, sort_by_last
 from .pathset import PathSet, concat, empty, singleton
 from .planner import CostRouter, Route, RouterConfig
@@ -81,8 +87,8 @@ class EngineConfig:
     plan_caps: bool = True          # DP-based capacity planning
     paper_faithful_shares: bool = False  # min_shared_budget -> 0
     cache_bytes: int = 0            # >0: cross-batch SharedPathCache budget
-    delta_max_sources: int = 1024   # delta knobs (deltas not ported)
-    delta_backend: str = "host"
+    delta_max_sources: int = 1024   # wider touched sets: full invalidation
+    delta_backend: str = "host"     # "host" CSR walk, else the MS-BFS sweep
     log_compiles: bool = False      # compile telemetry (not ported)
     mesh: Optional[object] = None   # sharding (not ported)
     n_devices: Optional[int] = None
@@ -126,8 +132,6 @@ def _check_config(cfg: EngineConfig) -> None:
         "trace / trace_fence / trace_annotations (span tracing)":
             cfg.trace or cfg.trace_fence or cfg.trace_annotations,
         "edge_chunk (the segment arm)": cfg.edge_chunk != 1 << 22,
-        "delta_max_sources / delta_backend (graph deltas)":
-            cfg.delta_max_sources != 1024 or cfg.delta_backend != "host",
     }
     for what, bad in refused.items():
         if bad:
@@ -183,12 +187,128 @@ class BatchPathEngine:
     def set_graph(self, graph: Graph) -> None:
         """Swap the graph wholesale: rebuild the device views and drop
         every piece of graph-derived state (the host-dist memo, the
-        cross-batch cache)."""
+        cross-batch cache). For incremental edge churn prefer
+        :meth:`apply_delta`, which keeps the warm state whose hop-locality
+        a small delta cannot reach."""
         self.g = graph
         self.dg = DeviceGraph.build(graph, self.device)
         self._host_dists = None
         if self.cache is not None:
             self.cache.invalidate()
+
+    def apply_delta(self, delta: GraphDelta) -> dict:
+        """Apply an incremental edge delta; returns an application report.
+
+        The successor graph comes from a CSR merge (``Graph.apply_delta``
+        semantics: ``new = (old - remove) | add``), the device tables are
+        patched rather than rebuilt (only touched ELL rows change), and
+        the cross-batch cache is invalidated *hop-scoped*: a set-seeded
+        BFS from the delta's touched vertices prices each entry's distance
+        to the damage, and only entries whose enumeration ball or consumer
+        prune radius the damage can reach are evicted
+        (``SharedPathCache.invalidate_delta``). A no-op delta (every edge
+        already present/absent) leaves all state -- including the host
+        distance memo -- untouched; an effective delta drops only that
+        memo, which the next batch's index rebuilds anyway.
+
+        ``t_apply_s`` ends in a device synchronize, so it measures
+        completed work. (The reference splits this method into
+        ``apply_delta`` and ``_apply_delta_impl`` for its compile
+        telemetry, which is not ported.)
+        """
+        with _stage(self.device) as sp:
+            applied = _merge_delta(self.g, delta)
+            report = {
+                "n_added": int(applied.added_src.size),
+                "n_removed": int(applied.removed_src.size),
+                "n_touched": int(applied.touched.size),
+                "cache_mode": "none", "device_update": "none",
+            }
+            if applied.n_changed:
+                if self.cache is not None:
+                    report.update(self._invalidate_for(applied))
+                self.dg, incremental = update_device_graph(self.dg, applied)
+                report["device_update"] = ("incremental" if incremental
+                                           else "rebuild")
+                self.g = applied.graph
+                self._host_dists = None
+        report["t_apply_s"] = sp.duration
+        return report
+
+    def _all_caches(self) -> list[SharedPathCache]:
+        """Every cache that an invalidation event reaches: the primary
+        cache only (the reference adds its sharded replicas' caches)."""
+        return [] if self.cache is None else [self.cache]
+
+    def _invalidate_for(self, applied: AppliedDelta) -> dict:
+        """Cache invalidation for one merged delta (the cache must
+        exist)."""
+        caches = self._all_caches()
+        if all(len(c) == 0 for c in caches):
+            empty = {"to": np.empty(0, np.int8),
+                     "from": np.empty(0, np.int8)}
+            info = {}
+            for c in caches:
+                info = c.invalidate_delta(applied.touched, empty)
+            return {"cache_mode": "delta", "cache_evicted": 0,
+                    "cache_kept": 0, "cache_epoch": info["epoch"],
+                    "cache_epochs": [c.epoch for c in caches]}
+        if applied.touched.size > self.cfg.delta_max_sources:
+            dropped = sum(len(c) for c in caches)
+            for c in caches:
+                c.invalidate()   # frontier too wide: hop-scoping won't pay
+            return {"cache_mode": "full", "cache_evicted": dropped,
+                    "cache_kept": 0, "cache_epoch": self.cache.epoch,
+                    "cache_epochs": [c.epoch for c in caches]}
+        # one distance sweep prices the damage: the radius must cover the
+        # widest live entry
+        k_max = max(max(c.max_radius() for c in caches), 1)
+        dists = self._delta_dists(applied, k_max)
+        info = {}
+        for c in caches:
+            got = c.invalidate_delta(applied.touched, dists)
+            if c is self.cache:
+                info = got
+        return {"cache_mode": "delta", "cache_evicted": info["evicted"],
+                "cache_kept": info["kept"], "cache_epoch": info["epoch"],
+                "cache_epochs": [c.epoch for c in caches]}
+
+    def _delta_dists(self, applied: AppliedDelta, k_max: int) -> dict:
+        """Min hop distances to/from the touched frontier.
+
+        Both endpoints of every changed edge are seeds, so these distances
+        agree on the old, new, and union graphs (see ``host_set_dist``):
+        the sweep runs on the *old* graph, which for the MS-BFS backend
+        means the still-resident old ELL tables (``self.dg`` is patched
+        only after invalidation). Backend ``"host"`` (the default) walks
+        only the touched balls' edges over the CSR; any other value runs
+        ``msbfs_set_dist_ell`` on the device, in both directions: "from"
+        relaxes over G's in-neighbours (``r_ell_idx``), "to" over G_r's
+        (``ell_idx``). (The reference's jnp engine takes its segment sweep
+        here, which it documents as bit-equal.)
+        """
+        if self.cfg.delta_backend == "host":
+            return {"from": host_set_dist(self.g, applied, k_max,
+                                          reverse=False),
+                    "to": host_set_dist(self.g, applied, k_max,
+                                        reverse=True)}
+        # distances beyond every live radius are never compared, so the
+        # reference's pow2-bucketed (larger) k_max is slack that keeps the
+        # distance arrays equal to its own. A radius beyond the int8
+        # sweep's ceiling would silently lose distances, so it raises.
+        if k_max > K_MAX_INT8:
+            raise ValueError(
+                f"live cache radius k_max={k_max} exceeds the int8 MS-BFS "
+                f"ceiling K_MAX_INT8={K_MAX_INT8}; shrink the hop budgets "
+                f"or drop delta_backend='msbfs'")
+        k_max = min(_pow2(k_max), K_MAX_INT8)
+        seed = torch.zeros(self.g.n + 1, dtype=torch.int8)
+        seed[torch.from_numpy(applied.touched)] = 1
+        seed = seed.to(self.device)
+        return {name: msbfs_set_dist_ell(ell, seed, n=self.g.n,
+                                         k_max=k_max).cpu().numpy()
+                for name, ell in (("from", self.dg.r_ell_idx),
+                                  ("to", self.dg.ell_idx))}
 
     # ------------------------------------------------------------------
     # public API

@@ -132,6 +132,22 @@ class Graph:
         return Graph(n=self.n, indptr=self.r_indptr, indices=self.r_indices,
                      r_indptr=self.indptr, r_indices=self.indices)
 
+    # -- incremental mutation ------------------------------------------
+    def apply_delta(self, delta) -> tuple["Graph", np.ndarray]:
+        """Successor graph after a :class:`~repro_torch.core.delta.GraphDelta`.
+
+        Merges the (deduplicated, self-loop-free) edge mutations into both
+        CSR directions without re-sorting the kept edges -- equivalent to a
+        ``from_edges`` rebuild on the edited edge list, in time
+        proportional to ``m + |delta| log m``. Returns ``(new_graph,
+        touched)`` where ``touched`` holds the unique endpoints of every
+        *effective* change (no-op inserts/deletes excluded); an empty
+        ``touched`` means ``new_graph is self``.
+        """
+        from .delta import apply_delta as _apply_delta
+        applied = _apply_delta(self, delta)
+        return applied.graph, applied.touched
+
 
 def _csr(n: int, src: np.ndarray, dst: np.ndarray):
     order = np.lexsort((dst, src))
@@ -169,15 +185,20 @@ class DeviceGraph:
     r_ell_cap: int
 
     @staticmethod
-    def build(g: Graph, device: Union[torch.device, str]) -> "DeviceGraph":
+    def build(g: Graph, device: Union[torch.device, str], *,
+              min_ell_caps: tuple[int, int] = (1, 1)) -> "DeviceGraph":
         """Materialize the ELL tables on ``device``, each direction's
-        capacity ``pow2_ceil(max degree)`` -- the same tables as the JAX
-        package's padded ``DeviceGraph``."""
+        capacity ``pow2_ceil(max degree)`` floored at ``min_ell_caps``
+        (fwd, rev) -- the same tables as the JAX package's padded
+        ``DeviceGraph``. The delta path passes its current caps, so a
+        rebuild never shrinks a bucket."""
         deg = np.diff(g.indptr)
         r_deg = np.diff(g.r_indptr)
-        ell = g.ell(cap=pow2_ceil(int(deg.max()) if deg.size else 1))
-        rell = g.reverse().ell(cap=pow2_ceil(int(r_deg.max())
-                                             if r_deg.size else 1))
+        ell = g.ell(cap=max(pow2_ceil(int(deg.max()) if deg.size else 1),
+                            min_ell_caps[0]))
+        rell = g.reverse().ell(cap=max(pow2_ceil(int(r_deg.max())
+                                                 if r_deg.size else 1),
+                                       min_ell_caps[1]))
         return DeviceGraph(
             n=g.n, m=g.m,
             ell_idx=torch.from_numpy(ell.idx).to(device),

@@ -11,7 +11,10 @@ Direction convention (as in the JAX package): a level relaxes
 the reverse table ``dg.r_ell_idx`` and distances on G_r take ``dg.ell_idx``.
 
 Like the reference, the sweep runs all k_max levels (no early exit), so a
-batch costs exactly k_max launches per direction.
+batch costs exactly k_max launches per direction. ``msbfs_set_dist_ell``
+is the set-seeded sweep of the delta path's cache invalidation: one bit
+column seeded with a whole vertex set (W = 1 word, 31 of its 32 bits
+idle), on the same kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 
 from ..kernels.msbfs_expand.ops import msbfs_step, wrap_int32
 
-__all__ = ["msbfs_dist_ell", "INF_FOR", "K_MAX_INT8"]
+__all__ = ["msbfs_dist_ell", "msbfs_set_dist_ell", "INF_FOR", "K_MAX_INT8"]
 
 # Largest hop budget the int8 distance representation supports. INF_FOR
 # (k_max + 1) must stay representable AND keep headroom below int8 max
@@ -78,3 +81,30 @@ def msbfs_dist_ell(ell_in_idx: torch.Tensor, sources: torch.Tensor, *,
     for hop in range(1, k_max + 1):
         frontier = msbfs_step(idx, frontier, visited, dist[:n], hop)
     return dist[:, :S].contiguous()
+
+
+def msbfs_set_dist_ell(ell_in_idx: torch.Tensor, seed_mask: torch.Tensor,
+                       *, n: int, k_max: int) -> torch.Tensor:
+    """Distances from a vertex *set*: ``dist[v] = min over seeds x of
+    hops(x -> v)``, capped at k_max.
+
+    ell_in_idx : (n, D) or (n+1, D) int32 padded ELL *in*-neighbour table
+                 (pad = n; a row n is dropped, never expanded).
+    seed_mask  : (n+1,) int8 in {0, 1} on the table's device (row n is
+                 ignored).
+    Returns (n+1,) int8 with unreached = INF = k_max + 1, row n = INF.
+    """
+    _check_k_max(k_max)
+    device = ell_in_idx.device
+    idx = ell_in_idx[:n]
+    INF = INF_FOR(k_max)
+    seed = seed_mask.to(device=device) != 0
+    seed[n] = False                                # sentinel stays 0
+    # one column: the packed word of a vertex is 1 (bit 0) or 0
+    frontier = seed.to(torch.int32)[:, None]       # (n+1, 1)
+    visited = frontier[:n].clone()                 # seeds reached at hop 0
+    dist = torch.full((n + 1, 32), INF, dtype=torch.int8, device=device)
+    dist[:n, 0].masked_fill_(seed[:n], 0)
+    for hop in range(1, k_max + 1):
+        frontier = msbfs_step(idx, frontier, visited, dist[:n], hop)
+    return dist[:, 0].contiguous()

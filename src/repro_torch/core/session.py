@@ -6,11 +6,14 @@ Counterpart of ``repro/core/session.py`` for one-shot batches::
     report = session.run([PathQuery(s, t, k), (s2, t2, k2)])
     report[0].paths            # lazy host matrix
     report[1].count            # no matrix transfer
+    session.apply_delta(GraphDelta.from_pairs(add=[(u, v)]))
+                                      # patch + hop-scoped invalidation
     session.update_graph(new_graph)   # rebuild + invalidate the cache
 
-Streaming (``submit`` / ``pump`` / ``results``) and incremental graph
-deltas (``apply_delta``) are not part of this port yet: those methods
-raise ``NotImplementedError``.
+Streaming (``server`` / ``submit`` / ``pump`` / ``results`` / ``result`` /
+``batch_log``) is not part of this port yet: those members raise
+``NotImplementedError``, and ``apply_delta`` applies every delta at once,
+as the reference does before a streaming server exists.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from .query import BatchReport, Planner, QueryLike
 
 __all__ = ["PathSession"]
 
-_STREAMING = ("streaming serving and graph deltas are not ported yet; "
-              "they come with a later slice of the PyTorch/CUDA port")
+_STREAMING = ("streaming serving is not ported yet; it comes with a "
+              "later slice of the PyTorch/CUDA port")
 
 
 class PathSession:
@@ -92,7 +95,20 @@ class PathSession:
         cache)."""
         self.engine.set_graph(graph)
 
+    def apply_delta(self, delta) -> dict:
+        """Apply a :class:`~repro_torch.core.delta.GraphDelta`
+        incrementally, now, through ``BatchPathEngine.apply_delta`` (CSR
+        merge, patched device tables, hop-scoped cache invalidation), and
+        return its application report. (The reference queues the delta
+        for the next micro-batch boundary once a streaming server runs;
+        streaming is not ported.)"""
+        return self.engine.apply_delta(delta)
+
     # -- not ported yet ------------------------------------------------
+    @property
+    def server(self):
+        raise NotImplementedError(_STREAMING)
+
     def submit(self, query: QueryLike, now: Optional[float] = None) -> int:
         raise NotImplementedError(_STREAMING)
 
@@ -107,7 +123,4 @@ class PathSession:
 
     @property
     def batch_log(self) -> list:
-        raise NotImplementedError(_STREAMING)
-
-    def apply_delta(self, delta) -> None:
         raise NotImplementedError(_STREAMING)

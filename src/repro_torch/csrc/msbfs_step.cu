@@ -25,6 +25,19 @@
 // sources) cut to one byte per newly reached (vertex, source) pair.
 // The first W threads also write the zero sentinel row V of the output
 // frontier, so the result feeds the next level as it is.
+//
+// msbfs_expand replaces the TPU kernel msbfs_expand_pallas
+// (src/repro/kernels/msbfs_expand/kernel.py:44), the single hop of the ops
+// API's msbfs_hop_packed:
+//
+//   next[v, w] = OR_d fr[ell[v, d], w]      for d with ell[v, d] != V
+//
+// with the same thread-to-word map and none of the visited / dist traffic.
+// The pad entries are skipped rather than gathered, so row V of the input
+// frontier may hold anything (the JAX wrapper zeroes a copy of it; this
+// kernel never reads it and never writes the caller's tensor). Bound: bytes
+// -- the (V, D) ELL read, the frontier gathers and the (V+1, W) output, at
+// one OR per gathered word.
 #include "common.cuh"
 
 __global__ void msbfs_step_kernel(const int32_t* __restrict__ ell,
@@ -69,5 +82,39 @@ REPRO_EXPORT int msbfs_step_launch(const void* ell, const void* fr, void* vis,
       static_cast<const int32_t*>(ell), static_cast<const uint32_t*>(fr),
       static_cast<uint32_t*>(vis), static_cast<int8_t*>(dist),
       static_cast<uint32_t*>(out), V, D, W, static_cast<int8_t>(hop));
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void msbfs_expand_kernel(const int32_t* __restrict__ ell,
+                                    const uint32_t* __restrict__ fr,
+                                    uint32_t* __restrict__ out, int V, int D,
+                                    int W) {
+  const long long total = static_cast<long long>(V) * W;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i < W) out[total + i] = 0u;  // sentinel row V of the output
+  if (i >= total) return;
+  const int v = static_cast<int>(i / W);
+  const int w = static_cast<int>(i - static_cast<long long>(v) * W);
+  const int32_t* row = ell + static_cast<long long>(v) * D;
+  uint32_t acc = 0u;
+  for (int d = 0; d < D; ++d) {
+    const int u = __ldg(row + d);
+    if (u != V) acc |= __ldg(fr + static_cast<long long>(u) * W + w);
+  }
+  out[i] = acc;
+}
+
+// ell (V, D) int32, pad = V; fr (V+1, W) words (row V never read);
+// out (V+1, W) words, row V zero.
+REPRO_EXPORT int msbfs_expand_launch(const void* ell, const void* fr,
+                                     void* out, int V, int D, int W,
+                                     void* stream) {
+  const int threads = 256;
+  const long long work = static_cast<long long>(V) * W;
+  msbfs_expand_kernel<<<blocks_for(work > W ? work : W, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ell), static_cast<const uint32_t*>(fr),
+      static_cast<uint32_t*>(out), V, D, W);
   return static_cast<int>(cudaGetLastError());
 }

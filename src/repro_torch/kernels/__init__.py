@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels for the engine's hot spots, each beside its
-plain PyTorch version.
+"""Hand-written CUDA kernels for the engine's hot spots and the kernel ops
+API (``msbfs_hop_packed``, ``path_overlap`` and the join-validity
+matrices), each beside its plain PyTorch version.
 
 Each op package has one ``ops`` module holding the plain version, the
 wrapper of the CUDA kernel in ``repro_torch/csrc`` and the function that

@@ -1,10 +1,12 @@
-"""Fused MS-BFS level (``msbfs_step``) plus the bit packing helpers.
+"""Fused MS-BFS level (``msbfs_step``), the single packed hop
+(``msbfs_hop_packed``) and the bit packing helpers.
 
-Counterpart of ``repro/kernels/msbfs_expand`` (its ``msbfs_step`` op):
-``msbfs_step_ref`` is the plain PyTorch version, ``msbfs_step_cuda`` the
-wrapper of the CUDA kernel in ``csrc/msbfs_step.cu`` (which says what it
-replaces, what bounds it and how it is designed), and ``msbfs_step`` picks
-the arm from the tensors' device (:mod:`repro_torch.kernels.registry`).
+Counterpart of ``repro/kernels/msbfs_expand``: ``msbfs_step_ref`` and
+``msbfs_expand_ref`` are the plain PyTorch versions, ``msbfs_step_cuda``
+and ``msbfs_expand_cuda`` the wrappers of the CUDA kernels in
+``csrc/msbfs_step.cu`` (which says what each replaces, what bounds it and
+how it is designed), and ``msbfs_step`` / ``msbfs_hop_packed`` pick the arm
+from the tensors' device (:mod:`repro_torch.kernels.registry`).
 
 Packed words are ``torch.int32`` with ``pack_bits``' bit layout (bit b of
 word w is column w*32+b, little endian within the word); the kernel reads
@@ -13,9 +15,12 @@ them as ``uint32``. PyTorch on the CPU lacks ``~``, ``>>`` and ``max`` for
 and wrapped into the int32 range explicitly, and right shifts of int32
 (arithmetic) are masked after shifting.
 
-Both arms have one contract: ``visited`` and ``dist`` are updated in
-place, and the new frontier comes back as a fresh ``(V+1, W)`` tensor
-whose sentinel row V is zero, ready to be the next level's input.
+Both arms of ``msbfs_step`` have one contract: ``visited`` and ``dist``
+are updated in place, and the new frontier comes back as a fresh
+``(V+1, W)`` tensor whose sentinel row V is zero, ready to be the next
+level's input. ``msbfs_hop_packed`` writes nothing it is given: it ignores
+row V of its input frontier (the reference zeroes a copy of it) and
+returns a fresh ``(V+1, W)`` tensor whose row V is zero.
 """
 from __future__ import annotations
 
@@ -28,10 +33,12 @@ from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
                         resolve_arm)
 
 __all__ = ["pack_bits", "unpack_bits", "wrap_int32", "msbfs_step",
-           "msbfs_step_ref", "msbfs_step_cuda"]
+           "msbfs_step_ref", "msbfs_step_cuda", "msbfs_hop_packed",
+           "msbfs_expand_ref", "msbfs_expand_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"msbfs_step_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"msbfs_step_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "msbfs_expand_launch": [_P, _P, _P, _I, _I, _I, _P]}
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -127,3 +134,59 @@ def msbfs_step(ell_idx: torch.Tensor, frontier: torch.Tensor,
     if resolve_arm(frontier.device, arm) is KernelArm.CUDA:
         return msbfs_step_cuda(ell_idx, frontier, visited, dist, hop)
     return msbfs_step_ref(ell_idx, frontier, visited, dist, hop)
+
+
+def msbfs_expand_ref(ell_idx: torch.Tensor,
+                     frontier: torch.Tensor) -> torch.Tensor:
+    """Plain version of the single hop (same contract as the kernel).
+
+    ell_idx  : (V, D) int32 in-neighbour table, pad = V
+    frontier : (V+1, W) int32 words; row V is read as zero whatever it holds
+    Returns ``next[v] = OR_d frontier[ell_idx[v, d]]`` as a fresh (V+1, W)
+    int32 tensor, row V = 0.
+    """
+    V, D = ell_idx.shape
+    W = frontier.shape[1]
+    fw = torch.cat([frontier[:V], torch.zeros((1, W), dtype=torch.int32,
+                                              device=frontier.device)])
+    out = torch.zeros((V + 1, W), dtype=torch.int32, device=frontier.device)
+    for d in range(D):
+        out[:V] |= fw[ell_idx[:, d]]
+    return out
+
+
+def msbfs_expand_cuda(ell_idx: torch.Tensor,
+                      frontier: torch.Tensor) -> torch.Tensor:
+    """Launch the ``msbfs_expand`` kernel of ``csrc/msbfs_step.cu``
+    (contract of :func:`msbfs_expand_ref`)."""
+    check_tensor("ell_idx", ell_idx, torch.int32, 2)
+    check_tensor("frontier", frontier, torch.int32, 2)
+    V, D = ell_idx.shape
+    W = frontier.shape[1]
+    if frontier.shape[0] != V + 1:
+        raise ValueError(f"msbfs_expand shapes disagree: ell "
+                         f"{tuple(ell_idx.shape)}, frontier "
+                         f"{tuple(frontier.shape)}")
+    if ell_idx.device != frontier.device:
+        raise ValueError("msbfs_expand tensors lie on different devices")
+    out = torch.empty((V + 1, W), dtype=torch.int32, device=frontier.device)
+    if W == 0:
+        return out
+    if V == 0 or D == 0:
+        return out.zero_()
+    lib = build.load("msbfs_step", _SIGNATURES)
+    stream = torch.cuda.current_stream(frontier.device).cuda_stream
+    rc = lib.msbfs_expand_launch(ell_idx.data_ptr(), frontier.data_ptr(),
+                                 out.data_ptr(), V, D, W, stream)
+    build.check(lib, rc, "msbfs_expand")
+    LAUNCHES["msbfs_expand"] += 1
+    return out
+
+
+def msbfs_hop_packed(ell_idx: torch.Tensor, frontier_words: torch.Tensor,
+                     arm: ArmLike = None) -> torch.Tensor:
+    """One packed MS-BFS hop: (V, D) ELL x (V+1, W) words -> the next
+    (V+1, W) words, row V zero, on the arm of the tensors' device."""
+    if resolve_arm(frontier_words.device, arm) is KernelArm.CUDA:
+        return msbfs_expand_cuda(ell_idx, frontier_words)
+    return msbfs_expand_ref(ell_idx, frontier_words)

@@ -31,7 +31,7 @@ __all__ = ["KernelArm", "ArmLike", "resolve_arm", "check_tensor",
 # where it launches its kernel, and nowhere else, so a run can show that
 # the main path went through the kernels
 KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
-           "rowwise_overlap", "ell_spmm")
+           "rowwise_overlap", "ell_spmm", "msbfs_expand", "path_overlap")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -19,12 +19,14 @@ import numpy as np  # noqa: E402
 from repro.core import generators as j_gen  # noqa: E402
 from repro.core.cache import SharedPathCache as JCache  # noqa: E402
 from repro.core.cache import dedicated_keys as j_dedicated_keys  # noqa: E402
+from repro.core.delta import GraphDelta as JGraphDelta  # noqa: E402
 from repro.core.engine import EngineConfig as JConfig  # noqa: E402
 from repro.core.pathset import PathSet as JPathSet  # noqa: E402
 from repro.core.planner import RouterConfig as JRouterConfig  # noqa: E402
 from repro.core.session import PathSession as JSession  # noqa: E402
-from repro_torch.core import (EngineConfig, Graph, PathSession,  # noqa: E402
-                              RouterConfig, SharedPathCache, oracle)
+from repro_torch.core import (EngineConfig, Graph, GraphDelta,  # noqa: E402
+                              PathSession, RouterConfig, SharedPathCache,
+                              oracle)
 from repro_torch.core.cache import dedicated_keys  # noqa: E402
 from repro_torch.core.pathset import (HostPathSet, PathSet,  # noqa: E402
                                       offload, pathset_nbytes, upload)
@@ -160,10 +162,30 @@ def test_cache_metrics_count_hits_and_misses(graphs):
     assert misses == mine.cache.stats.misses
 
 
-def test_invalidate_delta_is_not_ported(graphs):
-    cache = SharedPathCache(BUDGET)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cache.invalidate_delta(np.array([1], np.int32), {})
+@pytest.mark.parametrize("backend", ["host", "msbfs"])
+def test_invalidate_delta_through_sessions_like_reference(graphs, backend):
+    """A delta between two runs: the same report (less its wall time),
+    the same surviving entries and statistics, and the same rows after."""
+    mine, ref = _sessions(graphs, delta_backend=backend)
+    qs = graphs["queries"]
+    mine.run(qs)
+    ref.run(qs)
+    s, _, _ = qs[-1]
+    u = int(graphs["g"].neighbors(s)[0])
+    rep = mine.apply_delta(GraphDelta.from_pairs(remove=[(s, u)]))
+    j_rep = ref.apply_delta(JGraphDelta.from_pairs(remove=[(s, u)]))
+    rep.pop("t_apply_s")
+    j_rep.pop("t_apply_s")
+    assert rep == j_rep and rep["cache_mode"] == "delta"
+    assert rep["cache_evicted"] > 0
+    keys = INFO_KEYS + ("delta_invalidations", "delta_evictions",
+                        "delta_kept")
+    info, j_info = mine.cache.info(), ref.cache.info()
+    assert {k: info[k] for k in keys} == {k: j_info[k] for k in keys}
+    a, b = mine.run(qs), ref.run(qs)
+    _same_rows(a, b)
+    for key in ("n_materialized", "n_cache_hits", "n_cache_misses"):
+        assert a.stats[key] == b.stats[key], key
 
 
 def test_dedicated_keys_match_reference_and_engine(graphs):

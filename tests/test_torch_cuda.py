@@ -7,7 +7,8 @@ skips with the reason. Run them on a machine with a card::
 
 The inputs are integers, or (``ell_spmm``) float32 sums taken in the same
 order by the kernel and its plain version, so every comparison is exact
-equality.
+equality. Also: graph deltas patch the card's ELL tables to equal a fresh
+build, and the engine's deltas on the card equal those on the CPU.
 """
 import numpy as np
 import pytest
@@ -18,12 +19,14 @@ from repro_torch.kernels import LAUNCHES, build  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
     ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
-    msbfs_step_cuda, msbfs_step_ref, pack_bits)
+    msbfs_expand_cuda, msbfs_expand_ref, msbfs_hop_packed, msbfs_step_cuda,
+    msbfs_step_ref, pack_bits)
 from repro_torch.kernels.pairwise_popcount.ops import (  # noqa: E402
     intersections, pairwise_popcount_cuda)
 from repro_torch.kernels.path_join.ops import (  # noqa: E402
-    path_member_cuda, path_member_ref, rowwise_overlap_cuda,
-    rowwise_overlap_ref)
+    keyed_join_valid, path_member_cuda, path_member_ref, path_overlap_cuda,
+    path_overlap_ref, rowwise_overlap_cuda, rowwise_overlap_ref,
+    splice_join_valid)
 
 pytestmark = pytest.mark.gpu
 
@@ -77,6 +80,117 @@ def test_msbfs_step_empty_frontier_and_zero_dims(dev):
     assert out0.shape == (1, W) and not out0.any()
 
 
+@pytest.mark.parametrize("V,D,W", [(1 << 20, 32, 8), (1 << 20, 32, 1),
+                                   (1000, 5, 3), (37, 3, 1), (300, 1, 9),
+                                   (50, 0, 2), (0, 4, 1)])
+def test_msbfs_expand_matches_plain(dev, V, D, W):
+    r = np.random.default_rng(V + 3 * D + W)
+    ell = torch.from_numpy(_ell(r, V, D, 0.6)).to(dev)
+    ell[: min(V, 5)] = V                                  # all-pad rows
+    fr = torch.from_numpy(r.integers(-2**31, 2**31, size=(V + 1, W),
+                                     dtype=np.int64).astype(np.int32)).to(dev)
+    fr[V] = -1                                  # row V holds garbage
+    before_fr = fr.clone()
+    n0 = LAUNCHES["msbfs_expand"]
+    got = msbfs_expand_cuda(ell, fr)
+    want = msbfs_expand_ref(ell, fr)
+    torch.cuda.synchronize()
+    assert LAUNCHES["msbfs_expand"] == n0 + (V > 0 and D > 0 and W > 0)
+    assert torch.equal(got, want)
+    assert not got[V].any()
+    assert torch.equal(fr, before_fr), "the kernel wrote its input"
+    assert torch.equal(msbfs_hop_packed(ell, fr), want)   # the CUDA arm
+
+
+@pytest.mark.parametrize("NA,NB,LA,LB", [(4096, 4096, 6, 6), (1000, 1, 9, 9),
+                                         (33, 700, 1, 9), (65, 63, 9, 1),
+                                         (70_000, 3, 5, 40), (5, 0, 3, 3),
+                                         (3, 4, 0, 2),
+                                         # more row tiles than one grid
+                                         # column holds (65,535 x 32)
+                                         (2_200_000, 2, 2, 3)])
+def test_path_overlap_matches_plain(dev, NA, NB, LA, LB):
+    r = np.random.default_rng(NA + NB + LA * LB)
+    a = torch.from_numpy(r.integers(-1, 30, size=(NA, LA + 3))
+                         .astype(np.int32)).to(dev)[:, :LA]   # strided rows
+    b = torch.from_numpy(r.integers(-3, 30, size=(NB, LB + 1))
+                         .astype(np.int32)).to(dev)[:, :LB]
+    n0 = LAUNCHES["path_overlap"]
+    got = path_overlap_cuda(a, b)
+    want = path_overlap_ref(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["path_overlap"] == n0 + (NA * NB * LA * LB > 0)
+    assert got.shape == (NA, NB) and torch.equal(got, want)
+    if NA and NB and LA and LB:                 # the ops on both arms
+        for op in (keyed_join_valid, splice_join_valid):
+            assert torch.equal(op(a, LA - 1, b, LB - 1).cpu(),
+                               op(a.cpu(), LA - 1, b.cpu(), LB - 1))
+
+
+def test_delta_patches_card_tables_like_a_fresh_build(dev):
+    from repro_torch.core import (DeviceGraph, GraphDelta, apply_delta,
+                                  generators, host_set_dist,
+                                  update_device_graph)
+    from repro_torch.core.msbfs import msbfs_set_dist_ell
+    g = generators.community(5000, n_comm=5, avg_deg=6.0, seed=5)
+    dg = DeviceGraph.build(g, dev)
+    r = np.random.default_rng(6)
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    pick = r.choice(g.m, 40, replace=False)
+    delta = GraphDelta(r.integers(0, g.n, 40), r.integers(0, g.n, 40),
+                       src[pick], g.indices[pick])
+    applied = apply_delta(g, delta)
+    mask = torch.zeros(g.n + 1, dtype=torch.int8)
+    mask[torch.from_numpy(applied.touched)] = 1
+    for reverse, ell in ((False, dg.r_ell_idx), (True, dg.ell_idx)):
+        got = msbfs_set_dist_ell(ell, mask.to(dev), n=g.n, k_max=4)
+        assert np.array_equal(got.cpu().numpy(),
+                              host_set_dist(g, applied, 4, reverse))
+    dg2, incremental = update_device_graph(dg, applied)
+    assert incremental and dg2.ell_idx.device.type == "cuda"
+    fresh = DeviceGraph.build(applied.graph, dev)
+    assert torch.equal(dg2.ell_idx, fresh.ell_idx)
+    assert torch.equal(dg2.r_ell_idx, fresh.r_ell_idx)
+    # past the cap: a rebuild on the card whose caps do not shrink
+    v = int(np.argmax(applied.graph.in_degree()))
+    have = set(applied.graph.neighbors(v, reverse=True).tolist()) | {v}
+    srcs = [u for u in range(g.n) if u not in have][:dg2.r_ell_cap]
+    applied3 = apply_delta(applied.graph,
+                           GraphDelta.from_pairs(add=[(u, v) for u in srcs]))
+    dg3, incremental = update_device_graph(dg2, applied3)
+    assert not incremental and dg3.r_ell_cap > dg2.r_ell_cap
+    assert dg3.ell_cap >= dg2.ell_cap and dg3.ell_idx.device.type == "cuda"
+    fresh = DeviceGraph.build(applied3.graph, dev,
+                              min_ell_caps=(dg2.ell_cap, dg2.r_ell_cap))
+    assert torch.equal(dg3.ell_idx, fresh.ell_idx)
+    assert torch.equal(dg3.r_ell_idx, fresh.r_ell_idx)
+
+
+def test_engine_deltas_on_card_match_cpu(dev):
+    from repro_torch.core import (EngineConfig, GraphDelta, PathSession,
+                                  generators)
+    from repro_torch.kernels import reset_launches
+    g = generators.community(3000, n_comm=6, avg_deg=6.0, seed=3)
+    qs = generators.random_queries(g, 12, k_range=(3, 5), seed=4)
+    for backend in ("host", "msbfs"):
+        cfg = EngineConfig(cache_bytes=1 << 24, delta_backend=backend)
+        on_card = PathSession(g, cfg, device="cuda")
+        on_cpu = PathSession(g, cfg, device="cpu")
+        on_card.run(qs)
+        on_cpu.run(qs)
+        s, _, _ = qs[0]
+        delta = GraphDelta.from_pairs(remove=[(s, int(g.neighbors(s)[0]))])
+        reset_launches()
+        a = on_card.apply_delta(delta)
+        assert (LAUNCHES["msbfs_step"] > 0) == (backend == "msbfs")
+        b = on_cpu.apply_delta(delta)
+        a.pop("t_apply_s")
+        b.pop("t_apply_s")
+        assert a == b
+        for x, y in zip(on_card.run(qs), on_cpu.run(qs)):
+            assert np.array_equal(x.paths, y.paths)
+
+
 @pytest.mark.parametrize("Q,W", [(256, 1 << 15), (17, 100), (1, 1), (5, 0),
                                  (0, 4)])
 def test_pairwise_popcount_matches_plain(dev, Q, W):
@@ -117,10 +231,13 @@ def test_engine_on_card_matches_cpu(dev):
     cfg = EngineConfig(plan_caps=False)
     reset_launches()
     on_card = PathSession(g, cfg, device="cuda").run(qs)
-    # every kernel but the walk-count DP's, which plan_caps=False skips
-    assert all(LAUNCHES[k] > 0 for k in LAUNCHES if k != "ell_spmm"), \
+    # every engine kernel but the walk-count DP's, which plan_caps=False
+    # skips; the ops API's kernels are on no engine path
+    assert all(LAUNCHES[k] > 0 for k in ("msbfs_step", "pairwise_popcount",
+                                         "path_member", "rowwise_overlap")), \
         LAUNCHES
-    assert LAUNCHES["ell_spmm"] == 0
+    assert LAUNCHES["ell_spmm"] == LAUNCHES["msbfs_expand"] == \
+        LAUNCHES["path_overlap"] == 0
     on_cpu = PathSession(g, cfg, device="cpu").run(qs)
     for a, b in zip(on_card, on_cpu):
         assert np.array_equal(a.paths, b.paths)

@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import generators as j_gen  # noqa: E402
+from repro.core.delta import GraphDelta as JGraphDelta  # noqa: E402
 from repro.core.engine import BatchPathEngine as JEngine  # noqa: E402
 from repro.core.engine import EngineConfig as JConfig  # noqa: E402
 from repro.core.enumerate import expand_level as j_expand_level  # noqa: E402
@@ -34,8 +35,8 @@ from repro.core.pathset import compact_rows as j_compact_rows  # noqa: E402
 from repro.core.pathset import concat as j_concat  # noqa: E402
 from repro.core.pathset import PathSet as JPathSet  # noqa: E402
 from repro.core.query import PathQuery as JPathQuery  # noqa: E402
-from repro_torch.core import (EngineConfig, Graph, PathQuery,  # noqa: E402
-                              PathSession, oracle)
+from repro_torch.core import (EngineConfig, Graph, GraphDelta,  # noqa: E402
+                              PathQuery, PathSession, oracle)
 from repro_torch.core.engine import BatchPathEngine  # noqa: E402
 from repro_torch.core.enumerate import expand_level, prune_table  # noqa: E402
 from repro_torch.core.join import (cross_join, keyed_join,  # noqa: E402
@@ -184,18 +185,51 @@ def test_empty_batch_and_precomputed_clusters(workload):
     dict(plan_caps=False, log_compiles=True),
     dict(plan_caps=False, trace=True),
     dict(plan_caps=False, edge_chunk=1 << 20),
-    dict(plan_caps=False, delta_max_sources=64),
-    dict(plan_caps=False, delta_backend="device"),
+    dict(plan_caps=False, trace_fence=True),
+    dict(plan_caps=False, trace_annotations=True),
 ])
 def test_unported_options_raise(workload, cfg):
     with pytest.raises(NotImplementedError, match="not ported"):
         BatchPathEngine(workload["g"], EngineConfig(**cfg), device=CPU)
 
 
+@pytest.mark.parametrize("cfg", [
+    dict(delta_max_sources=64),
+    dict(delta_max_sources=2),
+    dict(delta_backend="msbfs"),
+    # any value other than "host" selects the MS-BFS sweep, as in the
+    # reference
+    dict(delta_backend="device"),
+])
+def test_delta_options_act_like_reference(workload, cfg):
+    """The delta knobs are ported: a delta near the first query gives the
+    JAX engine's report (less its wall time) and its path rows after."""
+    jg = workload["jg"]
+    qs = [q.key for q in workload["queries"]][:6]
+    full = dict(plan_caps=False, cache_bytes=1 << 24, **cfg)
+    eng = BatchPathEngine(workload["g"], EngineConfig(**full), device=CPU)
+    j_eng = JEngine(jg, JConfig(kernel_backend="jnp", **full))
+    eng.run(qs)
+    j_eng.run(qs)
+    s, _, _ = qs[0]
+    u = int(workload["g"].neighbors(s)[0])
+    w = int(workload["g"].neighbors(u)[-1])
+    pairs = dict(add=[(s, w)], remove=[(s, u)])
+    rep = eng.apply_delta(GraphDelta.from_pairs(**pairs))
+    j_rep = j_eng.apply_delta(JGraphDelta.from_pairs(**pairs))
+    rep.pop("t_apply_s")
+    j_rep.pop("t_apply_s")
+    assert rep == j_rep
+    assert rep["cache_mode"] == ("full" if cfg.get("delta_max_sources") == 2
+                                 else "delta")
+    for a, b in zip(eng.run(qs), j_eng.run(qs)):
+        assert np.array_equal(a.paths, np.asarray(b.paths))
+
+
 @pytest.mark.parametrize("call", [
     lambda s: s.submit((0, 1, 3)), lambda s: s.pump(), lambda s: s.results(),
     lambda s: s.result(0), lambda s: s.batch_log,
-    lambda s: s.apply_delta(None),
+    lambda s: s.server,
 ])
 def test_session_streaming_raises(workload, call):
     with pytest.raises(NotImplementedError, match="not ported"):
