@@ -10,7 +10,9 @@ and BASIC); phases 6 and 7 the engine's default configuration
 (``EngineConfig()``: walk-count capacity planning on ``ell_spmm``) under
 every planner, and the cross-batch cache; phase 8 incremental graph
 deltas under both ``delta_backend`` values; phase 9 the kernel ops API
-(``msbfs_hop_packed``, ``path_overlap`` and the join-validity matrices).
+(``msbfs_hop_packed``, ``path_overlap`` and the join-validity matrices);
+phase 10 the transformer's serving path (granite-8b prefill and KV-cache
+decode on the ``flash_attention`` kernel).
 
 Phases, each printing one JSON line (``"phase": ...``):
 
@@ -76,10 +78,32 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``keyed_join_valid`` on its heaviest keyed join with
                NA*NB <= 2**26, whose valid-pair sums must equal the joins'
                counts.
-10. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+10. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
+               layers, d_model 4096, 32 q-heads, 8 kv-heads, hd 128,
+               d_ff 14336, vocab 49152: 8.25 G parameters) in bf16, drawn
+               on the card from a seeded ``torch.Generator`` with the JAX
+               package's init law. ``LM.prefill`` of 4 requests x 2048
+               prompt tokens from ``TokenStream(vocab, 4, 2048, seed=0)``
+               (the ``prefill_32k`` shape with seq 32768 -> 2048 and batch
+               32 -> 4): cold once, warm twice. Then ``decode_step`` into
+               a bf16 cache of 544: the first 512 prompt tokens
+               teacher-forced, then 32 greedy steps (per-step latency and
+               tokens/s of the first 28; the last 4, and a fourth
+               prefill, under ``torch.profiler`` tracing the card only,
+               for the device time by kernel family and the busy share
+               of that same window). Checks: (a) full width, float32, 4
+               layers (TF32 off): ``decode_step``'s teacher-forced
+               logits at all 512 positions equal ``lm_forward`` + unembed
+               over the same tokens at atol = rtol = 2e-3 (the JAX
+               package's decode test); (b) the same at full depth in
+               bf16, relative L2 error at most 5e-2 at every position;
+               (c) every logit finite; (d) ``flash_attention`` launched
+               exactly once per layer per ``prefill`` / ``lm_forward`` /
+               ``decode_step``.
+11. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-11. kernels -- each kernel again on the inputs of its heaviest call in the
+12. kernels -- each kernel again on the inputs of its heaviest call in the
                main path (and, for the join kernels, in the sharing
                batch; for ``msbfs_step`` also the W = 1 sweep of phase
                ``delta``; for ``ell_spmm`` also two synthetic shapes on
@@ -91,6 +115,17 @@ Phases, each printing one JSON line (``"phase": ...``):
                with CUDA events (median of 10 warm runs) beside the plain
                version, one PyTorch library call where one computes the
                same function, and the least time the card could take.
+               ``flash_attention`` runs on seeded random inputs at four
+               shapes: the prefill's (4 x 2048, causal), the last decode
+               step's (one query over 544 cached keys), a mid-cache
+               decode step (300 valid keys of 544, the tail NaN) and one
+               query tail of the published ``prefill_32k`` length (512
+               queries at ``q_offset`` 32256 over 32768 keys); the decode
+               rows read a layer slice of a two-layer cache. In bf16 it
+               is held to its plain version at atol = rtol = 1e-2 and a
+               relative L2 error of at most 1e-2 in every output row (one
+               query, one q-head); in float32 at 3e-5 / 1e-4. Its library
+               call is ``scaled_dot_product_attention``.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -101,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -121,6 +157,8 @@ INT_PER_CLK_SM = 64
 # published H100 SXM float32 rate outside the tensor cores (NVIDIA data
 # sheet), operations/s
 F32_OPS_PER_S = 67e12
+# published H100 SXM dense bf16 tensor-core rate, operations/s
+BF16_OPS_PER_S = 989e12
 
 KERNEL_ROWS = {
     "msbfs_step": ("src/repro_torch/csrc/msbfs_step.cu",
@@ -137,6 +175,8 @@ KERNEL_ROWS = {
                      "src/repro/kernels/msbfs_expand/kernel.py:44"),
     "path_overlap": ("src/repro_torch/csrc/path_join.cu",
                      "src/repro/kernels/path_join/kernel.py:39"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:79"),
 }
 # the kernels of the first slice's path (plan_caps=False), which phases 4
 # and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
@@ -152,6 +192,31 @@ FAR_EDGES = 128
 FAR_POOL = 8 * FAR_EDGES
 # the wide delta's deletions (and insertions) per edge: exp10's rate
 WIDE_RATE = 0.0025
+# phase 10: the published configuration served, prefill_32k cut in
+# sequence (32768 -> 2048) and batch (32 -> 4), the decode cache's
+# teacher-forced and greedy steps, and check (a)'s depth
+LM_ARCH = "granite-8b"
+LM_BATCH, LM_PROMPT = 4, 2048
+LM_TEACHER, LM_GREEDY = 512, 32
+LM_PROFILED = 4              # the last greedy steps, under torch.profiler
+LM_CHECK_LAYERS = 4
+LM_F32_TOL = 2e-3            # tests/test_models.py's decode == prefill
+LM_BF16_REL_L2 = 5e-2        # bf16 rounding over 36 layers
+# the kernel row's shapes: (name, B, Sq, Skv, Hq, Hkv, hd, q_offset,
+# kv_valid_len); None = the defaults (Skv - Sq, Skv). The decode rows
+# (Sq = 1) read layer 1 of a two-layer (2, B, Skv, Hkv, hd) cache.
+ATTN_SHAPES = (("prefill", 4, 2048, 2048, 32, 8, 128, None, None),
+               ("decode", 4, 1, 544, 32, 8, 128, 543, 544),
+               ("decode_mid", 4, 1, 544, 32, 8, 128, 299, 300),
+               ("long", 1, 512, 32768, 32, 8, 128, 32256, None))
+# bf16 against the float32 plain version: p is rounded to bf16 before the
+# PV product and the output to bf16, about 2**-8 of a value each, so a
+# row of 128 has 3e-3 to 5e-3 of relative L2 error; one 64-key tile
+# dropped at the long row (32768 keys) moves a row by about
+# sqrt(64 / 32768) = 4.4e-2
+ATTN_BF16_TOL = 1e-2                  # atol = rtol, elementwise
+ATTN_BF16_ROW_REL_L2 = 1e-2
+ATTN_F32_TOL = (3e-5, 1e-4)           # atol, rtol
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -957,6 +1022,199 @@ def phase_ops(torch, g, main_rec, join_rec) -> dict:
             "splice": (sp["a"][:, :p_col + 1], sp["b"][:, :c_col + 1])}
 
 
+def decode_teacher_forced(torch, model, prompt, steps: int, cache) -> tuple:
+    """``decode_step`` over ``prompt[:, :steps]``; the logits at every
+    position (B, steps, vocab), the cache, and each step's wall time."""
+    logits, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(prompt[:, i:i + 1], cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        logits.append(out[:, 0])
+    return torch.stack(logits, 1), cache, times
+
+
+def teacher_logits(model, tokens):
+    """``lm_forward`` + unembed at every position, float32."""
+    return (model(tokens) @ model.unembed_weight()).float()
+
+
+def profiled(torch, fn, calls: int) -> dict:
+    """``fn()`` ``calls`` times under ``torch.profiler``, tracing the card
+    only (with the host's ops traced too, a granite-8b decode step took
+    2.2 s instead of 34 ms on an H100): the
+    device time per call summed over the CUDA kernels, by family, and its
+    share of the host clock over the same calls (synchronized at both
+    ends)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls
+    family = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        key = ("flash_attention" if "attn_" in name else
+               "gemm" if any(w in name for w in ("gemm", "xmma", "nvjet",
+                                                 "cutlass")) else
+               "copy" if "memcpy" in name or "memset" in name else "other")
+        family[key] = family.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    device = sum(family.values())
+    return {"calls": calls, "device_ms": device / calls,
+            "by_family_ms": {k: v / calls for k, v in sorted(family.items())},
+            "profiled_wall_ms": wall * 1e3,
+            "device_busy_share_profiled": device / calls / (wall * 1e3)}
+
+
+def latency(times) -> dict:
+    ts = sorted(times)
+    return {"median_s": statistics.median(ts),
+            "p90_s": ts[min(len(ts) - 1, int(0.9 * len(ts)))],
+            "steps": len(ts)}
+
+
+def phase_lm(torch) -> dict:
+    """Phase 10 (see the module docstring): granite-8b served on the card,
+    with checks (a)-(d)."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import LM
+
+    # full float32 products for check (a) (the bf16 path is unaffected)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get(LM_ARCH).CONFIG
+    B = LM_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+               device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "lm", "arch": cfg.name, "dtype": str(model.dtype),
+           "config": dataclasses.asdict(cfg),
+           "reduced": {"seq_len": [32768, LM_PROMPT],
+                       "global_batch": [32, LM_BATCH]},
+           "params": model.param_count(), "param_bytes": model.param_bytes(),
+           "t_init_s": time.perf_counter() - t0,
+           "max_memory_allocated_init": torch.cuda.max_memory_allocated()}
+    tokens, _ = TokenStream(cfg.vocab, B, LM_PROMPT, seed=0).batch_at(0)
+    prompt = torch.from_numpy(tokens).to("cuda", torch.long)
+
+    # -- the main path, counted: prefill x 3, decode 512 + 32, forward x 1
+    calls = dict.fromkeys(("prefill", "decode_step", "lm_forward"), 0)
+    reset_launches()
+    t_prefill = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = model.prefill(prompt)
+        torch.cuda.synchronize()
+        t_prefill.append(time.perf_counter() - t0)
+        calls["prefill"] += 1
+        require(last.shape == (B, 1, cfg.vocab)
+                and bool(torch.isfinite(last).all()),
+                "prefill logits: wrong shape or not finite (c)")
+    cache = model.init_cache(B, LM_TEACHER + LM_GREEDY)
+    got, cache, t_teacher = decode_teacher_forced(torch, model, prompt,
+                                                  LM_TEACHER, cache)
+    calls["decode_step"] += LM_TEACHER
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    greedy = []
+
+    def greedy_step():
+        nonlocal tok, cache
+        step, cache = model.decode_step(tok, cache)
+        calls["decode_step"] += 1
+        require(bool(torch.isfinite(step).all()),
+                "greedy decode logits not finite (c)")
+        tok = step[:, 0].argmax(-1, keepdim=True)
+        greedy.append(tok)
+
+    t_greedy = []
+    for _ in range(LM_GREEDY - LM_PROFILED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_step()
+        torch.cuda.synchronize()
+        t_greedy.append(time.perf_counter() - t0)
+    prof_decode = profiled(torch, greedy_step, LM_PROFILED)
+    prof_prefill = profiled(torch, lambda: model.prefill(prompt), 1)
+    calls["prefill"] += 1
+    ref = teacher_logits(model, prompt[:, :LM_TEACHER])
+    calls["lm_forward"] += 1
+    torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    expected = cfg.n_layers * sum(calls.values())
+    require(launches == expected,
+            f"flash_attention launched {launches} times, expected "
+            f"{cfg.n_layers} layers x {calls} = {expected} (d)")
+    require(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
+            "teacher-forced logits not finite (c)")
+    rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+    max_rel = float(rel.max())
+    require(max_rel <= LM_BF16_REL_L2,
+            f"check (b): decode vs forward relative L2 {max_rel} > "
+            f"{LM_BF16_REL_L2}")
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    out.update({
+        "calls": calls, "launches": {"flash_attention": launches},
+        "launches_per_call": cfg.n_layers,
+        "prefill": {"tokens": B * LM_PROMPT, "t_cold_s": t_prefill[0],
+                    "t_warm_s": t_prefill[1:],
+                    "tokens_per_s_warm": [B * LM_PROMPT / t
+                                          for t in t_prefill[1:]]},
+        "decode": {"max_len": LM_TEACHER + LM_GREEDY,
+                   "teacher_forced": latency(t_teacher),
+                   "greedy": latency(t_greedy),
+                   "tokens_per_s_greedy": B * len(t_greedy) / sum(t_greedy),
+                   "greedy_tokens": torch.cat(greedy, 1)[0, :8].tolist()},
+        "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
+        "check_b": {"layers": cfg.n_layers, "dtype": "bfloat16",
+                    "positions": LM_TEACHER,
+                    "max_rel_l2": max_rel, "bound": LM_BF16_REL_L2,
+                    "mean_rel_l2": float(rel.mean()),
+                    "argmax_agreement": agree},
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del model, cache, got, ref, rel, last
+    torch.cuda.empty_cache()
+
+    # -- check (a): full width, float32, depth cut
+    cfg_a = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS,
+                                dtype="float32")
+    model = LM(cfg_a, generator=torch.Generator(device="cuda")
+               .manual_seed(1), device="cuda")
+    reset_launches()
+    got, cache, _ = decode_teacher_forced(
+        torch, model, prompt, LM_TEACHER, model.init_cache(B, LM_TEACHER))
+    ref = teacher_logits(model, prompt[:, :LM_TEACHER])
+    torch.cuda.synchronize()
+    require(LAUNCHES["flash_attention"] == LM_CHECK_LAYERS * (LM_TEACHER + 1),
+            "check (a): flash_attention not launched once per layer (d)")
+    require(bool(torch.isfinite(got).all()), "check (a): logits not finite")
+    excess = float(((got - ref).abs() - LM_F32_TOL * ref.abs()).max())
+    ok = bool(torch.allclose(got, ref, atol=LM_F32_TOL, rtol=LM_F32_TOL))
+    out["check_a"] = {"layers": LM_CHECK_LAYERS, "dtype": "float32",
+                      "tf32": False, "positions": LM_TEACHER,
+                      "max_abs_err": float((got - ref).abs().max()),
+                      "max_excess_over_rtol": excess, "atol": LM_F32_TOL,
+                      "rtol": LM_F32_TOL, "ok": ok}
+    require(ok, f"check (a): decode vs forward beyond atol = rtol = "
+                f"{LM_F32_TOL}: {out['check_a']}")
+    del model, cache, got, ref
+    torch.cuda.empty_cache()
+    emit(out)
+    return {"launches": launches, "per_call": cfg.n_layers, "calls": calls}
+
+
 def phase_peaks(torch, dev_info) -> dict:
     """Peak rates of the two units that can compute popcount(AND): the
     CUDA cores' 32-bit ``popc`` and the tensor cores' 1-bit MMA."""
@@ -1081,9 +1339,151 @@ def measure_ell_spmm(torch, ell, xs, op) -> dict:
             "t_ops_ms": V * D * F / F32_OPS_PER_S * 1e3}
 
 
+def bound(nbytes, t_ops_ms) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over their peak rate (``t_ops_ms``), the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops_ms),
+            "bound_by": "bytes" if t_bytes >= t_ops_ms else "operations",
+            "bytes": nbytes}
+
+
+def attention_work(B, Sq, Skv, Hq, Hkv, hd, q_offset, valid):
+    """The visible (query, key) pairs of one (batch, q-head), the
+    operations (a multiply and an add per element of q.k and of p.v) and
+    the bf16 bytes (q, k[:valid], v[:valid] read once, out written once)."""
+    q_offset = Skv - Sq if q_offset is None else q_offset
+    valid = Skv if valid is None else valid
+    pairs = sum(max(0, min(valid, q_offset + i + 1)) for i in range(Sq))
+    ops = 4 * hd * pairs * B * Hq
+    nbytes = 2 * (2 * B * Sq * Hq * hd + 2 * B * valid * Hkv * hd)
+    return pairs, ops, nbytes
+
+
+def check_bf16_attention(torch, got, want, what: str) -> tuple:
+    """bf16 attention against the plain version at ``ATTN_BF16_TOL`` and
+    ``ATTN_BF16_ROW_REL_L2``; (max abs error, the largest relative L2
+    error of an output row: one query, one q-head)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).norm(dim=-1)
+                 / want.norm(dim=-1).clamp_min(1e-30)).max())
+    require(torch.allclose(got, want, atol=ATTN_BF16_TOL, rtol=ATTN_BF16_TOL)
+            and rel <= ATTN_BF16_ROW_REL_L2,
+            f"{what} disagrees with the plain version in bf16: max abs "
+            f"err {err}, max row relative L2 {rel}")
+    return err, rel
+
+
+def attention_inputs(torch, gen, B, Sq, Skv, Hq, Hkv, hd, valid):
+    """Seeded bf16 q, k, v; for a decode row (Sq = 1) k and v are layer 1
+    of two-layer (2, B, Skv, Hkv, hd) caches whose keys past
+    ``kv_valid_len`` are NaN (no arm may read them)."""
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+
+    q = draw((B, Sq, Hq, hd))
+    if Sq != 1:
+        return q, draw((B, Skv, Hkv, hd)), draw((B, Skv, Hkv, hd))
+    ck, cv = draw((2, B, Skv, Hkv, hd)), draw((2, B, Skv, Hkv, hd))
+    ck[:, :, valid:] = float("nan")
+    cv[:, :, valid:] = float("nan")
+    return q, ck[1], cv[1]
+
+
+def flash_attention_row(torch, lm) -> dict:
+    """``flash_attention`` at the ``ATTN_SHAPES`` on seeded random inputs:
+    held to its plain version in bf16 and float32, timed beside it,
+    ``scaled_dot_product_attention`` and the bound; the row is the
+    prefill shape's, with the main path's launches from phase lm."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {}
+    for name, B, Sq, Skv, Hq, Hkv, hd, q_offset, valid in ATTN_SHAPES:
+        vl = Skv if valid is None else valid
+        q, k, v = attention_inputs(torch, gen, B, Sq, Skv, Hq, Hkv, hd, vl)
+        kw = {"q_offset": q_offset, "kv_valid_len": valid}
+
+        def kernel(*a):
+            return fops.flash_attention_cuda(*a, True, **kw)
+
+        def plain(*a):
+            return fops.flash_attention_ref(*a, True, **kw)
+
+        want = plain(q, k, v)
+        err, rel = check_bf16_attention(torch, kernel(q, k, v), want,
+                                        f"flash_attention at {name}")
+        f32 = (q.float(), k.float(), v.float())
+        got32, want32 = kernel(*f32), plain(*f32)
+        err32 = float((got32 - want32).abs().max())
+        require(torch.allclose(got32, want32, atol=ATTN_F32_TOL[0],
+                               rtol=ATTN_F32_TOL[1]),
+                f"flash_attention disagrees with its plain version in "
+                f"float32 at {name}: max abs err {err32}")
+        del got32, want32
+        f32_ms = cuda_ms(torch, kernel, lambda: f32)
+        del f32
+        # SDPA's causal mask is top-left aligned: causal only where the
+        # queries and the valid keys coincide; a decode row sees every
+        # valid key, so it is the same function without a mask
+        qt, kt, vt = (q.transpose(1, 2), k[:, :vl].transpose(1, 2),
+                      v[:, :vl].transpose(1, 2))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=Sq == vl, enable_gqa=True)
+
+        same = Sq == vl or (Sq == 1 and q_offset + 1 >= vl)
+        if same:
+            check_bf16_attention(torch, sdpa().transpose(1, 2), want,
+                                 f"scaled_dot_product_attention at {name}")
+        del want
+        pairs, n_ops, nbytes = attention_work(B, Sq, Skv, Hq, Hkv, hd,
+                                              q_offset, valid)
+        shapes[name] = {
+            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
+                      "hd": hd, "q_offset": Skv - Sq if q_offset is None
+                      else q_offset, "kv_valid_len": vl,
+                      "cache_layer_slice": Sq == 1},
+            "max_abs_err": err, "max_row_rel_l2": rel,
+            "max_abs_err_f32": err32,
+            "ms": cuda_ms(torch, kernel, lambda: (q, k, v)),
+            "plain_ms": cuda_ms(torch, plain, lambda: (q, k, v)),
+            "library_ms": cuda_ms(torch, sdpa), "f32_ms": f32_ms,
+            "library_same_function": same, "pairs_per_head": pairs,
+            "ops": n_ops, **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3)}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    head = shapes.pop("prefill")
+    src, replaces = KERNEL_ROWS["flash_attention"]
+    return {"name": "flash_attention", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": lm["launches"],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"], "bytes": head["bytes"],
+            "ops": head["ops"], "f32_ms": head["f32_ms"],
+            "max_abs_err_f32": head["max_abs_err_f32"],
+            "max_row_rel_l2": head["max_row_rel_l2"],
+            "tolerance": {"bfloat16": {"atol": ATTN_BF16_TOL,
+                                       "rtol": ATTN_BF16_TOL,
+                                       "row_rel_l2": ATTN_BF16_ROW_REL_L2},
+                          "float32": {"atol": ATTN_F32_TOL[0],
+                                      "rtol": ATTN_F32_TOL[1]}},
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            " (enable_gqa, is_causal where Sq == Skv; the "
+                            "long row attends all keys, unmasked)",
+            "launches_from": "phase lm (prefill, decode_step, lm_forward)",
+            "launches_per_call": lm["per_call"], "calls": lm["calls"],
+            **shapes}
+
+
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                   share_launches, plan_rec, plan_launches, ops,
-                  w1_rec) -> list[dict]:
+                  w1_rec, lm) -> list[dict]:
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     from repro_torch.kernels.path_join import ops as jops
@@ -1094,12 +1494,6 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     # each kernel's launches on the path that runs it
     launches = dict(launches, ell_spmm=plan_launches["ell_spmm"],
                     **ops["launches"])
-
-    def bound(nbytes, t_ops_ms):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return {"bound_ms": max(t_bytes, t_ops_ms),
-                "bound_by": "bytes" if t_bytes >= t_ops_ms else "operations",
-                "bytes": nbytes}
 
     def row(name, shape, err, ms, plain_ms, nbytes, t_ops_ms,
             library_ms=None, **extra):
@@ -1283,6 +1677,10 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                                       "splice_join_valid, keyed_join_valid)",
         splice_join={"shape": shape2, "max_abs_err": err2, "ms": ms2,
                      "plain_ms": plain2, **bound(nbytes2, t_ops2)})
+
+    r = flash_attention_row(torch, lm)
+    emit({"phase": "kernel", **r})
+    rows.append(r)
     return rows
 
 
@@ -1318,10 +1716,14 @@ def main(argv=None) -> int:
         ("sharing", share_queries), ("main", queries),
         ("main, k = 4", [q for q in queries if q[2] == 4])))
     ops = phase_ops(torch, g, main_rec, join_rec)
+    del g, session, main_report, share_report       # the graph state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = phase_lm(torch)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,
-                         ops, w1_rec)
+                         ops, w1_rec, lm)
     emit({"phase": "done", "t_total_s": time.perf_counter() - t_start})
     print(dev_info["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -50,7 +50,7 @@ from .planner import CostRouter, Route, RouterConfig
 from .query import (BatchReport, Output, PathQuery, PathsStore, Planner,
                     QueryLike, QueryResult, midpoint_split)
 from .similarity import similarity_matrix
-from ..kernels.registry import resolve_arm
+from ..kernels.registry import resolve_arm, resolve_device
 from ..obs import metrics as obsmetrics
 
 __all__ = ["EngineConfig", "BatchPathEngine", "EngineOverflow",
@@ -110,17 +110,6 @@ class BatchResult:
 
     paths: dict[int, np.ndarray]    # query idx -> (n_paths, k+1) int32 (pad -1)
     stats: dict
-
-
-def resolve_device(device: Union[torch.device, str, None]) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device without CUDA raises. The
-    entry points never carry on on the CPU unless asked to."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "kernel versions on the CPU")
-    return dev
 
 
 def _check_config(cfg: EngineConfig) -> None:

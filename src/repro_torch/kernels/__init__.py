@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels for the engine's hot spots and the kernel ops
+"""Hand-written CUDA kernels for the engine's hot spots, the kernel ops
 API (``msbfs_hop_packed``, ``path_overlap`` and the join-validity
-matrices), each beside its plain PyTorch version.
+matrices) and the transformer's attention (``flash_attention``), each
+beside its plain PyTorch version.
 
 Each op package has one ``ops`` module holding the plain version, the
 wrapper of the CUDA kernel in ``repro_torch/csrc`` and the function that

@@ -30,7 +30,8 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "PROBES", "NVCC_FLAGS",
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("msbfs_step", "pairwise_popcount", "path_join", "ell_spmm")
+SOURCES = ("msbfs_step", "pairwise_popcount", "path_join", "ell_spmm",
+           "flash_attention")
 # throughput probes that chip_smoke.py times for peak rates; not kernels
 PROBES = ("peak_probe",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

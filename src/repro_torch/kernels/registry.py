@@ -24,14 +24,15 @@ from typing import Union
 
 import torch
 
-__all__ = ["KernelArm", "ArmLike", "resolve_arm", "check_tensor",
-           "KERNELS", "LAUNCHES", "reset_launches"]
+__all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
+           "check_tensor", "KERNELS", "LAUNCHES", "reset_launches"]
 
 # the hand-written kernels; each wrapper adds one to its LAUNCHES entry
 # where it launches its kernel, and nowhere else, so a run can show that
 # the main path went through the kernels
 KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
-           "rowwise_overlap", "ell_spmm", "msbfs_expand", "path_overlap")
+           "rowwise_overlap", "ell_spmm", "msbfs_expand", "path_overlap",
+           "flash_attention")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -87,6 +88,18 @@ def resolve_arm(device: Union[torch.device, str],
             f"kernel arm {chosen.value!r} cannot run on a {dev_type} tensor "
             f"(the {dev_type} arm is {native.value!r})")
     return chosen
+
+
+def resolve_device(device: Union[torch.device, str, None]) -> torch.device:
+    """The device of an entry point: ``None`` means ``"cuda"``; a CUDA
+    device without CUDA raises. The entry points never carry on on the CPU
+    unless asked to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "kernel versions on the CPU")
+    return dev
 
 
 def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,

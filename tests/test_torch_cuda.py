@@ -9,6 +9,12 @@ The inputs are integers, or (``ell_spmm``) float32 sums taken in the same
 order by the kernel and its plain version, so every comparison is exact
 equality. Also: graph deltas patch the card's ELL tables to equal a fresh
 build, and the engine's deltas on the card equal those on the CPU.
+``flash_attention`` sums in another order than its plain version (and in
+bf16 rounds p before the PV product), so it is held to tolerances: 3e-5
+absolute / 1e-4 relative in float32 (the JAX kernel tests'); in bf16
+1e-2 elementwise and a relative L2 error of at most 2e-2 in every output
+row. The reduced transformer on the card matches the CPU port in float32
+(TF32 off) at 1e-4.
 """
 import numpy as np
 import pytest
@@ -18,6 +24,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import LAUNCHES, build  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
     ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_cuda, flash_attention_ref, gqa_attention)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
     msbfs_expand_cuda, msbfs_expand_ref, msbfs_hop_packed, msbfs_step_cuda,
     msbfs_step_ref, pack_bits)
@@ -284,3 +292,124 @@ def test_default_config_engine_on_card_matches_cpu(dev):
             assert a.stats.get(key) == b.stats.get(key), (planner, key)
         for x, y in zip(a, b):
             assert np.array_equal(x.paths, y.paths), planner
+
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len): square causal,
+# non-causal, decode rows with offsets, a cache tail cut by kv_valid_len,
+# hd 8 / 12 / 24 / 128 and Hq:Hkv 1:1, 4:1 and 5:1 (qwen2.5-14b's 40:8)
+ATTN_CASES = [
+    (2, 64, 64, 4, 4, 8, True, None, None),
+    (2, 64, 64, 4, 1, 12, False, None, None),
+    (3, 33, 65, 40, 8, 24, True, None, None),
+    (1, 7, 50, 5, 1, 12, True, 20, 27),
+    (2, 1, 96, 8, 2, 128, True, 70, 71),
+    (2, 130, 130, 32, 8, 128, True, None, None),
+    (1, 19, 200, 40, 8, 128, False, None, 150),
+    (2, 5, 300, 4, 1, 24, True, 3, 300),
+]
+
+
+def assert_attention_close(got, want, dtype):
+    """float32 at 3e-5 / 1e-4. bf16 (p and the output rounded to bf16,
+    about 2**-8 of a value each): elementwise at 1e-2, and at most 2e-2
+    relative L2 error in every output row (one query, one q-head; rows of
+    8 to 24 values measure up to 8e-3, rows of 128 about 4e-3)."""
+    got, want = got.float(), want.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+        return
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(rel.max()) <= 2e-2, float(rel.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_attention_matches_plain(dev, case, dtype):
+    B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, valid = case
+    dt = getattr(torch, dtype)
+    r = np.random.default_rng(Sq * 131 + Skv + hd)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+               .to(dev, dt) for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                                          (B, Skv, Hkv, hd)))
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal, q_offset=q_offset,
+                               kv_valid_len=valid)
+    want = flash_attention_ref(q, k, v, causal, q_offset=q_offset,
+                               kv_valid_len=valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == (B, Sq, Hq, hd)
+    assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_on_a_cache_layer_slice(dev, dtype):
+    """Strided k / v: one layer of an (L, B, max_len, Hkv, hd) cache, the
+    tail past kv_valid_len holding garbage that must not leak in."""
+    dt = getattr(torch, dtype)
+    L, B, max_len, Hkv, Hq, hd, pos = 3, 2, 80, 2, 8, 64, 37
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cache = torch.randn((L, B, max_len, Hkv, hd), generator=gen,
+                        device=dev).to(dt)
+    cache[:, :, pos + 1:] = float("nan")
+    q = torch.randn((B, 1, Hq, hd), generator=gen, device=dev).to(dt)
+    k, v = cache[1], cache[2]
+    got = gqa_attention(q, k, v, True, q_offset=pos, kv_valid_len=pos + 1)
+    want = flash_attention_ref(q, k[:, :pos + 1].clone(),
+                               v[:, :pos + 1].clone(), True)
+    assert_attention_close(got, want, dtype)
+    # a transposed view (head stride != hd) is fine too: last dim contiguous
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(
+        gqa_attention(qt, k, v, True, q_offset=pos, kv_valid_len=pos + 1)
+        .float(), got.float(), atol=0, rtol=0)
+
+
+def test_flash_attention_refuses_what_it_cannot_run(dev):
+    q = torch.zeros((1, 4, 2, 8), device=dev)
+    k = torch.zeros((1, 4, 1, 8), device=dev)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="4-D"):
+        flash_attention_cuda(q[0], k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k.cpu(), k)
+    big = torch.zeros((1, 4, 1, 257), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q, k, torch.zeros((1, 4, 1, 16),
+                                               device=dev)[..., ::2])
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-14b"])
+def test_reduced_model_on_card_matches_cpu(dev, arch):
+    """float32 (TF32 off): lm_forward, prefill and six decode steps into a
+    cache of 16 on the card equal the CPU port's at 1e-4, every layer of
+    every call through the kernel."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.transformer import LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get(arch).REDUCED
+    on_cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    params = {name: getattr(on_cpu, name)
+              for name in ("embed", "final_norm", "unembed")}
+    params["layers"] = {name: torch.stack([getattr(lp, name)
+                                           for lp in on_cpu.layers])
+                        for name, _ in on_cpu.layers[0].named_parameters()}
+    on_card = LM(cfg, params, device="cuda")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+    reset_launches()
+    tol = dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(on_card(toks).cpu(), on_cpu(toks), **tol)
+    torch.testing.assert_close(on_card.prefill(toks).cpu(),
+                               on_cpu.prefill(toks), **tol)
+    c_card, c_cpu = on_card.init_cache(2, 16), on_cpu.init_cache(2, 16)
+    for i in range(6):
+        a, c_card = on_card.decode_step(toks[:, i:i + 1], c_card)
+        b, c_cpu = on_cpu.decode_step(toks[:, i:i + 1], c_cpu)
+        torch.testing.assert_close(a.cpu(), b, **tol)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.n_layers * (2 + 6)

@@ -57,7 +57,7 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_every_kernel_module_imports_without_nvcc():
     import importlib
     for name in ("msbfs_expand", "pairwise_popcount", "path_join",
-                 "ell_spmm"):
+                 "ell_spmm", "flash_attention"):
         importlib.import_module(f"repro_torch.kernels.{name}.ops")
     from repro_torch.kernels import build
     assert not any(build.BUILD_DIR.glob("*.tmp"))
@@ -77,6 +77,21 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BatchPathEngine(g, cfg, device="cuda")
     assert BatchPathEngine(g, cfg, device="cpu").device.type == "cpu"
+
+
+def test_the_model_needs_cuda_unless_asked_for_cpu():
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import LM, init_cache
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = get("granite-8b").REDUCED
+    gen = torch.Generator().manual_seed(0)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LM(cfg, generator=gen, **kw)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_cache(cfg, 1, 8, **kw)
+    assert LM(cfg, generator=gen, device="cpu").embed.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
