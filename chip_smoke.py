@@ -38,7 +38,9 @@ Phases, each printing one JSON line (``"phase": ...``):
                default configuration, runs the sharing batch under
                ``batch``, ``batch+``, ``basic+``, ``pathenum`` and
                ``auto``, each with its own launch counts (``ell_spmm``
-               must launch) and stage times; every path set must equal
+               must launch, every time through its F = 1 kernel
+               ``ell_gather_f1_kernel``) and stage times; every path set
+               must equal
                the ``plan_caps=False`` BATCH run of phase 5. The overflow
                retries of node enumeration are counted with and without
                ``plan_caps`` (by wrapping ``_run_node_once``). ``auto``
@@ -99,7 +101,9 @@ Phases, each printing one JSON line (``"phase": ...``):
                bf16, relative L2 error at most 5e-2 at every position;
                (c) every logit finite; (d) ``flash_attention`` launched
                exactly once per layer per ``prefill`` / ``lm_forward`` /
-               ``decode_step``.
+               ``decode_step``, each prefill and forward on the wgmma
+               route and each decode step on the split-K route (check (a)
+               on the float32 route).
 11. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
@@ -115,17 +119,30 @@ Phases, each printing one JSON line (``"phase": ...``):
                with CUDA events (median of 10 warm runs) beside the plain
                version, one PyTorch library call where one computes the
                same function, and the least time the card could take.
-               ``flash_attention`` runs on seeded random inputs at four
+               ``flash_attention`` runs on seeded random inputs at six
                shapes: the prefill's (4 x 2048, causal), the last decode
                step's (one query over 544 cached keys), a mid-cache
-               decode step (300 valid keys of 544, the tail NaN) and one
+               decode step (300 valid keys of 544, the tail NaN), one
                query tail of the published ``prefill_32k`` length (512
-               queries at ``q_offset`` 32256 over 32768 keys); the decode
+               queries at ``q_offset`` 32256 over 32768 keys), and a
+               prompt chunk of 8 queries after 292 cached keys (300 of
+               544 valid) at hd 128 and at hd 96; the decode and chunk
                rows read a layer slice of a two-layer cache. In bf16 it
                is held to its plain version at atol = rtol = 1e-2 and a
                relative L2 error of at most 1e-2 in every output row (one
-               query, one q-head); in float32 at 3e-5 / 1e-4. Its library
-               call is ``scaled_dot_product_attention``.
+               query, one q-head); in float32 at 3e-5 / 1e-4. Each shape
+               must take its route (wgmma for the prefill, the long row
+               and the chunk at hd 128, mma for the chunk at hd 96,
+               split-K for the decode rows, whose output is also held
+               to ``flash_attention_splitk_ref`` at the same bf16
+               tolerance). Its library call is
+               ``scaled_dot_product_attention``. Each shape is also
+               timed as 50 launches captured in one CUDA graph and
+               replayed between one pair of CUDA events (``device_ms``,
+               per launch; SDPA the same way), since a single launch's
+               ``ms`` includes the Python wrapper, which at the decode
+               rows takes longer than the kernels; ``ell_spmm``'s F = 1
+               row likewise.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -203,17 +220,26 @@ LM_CHECK_LAYERS = 4
 LM_F32_TOL = 2e-3            # tests/test_models.py's decode == prefill
 LM_BF16_REL_L2 = 5e-2        # bf16 rounding over 36 layers
 # the kernel row's shapes: (name, B, Sq, Skv, Hq, Hkv, hd, q_offset,
-# kv_valid_len); None = the defaults (Skv - Sq, Skv). The decode rows
-# (Sq = 1) read layer 1 of a two-layer (2, B, Skv, Hkv, hd) cache.
+# kv_valid_len); None = the defaults (Skv - Sq, Skv). The rows with a
+# kv_valid_len read layer 1 of a two-layer (2, B, Skv, Hkv, hd) cache: a
+# decode step, and a prompt chunk of 8 queries (32 rows) at hd 128 (the
+# wgmma route) and at hd 96 (the mma.sync route).
 ATTN_SHAPES = (("prefill", 4, 2048, 2048, 32, 8, 128, None, None),
                ("decode", 4, 1, 544, 32, 8, 128, 543, 544),
                ("decode_mid", 4, 1, 544, 32, 8, 128, 299, 300),
-               ("long", 1, 512, 32768, 32, 8, 128, 32256, None))
+               ("long", 1, 512, 32768, 32, 8, 128, 32256, None),
+               ("chunk", 4, 8, 544, 32, 8, 128, 292, 300),
+               ("chunk_hd96", 4, 8, 544, 32, 8, 96, 292, 300))
 # bf16 against the float32 plain version: p is rounded to bf16 before the
 # PV product and the output to bf16, about 2**-8 of a value each, so a
 # row of 128 has 3e-3 to 5e-3 of relative L2 error; one 64-key tile
 # dropped at the long row (32768 keys) moves a row by about
 # sqrt(64 / 32768) = 4.4e-2
+# the route each shape must take (kernels/flash_attention/ops.py)
+ATTN_ROUTE = {"prefill": "wgmma", "decode": "splitk",
+              "decode_mid": "splitk", "long": "wgmma", "chunk": "wgmma",
+              "chunk_hd96": "mma"}
+ATTN_GRAPH_LAUNCHES = 50              # launches in a device_ms graph
 ATTN_BF16_TOL = 1e-2                  # atol = rtol, elementwise
 ATTN_BF16_ROW_REL_L2 = 1e-2
 ATTN_F32_TOL = (3e-5, 1e-4)           # atol, rtol
@@ -605,6 +631,11 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
             launches[planner] = dict(LAUNCHES)
         require(launches[planner]["ell_spmm"] > 0,
                 f"{planner}: ell_spmm never launched on the default config")
+        require(launches[planner]["ell_gather_f1"]
+                == launches[planner]["ell_spmm"],
+                f"{planner}: {launches[planner]['ell_spmm']} ell_spmm calls, "
+                f"{launches[planner]['ell_gather_f1']} through "
+                f"ell_gather_f1_kernel (the walk counts are F = 1)")
         check_same(queries, share_report, rep,
                    f"plan_caps=False BATCH and default-config {planner}")
         runs[planner] = {
@@ -1087,6 +1118,7 @@ def phase_lm(torch) -> dict:
     from repro_torch.configs import get
     from repro_torch.data.lm_data import TokenStream
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.transformer import LM
 
     # full float32 products for check (a) (the bf16 path is unaffected)
@@ -1157,6 +1189,14 @@ def phase_lm(torch) -> dict:
     require(launches == expected,
             f"flash_attention launched {launches} times, expected "
             f"{cfg.n_layers} layers x {calls} = {expected} (d)")
+    routes = attn_counts(LAUNCHES, fops)
+    want_routes = dict.fromkeys(fops.ROUTES, 0)
+    want_routes["wgmma"] = cfg.n_layers * (calls["prefill"]
+                                           + calls["lm_forward"])
+    want_routes["splitk"] = cfg.n_layers * calls["decode_step"]
+    require(routes == want_routes,
+            f"flash_attention routes {routes}, expected {want_routes}: "
+            f"prefill and forward on wgmma, decode_step on split-K (d)")
     require(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
             "teacher-forced logits not finite (c)")
     rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
@@ -1166,7 +1206,8 @@ def phase_lm(torch) -> dict:
             f"{LM_BF16_REL_L2}")
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     out.update({
-        "calls": calls, "launches": {"flash_attention": launches},
+        "calls": calls, "launches": {"flash_attention": launches,
+                                     **routes},
         "launches_per_call": cfg.n_layers,
         "prefill": {"tokens": B * LM_PROMPT, "t_cold_s": t_prefill[0],
                     "t_warm_s": t_prefill[1:],
@@ -1197,8 +1238,10 @@ def phase_lm(torch) -> dict:
         torch, model, prompt, LM_TEACHER, model.init_cache(B, LM_TEACHER))
     ref = teacher_logits(model, prompt[:, :LM_TEACHER])
     torch.cuda.synchronize()
-    require(LAUNCHES["flash_attention"] == LM_CHECK_LAYERS * (LM_TEACHER + 1),
-            "check (a): flash_attention not launched once per layer (d)")
+    require(LAUNCHES["flash_attention"] == LM_CHECK_LAYERS * (LM_TEACHER + 1)
+            == LAUNCHES["attn_scalar"],
+            "check (a): flash_attention not launched once per layer on the "
+            "float32 route (d)")
     require(bool(torch.isfinite(got).all()), "check (a): logits not finite")
     excess = float(((got - ref).abs() - LM_F32_TOL * ref.abs()).max())
     ok = bool(torch.allclose(got, ref, atol=LM_F32_TOL, rtol=LM_F32_TOL))
@@ -1212,7 +1255,8 @@ def phase_lm(torch) -> dict:
     del model, cache, got, ref
     torch.cuda.empty_cache()
     emit(out)
-    return {"launches": launches, "per_call": cfg.n_layers, "calls": calls}
+    return {"launches": launches, "per_call": cfg.n_layers, "calls": calls,
+            "routes": routes}
 
 
 def phase_peaks(torch, dev_info) -> dict:
@@ -1274,6 +1318,36 @@ def cuda_ms(torch, fn, setup=None, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, n: int = ATTN_GRAPH_LAUNCHES) -> float:
+    """Device time per call: ``n`` calls of ``fn`` captured in one CUDA
+    graph and replayed between one pair of CUDA events (median of 5
+    replays), so the host's issue rate (a Python wrapper per launch) does
+    not set it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the graph
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
 def max_abs_err(torch, pairs) -> int:
     err = 0
     for a, b in pairs:
@@ -1331,8 +1405,14 @@ def measure_ell_spmm(torch, ell, xs, op) -> dict:
         library_ms = cuda_ms(torch, torch.sparse.mm, lambda: (a, x))
         del a, x, got
     nbytes = V * D * 4 + (V + 1) * F * 4 + V * F * 4
+    f1 = eops.f1_route(D, F, ell.data_ptr() % 16 == 0)
     return {"shape": {"V": V, "D": D, "F": F, "op": op}, "err": err,
+            "kernel": "ell_gather_f1_kernel" if f1 else "ell_spmm_kernel",
             "ms": cuda_ms(torch, eops.ell_spmm_cuda, lambda: (ell, xs, op)),
+            # (F = 1 only: 50 outputs of F = 128 would hold 26 GB)
+            "device_ms": graph_ms(
+                torch, lambda: eops.ell_spmm_cuda(ell, xs, op))
+            if F == 1 else None,
             "plain_ms": cuda_ms(torch, eops.ell_spmm_ref,
                                 lambda: (ell, xs, op)),
             "library_ms": library_ms, "nbytes": nbytes,
@@ -1375,16 +1455,21 @@ def check_bf16_attention(torch, got, want, what: str) -> tuple:
     return err, rel
 
 
+def attn_counts(LAUNCHES, fops) -> dict:
+    """The launches of each ``flash_attention`` route, by route name."""
+    return {r: LAUNCHES[f"attn_{r}"] for r in fops.ROUTES}
+
+
 def attention_inputs(torch, gen, B, Sq, Skv, Hq, Hkv, hd, valid):
-    """Seeded bf16 q, k, v; for a decode row (Sq = 1) k and v are layer 1
-    of two-layer (2, B, Skv, Hkv, hd) caches whose keys past
-    ``kv_valid_len`` are NaN (no arm may read them)."""
+    """Seeded bf16 q, k, v; with a ``kv_valid_len`` (``valid``) k and v are
+    layer 1 of two-layer (2, B, Skv, Hkv, hd) caches whose keys past it
+    are NaN (no arm may read them)."""
     def draw(shape):
         return torch.randn(shape, generator=gen, device="cuda") \
             .to(torch.bfloat16)
 
     q = draw((B, Sq, Hq, hd))
-    if Sq != 1:
+    if valid is None:
         return q, draw((B, Skv, Hkv, hd)), draw((B, Skv, Hkv, hd))
     ck, cv = draw((2, B, Skv, Hkv, hd)), draw((2, B, Skv, Hkv, hd))
     ck[:, :, valid:] = float("nan")
@@ -1398,13 +1483,16 @@ def flash_attention_row(torch, lm) -> dict:
     ``scaled_dot_product_attention`` and the bound; the row is the
     prefill shape's, with the main path's launches from phase lm."""
     import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import ops as fops
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(7)
     shapes = {}
     for name, B, Sq, Skv, Hq, Hkv, hd, q_offset, valid in ATTN_SHAPES:
         vl = Skv if valid is None else valid
-        q, k, v = attention_inputs(torch, gen, B, Sq, Skv, Hq, Hkv, hd, vl)
+        q, k, v = attention_inputs(torch, gen, B, Sq, Skv, Hq, Hkv, hd,
+                                   valid)
         kw = {"q_offset": q_offset, "kv_valid_len": valid}
 
         def kernel(*a):
@@ -1414,8 +1502,32 @@ def flash_attention_row(torch, lm) -> dict:
             return fops.flash_attention_ref(*a, True, **kw)
 
         want = plain(q, k, v)
-        err, rel = check_bf16_attention(torch, kernel(q, k, v), want,
+        route, chunk, splits = fops.attention_plan(q, k, v, True, **kw,
+                                                   sms=sms)
+        require(route == ATTN_ROUTE[name],
+                f"flash_attention plans {route} at {name}, not "
+                f"{ATTN_ROUTE[name]}")
+        before = attn_counts(LAUNCHES, fops)
+        got = kernel(q, k, v)
+        after = attn_counts(LAUNCHES, fops)
+        taken = [r for r in after if after[r] > before[r]]
+        require(taken == [route],
+                f"flash_attention at {name} took {taken}, not {route}")
+        err, rel = check_bf16_attention(torch, got, want,
                                         f"flash_attention at {name}")
+        extra = {}
+        if route == "splitk":
+            # the merge (attn_combine_kernel) against the plain split-K
+            # version cut into the kernel's chunks
+            sk_err, sk_rel = check_bf16_attention(
+                torch, got, fops.flash_attention_splitk_ref(
+                    q, k, v, True, chunk=chunk, **kw),
+                f"attn_combine_kernel at {name} against "
+                f"flash_attention_splitk_ref")
+            extra = {"chunk": chunk, "splits": splits,
+                      "max_abs_err_vs_splitk_ref": sk_err,
+                      "max_row_rel_l2_vs_splitk_ref": sk_rel}
+        del got
         f32 = (q.float(), k.float(), v.float())
         got32, want32 = kernel(*f32), plain(*f32)
         err32 = float((got32 - want32).abs().max())
@@ -1441,20 +1553,24 @@ def flash_attention_row(torch, lm) -> dict:
             check_bf16_attention(torch, sdpa().transpose(1, 2), want,
                                  f"scaled_dot_product_attention at {name}")
         del want
+        extra.update(device_ms=graph_ms(torch, lambda: kernel(q, k, v)),
+                     library_device_ms=graph_ms(torch, sdpa),
+                     device_ms_launches=ATTN_GRAPH_LAUNCHES)
         pairs, n_ops, nbytes = attention_work(B, Sq, Skv, Hq, Hkv, hd,
                                               q_offset, valid)
         shapes[name] = {
             "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
                       "hd": hd, "q_offset": Skv - Sq if q_offset is None
                       else q_offset, "kv_valid_len": vl,
-                      "cache_layer_slice": Sq == 1},
+                      "cache_layer_slice": valid is not None},
             "max_abs_err": err, "max_row_rel_l2": rel,
             "max_abs_err_f32": err32,
             "ms": cuda_ms(torch, kernel, lambda: (q, k, v)),
             "plain_ms": cuda_ms(torch, plain, lambda: (q, k, v)),
             "library_ms": cuda_ms(torch, sdpa), "f32_ms": f32_ms,
             "library_same_function": same, "pairs_per_head": pairs,
-            "ops": n_ops, **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3)}
+            "ops": n_ops, "route": f"attn_{route}", **extra,
+            **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3)}
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     head = shapes.pop("prefill")
@@ -1466,6 +1582,8 @@ def flash_attention_row(torch, lm) -> dict:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "bytes": head["bytes"],
             "ops": head["ops"], "f32_ms": head["f32_ms"],
+            "device_ms": head["device_ms"],
+            "library_device_ms": head["library_device_ms"],
             "max_abs_err_f32": head["max_abs_err_f32"],
             "max_row_rel_l2": head["max_row_rel_l2"],
             "tolerance": {"bfloat16": {"atol": ATTN_BF16_TOL,
@@ -1478,6 +1596,7 @@ def flash_attention_row(torch, lm) -> dict:
                             "long row attends all keys, unmasked)",
             "launches_from": "phase lm (prefill, decode_step, lm_forward)",
             "launches_per_call": lm["per_call"], "calls": lm["calls"],
+            "routes": lm["routes"], "kernel_route": head["route"],
             **shapes}
 
 
@@ -1624,7 +1743,8 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         del xs_syn
         require(m["err"] == 0, f"ell_spmm disagrees with its plain version "
                                f"at {m['shape']}")
-        synthetic.append({"shape": m["shape"], "max_abs_err": m["err"],
+        synthetic.append({"shape": m["shape"], "kernel": m["kernel"],
+                          "max_abs_err": m["err"],
                           "ms": m["ms"], "plain_ms": m["plain_ms"],
                           "library_ms": m["library_ms"],
                           **bound(m["nbytes"], m["t_ops_ms"])})
@@ -1635,6 +1755,8 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         library_ms=m["library_ms"],
         library_call="torch.sparse.mm of the CSR adjacency (pad entries "
                      "dropped) and X[:V]; sum only",
+        kernel=m["kernel"], f1_launches=plan_launches["ell_gather_f1"],
+        device_ms=m["device_ms"], device_ms_launches=ATTN_GRAPH_LAUNCHES,
         launches_from="default-config BATCH run of the sharing batch "
                       "(phase planners)",
         nonzero_features=plan_rec["ell_spmm"].best_work,

@@ -1,4 +1,4 @@
-// Causal GQA attention with an online softmax (FlashAttention-2 schedule).
+// Causal GQA attention with an online softmax, four routes by shape.
 //
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention/
 // kernel.py:79). For every batch b, query row i and q-head h, with
@@ -14,35 +14,59 @@
 // key at all gives zeros. Layout (B, S, H, hd) with the last dimension
 // contiguous and any batch / sequence / head strides, so q, k and v may be
 // a per-layer slice of the (L, B, max_len, Hkv, hd) KV cache; out is
-// contiguous (B, Sq, Hq, hd) in the input type. f32 accumulation.
+// contiguous (B, Sq, Hq, hd) in the input type. f32 accumulation. In
+// bf16, P is rounded to bf16 before the PV product, as the Pallas kernel
+// rounds p to V's type (kernel.py:64), and the row sums l add the
+// unrounded f32 p, as there.
 //
-// One block per (q-row tile, kv-head, batch). The tile's rows are
-// (query, q-head of the group) pairs, r = i * G + h % G, so the group's
-// q-heads share one staging of each K/V tile: at decode (Sq = 1) the four
-// q-heads of a granite-8b kv-head are four rows of one tile, and K/V are
-// read once per kv-head, not once per q-head. The online-softmax state (m,
-// l, acc) stays in registers (bf16) or registers and shared memory (f32);
-// no (Sq, Skv) buffer touches device memory.
+// Every route's rows are (query, q-head of the group) pairs,
+// r = i * G + h % G, for one (kv-head, batch): the group's q-heads share
+// each staging of a K/V tile, and at decode (Sq = 1) the four q-heads of a
+// granite-8b kv-head are four rows. The online-softmax state stays on
+// chip; no (Sq, Skv) buffer touches device memory. The wrapper
+// (kernels/flash_attention/ops.py, attention_route) picks the route from
+// (rows = Sq * G, hd, dtype, 16-byte alignment):
 //
-// Bounds on the H100: at prefill (granite-8b, 4 x 2048 tokens, causal) the
-// two products, 1.37e11 bf16 tensor-core operations, 0.139 ms at 989
-// TFLOP/s (the 168 MB of q, k, v and out take 0.050 ms); at a decode step
-// the K/V bytes of the valid cache, 8.9 MB at 544 positions and batch 4,
-// 0.0027 ms.
-// What the design does about them:
-//
-//  * bf16 (attn_mma_kernel): both products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps x 16 rows, K/V
-//    tiles of 64 keys staged in shared memory; key tiles past the tile's
-//    last causal key are never loaded (half the work of a causal prefill).
-//    P is rounded to bf16 before the PV product, as the Pallas kernel
-//    rounds p to V's type (kernel.py:64); the row sums l add the unrounded
-//    f32 p, as there. No TMA, wgmma or software pipelining yet: each tile
-//    is loaded, then used.
-//  * f32 (attn_scalar_kernel): CUDA-core FMAs on 32 x 32 tiles staged in
-//    shared memory; exact f32 softmax (no rounding of p). It exists for the
-//    float32 model and for checks at the float32 tolerances; it is bounded
-//    by shared-memory traffic, far from the f32 peak.
+//  * attn_wgmma_kernel -- bf16, hd 64 or 128, aligned, rows > 16: the
+//    prefill and long prompts, and prompt chunks of a few queries (their
+//    padded rows of the 128-row tile cost operations, not bytes). Bound: the tensor cores (granite-8b
+//    prefill, 4 x 2048 causal: 1.37e11 operations, 0.139 ms at 989
+//    TFLOP/s). The first design (attn_mma_kernel below) used mma.sync,
+//    which cannot reach that peak on Hopper, staged each K/V tile and then
+//    used it, and served 64 rows per tile. This one is the FlashAttention-3
+//    shape: a 128-row Q tile owned by two consumer warpgroups (64 rows
+//    each), S = Q K^T by wgmma with both operands in shared memory, P
+//    rounded to bf16 in registers as wgmma's A operand and O += P V with V
+//    read transposed (MN-major) from shared memory. A producer warp keeps
+//    a ring of two 128-key K/V tiles in flight by TMA (mbarriers; the
+//    key extent of the tensor map is kv_end, so the hardware zero-fills
+//    past it and a cache's stale tail is never read), and setmaxnreg
+//    moves registers from the producer to the consumers. Q (whose GQA
+//    rows need not tile by 128, e.g. G = 5) is loaded once by ordinary
+//    16-byte loads into the same 128-byte swizzle. The causal mask is
+//    applied only to tiles that cross a row's last key; tiles past the
+//    block's last visible key are never loaded; the longest causal Q
+//    tiles are scheduled first.
+//  * attn_splitk_kernel + attn_combine_kernel -- bf16, rows <= 16, any hd:
+//    decode. Bound: bytes (the valid cache's K and V, 8.9 MB at batch 4
+//    and 544 positions, 0.0027 ms at 3.35 TB/s). One block per (kv-head,
+//    batch) left 100 of 132 SMs idle and walked the cache's tiles in
+//    order; here the key range [0, kv_end) is cut into chunks (a multiple
+//    of 64 keys, as many as make B * Hkv * splits >= 2 x 132 blocks),
+//    each block reads its chunk once for the whole GQA group on the CUDA
+//    cores (at most 16 rows: the work is bytes, not operations; a 16-row
+//    mma.sync tile is untried), K and V by cp.async in separate groups,
+//    double-buffered over 32-key tiles, and writes float32 partials (m,
+//    l, acc) to scratch; a second launch merges them by log-sum-exp. A
+//    chunk that sees no key writes m = -inf, l = 0 and adds nothing.
+//  * attn_mma_kernel -- every other bf16 shape (rows > 16 at hd not 64 or
+//    128, or with unaligned strides): mma.sync m16n8k16, 4 warps x 16
+//    rows, 64-key tiles loaded then used.
+//  * attn_scalar_kernel -- float32: CUDA-core FMAs on 32 x 32 tiles staged
+//    in shared memory; exact f32 softmax (no rounding of p). It exists for
+//    the float32 model and for checks at the float32 tolerances; it is
+//    bounded by shared-memory traffic, far from the f32 peak.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -468,27 +492,901 @@ __global__ void __launch_bounds__(M_THREADS)
   }
 }
 
-template <typename Kernel>
+// ---------------------------------------------------------------------
+// Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map into shared memory; the bytes are counted
+// on `bar` (out-of-range elements arrive as zeros)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of a wgmma operand held
+// in registers across the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor of a 128-byte-swizzled operand: lbo and
+// sbo in bytes (for K-major operands lbo is unused, sbo the 8-row stride;
+// for MN-major ones lbo steps 64 columns, sbo 8 rows of K)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 128,
+// shared, K-major); scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared,
+// MN-major, i.e. transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared,
+// MN-major, i.e. transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------
+// bf16 prefill: warp-specialised wgmma kernel (FlashAttention-3 shape)
+// ---------------------------------------------------------------------
+
+constexpr int W_BM = 128, W_BN = 128, W_STAGES = 2, W_THREADS = 384;
+// one 64-column (128-byte) swizzle atom of a 128-row tile (Q, or K / V)
+constexpr int W_ATOM = 128 * 128;
+static_assert(W_BM == 128 && W_BN == 128, "W_ATOM assumes 128-row tiles");
+
+template <int HD>
+constexpr size_t wgmma_smem_bytes() {
+  // 1024 of slack for the 1024-byte alignment of the swizzle atoms, then
+  // Q, the K and V rings, and 3 x W_STAGES mbarriers
+  return 1024 + static_cast<size_t>(HD / 64) * W_ATOM * (1 + 2 * W_STAGES) +
+         8 * 3 * W_STAGES;
+}
+
+// where each of (key, kv-head, batch) sits among dimensions 1..3 of the
+// K / V tensor maps (dimension 0 is hd)
+struct KvDims {
+  int key, head, batch;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const AttnArgs a, const KvDims dims, const int n_mtiles,
+                      const int Hkv) {
+  constexpr int NA = HD / 64;   // swizzle atoms across hd
+  constexpr int ON = HD / 2;    // O registers of a thread (m64 x HD)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base;                                // NA atoms
+  const uint32_t sK = sQ + NA * W_ATOM;                    // W_STAGES x NA
+  const uint32_t sV = sK + W_STAGES * NA * W_ATOM;         // W_STAGES x NA
+  const uint32_t bars = sV + W_STAGES * NA * W_ATOM;
+  // full_k[s], full_v[s]: the tile's K / V have landed; empty[s]: all 8
+  // consumer warps are done with stage s
+  auto full_k = [&](int s) { return bars + 8 * s; };
+  auto full_v = [&](int s) { return bars + 8 * (W_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * W_STAGES + s); };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // the longest causal Q tiles first: blockIdx.x walks the Q tiles from
+  // the last one down, every (kv-head, batch) of one tile together
+  const int per = static_cast<int>(gridDim.x) / n_mtiles;  // Hkv * B
+  const int mt = n_mtiles - 1 - static_cast<int>(blockIdx.x) / per;
+  const int rem = static_cast<int>(blockIdx.x) % per;
+  const int kvh = rem % Hkv, b = rem / Hkv;
+  const int rows = a.Sq * a.group;
+  const int r0 = mt * W_BM;
+  const int nr = min(W_BM, rows - r0);
+  const int kend = tile_key_end(a, r0, nr);
+  const int n_tiles = kend > 0 ? (kend + W_BN - 1) / W_BN : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the K / V ring full by TMA ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 2 * 128) {
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % W_STAGES;
+        const uint32_t ph = (n / W_STAGES) & 1;
+        mbar_wait(empty(st), ph ^ 1);
+        const int j0 = n * W_BN;
+        auto at = [&](int pos) {
+          return pos == dims.key ? j0 : pos == dims.head ? kvh : b;
+        };
+        mbar_expect_tx(full_k(st), NA * W_ATOM);
+#pragma unroll
+        for (int c = 0; c < NA; ++c)
+          tma_load_4d(sK + (st * NA + c) * W_ATOM, &tm_k, full_k(st), c * 64,
+                      at(1), at(2), at(3));
+        mbar_expect_tx(full_v(st), NA * W_ATOM);
+#pragma unroll
+        for (int c = 0; c < NA; ++c)
+          tma_load_4d(sV + (st * NA + c) * W_ATOM, &tm_v, full_v(st), c * 64,
+                      at(1), at(2), at(3));
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns tile rows wg * 64 .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t128 = tid & 127, warp = t128 >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb;
+
+    // Q rows into the 128-byte swizzle (16-byte chunk ch of row `row` at
+    // chunk ch ^ (row % 8) of its atom row); zeros past the last row
+    constexpr int CH = HD / 8;
+    for (int e = t128; e < 64 * CH; e += 128) {
+      const int rr = e / CH, ch = e - rr * CH;
+      const int row = wg * 64 + rr;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row < nr) {
+        const int r = r0 + row, i = r / a.group;
+        const int h = kvh * a.group + (r - i * a.group);
+        val = *reinterpret_cast<const uint4*>(q + i * a.q_ss + h * a.q_sh +
+                                              ch * 8);
+      }
+      const int off = (ch >> 3) * W_ATOM + row * 128 +
+                      (((ch & 7) ^ (row & 7)) << 4);
+      *reinterpret_cast<uint4*>(gbase + off) = val;
+    }
+    // make the generic-proxy stores visible to wgmma, then sync the group
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    // this thread's two rows of the tile, and the last key each may see
+    const int rowA = wg * 64 + warp * 16 + g;
+    long long lim[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      long long l = a.kv_end - 1;
+      if (a.causal) {
+        const long long c =
+            static_cast<long long>(a.q_offset) + (r0 + rowA + 8 * hh) / a.group;
+        l = c < l ? c : l;
+      }
+      lim[hh] = l;
+    }
+    // the block's first row sees the fewest keys: tiles up to its last
+    // key need no mask
+    long long lim_block = a.kv_end - 1;
+    if (a.causal) {
+      const long long c = static_cast<long long>(a.q_offset) + r0 / a.group;
+      lim_block = c < lim_block ? c : lim_block;
+    }
+    const float sl2 = a.scale * 1.4426950408889634f;
+
+    float o[ON];
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+    const uint32_t qa = sQ + wg * 64 * 128;
+
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % W_STAGES;
+      const uint32_t ph = (n / W_STAGES) & 1;
+      const int j0 = n * W_BN;
+      const uint32_t kt = sK + st * NA * W_ATOM;
+      const uint32_t vt = sV + st * NA * W_ATOM;
+
+      // S = Q K^T (64 x 128 keys), both K-major in shared memory
+      float s[64];
+      mbar_wait(full_k(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * W_ATOM + (kk & 3) * 32;
+        wgmma_ss_n128(s, smem_desc(qa + off, 16, 1024),
+                      smem_desc(kt + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      // s[i]: row rowA + 8 * ((i >> 1) & 1), key j0 + (i >> 2) * 8 + 2t +
+      // (i & 1); scaled to log2 units, masked only where a row's last key
+      // falls inside the tile
+      if (j0 + W_BN - 1 > lim_block) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int j = j0 + (i >> 2) * 8 + 2 * t + (i & 1);
+          s[i] = j <= lim[(i >> 1) & 1] ? s[i] * sl2 : -INFINITY;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] *= sl2;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(~0u, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(~0u, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float mu0 = mn0 == -INFINITY ? 0.0f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.0f : mn1;
+      const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        s[i] = exp2f(s[i] - mu0);
+        s[i + 1] = exp2f(s[i + 1] - mu0);
+        s[i + 2] = exp2f(s[i + 2] - mu1);
+        s[i + 3] = exp2f(s[i + 3] - mu1);
+        ps0 += s[i] + s[i + 1];
+        ps1 += s[i + 2] + s[i + 3];
+      }
+      l0 = l0 * al0 + ps0;  // this thread's part; the quad sums at the end
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int i = 0; i < ON; ++i) o[i] *= ((i >> 1) & 1) ? al1 : al0;
+
+      // P (rounded to bf16) as wgmma's register A operand: k-step kk
+      // covers keys 16kk .. 16kk + 15, the S columns of groups 2kk, 2kk+1
+      uint32_t pa[W_BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < W_BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O += P V, V MN-major (hd contiguous) in shared memory
+      mbar_wait(full_v(st), ph);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W_BN / 16; ++kk) {
+        const uint64_t dv = smem_desc(vt + kk * 16 * 128, W_ATOM, 1024);
+        if constexpr (HD == 128) {
+          wgmma_rs_n128(o, pa[kk], dv);
+        } else {
+          wgmma_rs_n64(o, pa[kk], dv);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(~0u, l0, off);
+      l1 += __shfl_xor_sync(~0u, l1, off);
+    }
+    const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
+    const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+    bf16* out = static_cast<bf16*>(a.o);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = rowA + 8 * hh;
+      if (row >= nr) continue;
+      const int r = r0 + row, i = r / a.group;
+      const int h = kvh * a.group + (r - i * a.group);
+      const float inv = hh ? inv1 : inv0;
+      bf16* orow =
+          out + ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * HD;
+#pragma unroll
+      for (int n8 = 0; n8 < HD / 8; ++n8) {
+        *reinterpret_cast<uint32_t*>(orow + n8 * 8 + 2 * t) =
+            pack_bf16(o[4 * n8 + 2 * hh] * inv, o[4 * n8 + 2 * hh + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16 decode: split-K over the cache, then a log-sum-exp merge
+// ---------------------------------------------------------------------
+
+// 32-key tiles keep a block's shared memory near 45 KB at hd 128, so the
+// 288 blocks of a granite-8b decode step fit on the card in one wave
+constexpr int K_TK = 32, K_THREADS = 128, K_ROWS = 16, K_LDS = K_TK + 1;
+constexpr int K_MAX_SPLITS = 1024;  // attn_combine_kernel's weights
+
+struct SplitArgs {
+  int chunk, splits;  // keys of a split (a multiple of K_TK), splits
+  float* part_o;      // (B, Hkv, splits, rows, hd): unnormalised acc
+  float* part_ml;     // (B, Hkv, splits, rows, 2): m (log2 units), l
+};
+
+template <int HDP>
+constexpr size_t splitk_smem_bytes() {
+  return sizeof(bf16) * 4 * K_TK * (HDP + 8) +
+         sizeof(float) * (K_ROWS * HDP + K_ROWS * K_LDS + 3 * K_ROWS);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows c < nk of a K or V tile (keys j0 + c) into shared memory rows of
+// HDP + 8 values: cp.async when 16-byte loads are allowed, else plain
+// loads. Columns past hd and rows past nk keep the zeros the kernel
+// wrote first (or, at a chunk's end, a finite earlier row whose p is 0).
+template <int HDP>
+__device__ __forceinline__ void splitk_stage(bf16* dst, const bf16* src,
+                                             long long ss, int j0, int nk,
+                                             int hd, int vec, int tid) {
+  constexpr int LD = HDP + 8, CH = HDP / 8;
+  for (int e = tid; e < K_TK * CH; e += K_THREADS) {
+    const int c = e / CH, ch = e - c * CH;
+    if (c >= nk || ch * 8 >= hd) continue;
+    const bf16* p = src + (j0 + c) * ss + ch * 8;
+    bf16* d = dst + c * LD + ch * 8;
+    if (vec) {
+      cp_async16(d, p);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        d[u] = ch * 8 + u < hd ? p[u] : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(K_THREADS)
+    attn_splitk_kernel(const AttnArgs a, const SplitArgs sp) {
+  constexpr int LD = HDP + 8;
+  // P V: TPG threads across hd (two columns each) x NRG row groups
+  constexpr int TPG = HDP / 2 < K_THREADS ? HDP / 2 : K_THREADS;
+  constexpr int NRG = K_THREADS / TPG;
+  constexpr int RPT = K_ROWS / NRG;
+  static_assert(NRG <= K_ROWS, "HDP too small");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // 2 x K_TK x LD
+  bf16* sV = sK + 2 * K_TK * LD;                  // 2 x K_TK x LD
+  float* sQ = reinterpret_cast<float*>(sV + 2 * K_TK * LD);  // rows x HDP
+  float* sS = sQ + K_ROWS * HDP;  // K_ROWS x K_LDS: scores, then p
+  float* sM = sS + K_ROWS * K_LDS;
+  float* sL = sM + K_ROWS;
+  float* sA = sL + K_ROWS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int R = a.Sq * a.group, hd = a.hd;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  for (int e = tid; e < K_TK * LD / 2; e += K_THREADS)
+    reinterpret_cast<uint4*>(sK)[e] = make_uint4(0u, 0u, 0u, 0u);
+  // Q as float32, 8 values a thread (one 16-byte load where allowed), so
+  // the block waits for one round trip, not one per value
+  for (int e = tid; e < K_ROWS * HDP / 8; e += K_THREADS) {
+    const int r = e / (HDP / 8), d0 = (e - r * (HDP / 8)) * 8;
+    float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (r < R && d0 < hd) {
+      const int i = r / a.group;
+      const int h = kvh * a.group + (r - i * a.group);
+      const bf16* src = q + i * a.q_ss + h * a.q_sh + d0;
+      if (a.vec) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src);
+        const __nv_bfloat162* q2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 f = __bfloat1622float2(q2[u]);
+          x[2 * u] = f.x;
+          x[2 * u + 1] = f.y;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (d0 + u < hd) x[u] = __bfloat162float(src[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) sQ[r * HDP + d0 + u] = x[u];
+  }
+  if (tid < K_ROWS) {
+    sM[tid] = -INFINITY;
+    sL[tid] = 0.0f;
+  }
+  const int kend = tile_key_end(a, 0, R);
+  const int c0 = split * sp.chunk;
+  const int c1 = min(kend, c0 + sp.chunk);
+  const int nt = c1 > c0 ? (c1 - c0 + K_TK - 1) / K_TK : 0;
+  const float sl2 = a.scale * 1.4426950408889634f;
+  float acc[RPT][2];
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) acc[u][0] = acc[u][1] = 0.0f;
+  __syncthreads();  // the zeros land before any cp.async
+
+  if (nt > 0) {
+    splitk_stage<HDP>(sK, k, a.k_ss, c0, min(K_TK, c1 - c0), hd, a.vec, tid);
+    cp_async_commit();
+    splitk_stage<HDP>(sV, v, a.v_ss, c0, min(K_TK, c1 - c0), hd, a.vec, tid);
+    cp_async_commit();
+  }
+  for (int n = 0; n < nt; ++n) {
+    const int buf = n & 1, j0 = c0 + n * K_TK, nk = min(K_TK, c1 - j0);
+    const bool more = n + 1 < nt;
+    if (more) {  // the next tile's K and V, in flight during this one
+      const int j1 = j0 + K_TK, nk1 = min(K_TK, c1 - j1);
+      splitk_stage<HDP>(sK + (buf ^ 1) * K_TK * LD, k, a.k_ss, j1, nk1, hd,
+                        a.vec, tid);
+      cp_async_commit();
+      splitk_stage<HDP>(sV + (buf ^ 1) * K_TK * LD, v, a.v_ss, j1, nk1, hd,
+                        a.vec, tid);
+      cp_async_commit();
+      cp_async_wait<3>();  // this tile's K has landed
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+
+    {  // scores: thread owns key c and rows rh, rh + 4, ...
+      constexpr int RS = K_ROWS * K_TK / K_THREADS;  // rows of a thread
+      const int c = tid & (K_TK - 1), rh = tid / K_TK;
+      float sacc[RS];
+#pragma unroll
+      for (int u = 0; u < RS; ++u) sacc[u] = 0.0f;
+      const bf16* kr = sK + (buf * K_TK + c) * LD;
+#pragma unroll 4
+      for (int d0 = 0; d0 < HDP; d0 += 8) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + d0);
+        const __nv_bfloat162* k2 =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float kf[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(k2[e]);
+          kf[2 * e] = f.x;
+          kf[2 * e + 1] = f.y;
+        }
+#pragma unroll
+        for (int u = 0; u < RS; ++u) {
+          const int r = rh + (K_THREADS / K_TK) * u;
+          if (r < R) {
+            const float4 qa = *reinterpret_cast<const float4*>(
+                sQ + r * HDP + d0);
+            const float4 qb = *reinterpret_cast<const float4*>(
+                sQ + r * HDP + d0 + 4);
+            float x = sacc[u];
+            x = fmaf(qa.x, kf[0], x);
+            x = fmaf(qa.y, kf[1], x);
+            x = fmaf(qa.z, kf[2], x);
+            x = fmaf(qa.w, kf[3], x);
+            x = fmaf(qb.x, kf[4], x);
+            x = fmaf(qb.y, kf[5], x);
+            x = fmaf(qb.z, kf[6], x);
+            x = fmaf(qb.w, kf[7], x);
+            sacc[u] = x;
+          }
+        }
+      }
+      const int j = j0 + c;
+#pragma unroll
+      for (int u = 0; u < RS; ++u) {
+        const int r = rh + (K_THREADS / K_TK) * u;
+        if (r < R) {
+          const long long lim =
+              static_cast<long long>(a.q_offset) + r / a.group;
+          const bool vis = c < nk && (!a.causal || j <= lim);
+          sS[r * K_LDS + c] = vis ? sacc[u] * sl2 : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+    // online softmax: warp w takes rows w, w + 4, ...; a key a lane
+    static_assert(K_TK == 32, "one key a lane");
+    for (int r = warp; r < R; r += K_THREADS / 32) {
+      const float x = sS[r * K_LDS + lane];
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+      const float p = exp2f(x - m_use);
+      const float psum = warp_sum(p);
+      sS[r * K_LDS + lane] = __bfloat162float(__float2bfloat16_rn(p));
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_use);
+        sA[r] = alpha;
+        sL[r] = sL[r] * alpha + psum;
+        sM[r] = m_new;
+      }
+    }
+    if (more) {
+      cp_async_wait<2>();  // this tile's V has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    {  // acc = acc * alpha + P V: columns 2cp, 2cp + 1, rows rg + NRG u
+      const int cp = tid % TPG, rg = tid / TPG;
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const int r = rg + NRG * u;
+        if (r < R) {
+          const float al = sA[r];
+          acc[u][0] *= al;
+          acc[u][1] *= al;
+        }
+      }
+      const bf16* vc = sV + buf * K_TK * LD + 2 * cp;
+#pragma unroll 4
+      for (int c = 0; c < K_TK; ++c) {
+        const float2 vv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vc + c * LD));
+#pragma unroll
+        for (int u = 0; u < RPT; ++u) {
+          const int r = rg + NRG * u;
+          if (r < R) {
+            const float p = sS[r * K_LDS + c];
+            acc[u][0] = fmaf(p, vv.x, acc[u][0]);
+            acc[u][1] = fmaf(p, vv.y, acc[u][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer and sS are free again
+  }
+
+  const long long pbase =
+      ((static_cast<long long>(b) * gridDim.y + kvh) * sp.splits + split) * R;
+  {
+    const int cp = tid % TPG, rg = tid / TPG;
+#pragma unroll
+    for (int u = 0; u < RPT; ++u) {
+      const int r = rg + NRG * u;
+      if (r >= R) continue;
+      float* po = sp.part_o + (pbase + r) * hd;
+      if (2 * cp < hd) po[2 * cp] = acc[u][0];
+      if (2 * cp + 1 < hd) po[2 * cp + 1] = acc[u][1];
+    }
+  }
+  if (tid < R) {
+    sp.part_ml[(pbase + tid) * 2] = sM[tid];
+    sp.part_ml[(pbase + tid) * 2 + 1] = sL[tid];
+  }
+}
+
+// one block per (row, kv-head, batch): out = sum_s w_s acc_s / sum_s w_s
+// l_s with w_s = 2^(m_s - max m); zeros where no split saw a key. The
+// splits' (m, l) are read by the block's threads side by side, and the
+// weights kept in shared memory, so the merge waits for few round trips.
+__global__ void __launch_bounds__(128)
+    attn_combine_kernel(const AttnArgs a, const SplitArgs sp) {
+  __shared__ float sw[K_MAX_SPLITS];
+  __shared__ float red[4];
+  const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = a.Sq * a.group, hd = a.hd, S = sp.splits;
+  const long long base =
+      (static_cast<long long>(b) * gridDim.y + kvh) * S * R + r;
+  float M = -INFINITY;
+  for (int s = tid; s < S; s += 128)
+    M = fmaxf(M, sp.part_ml[(base + static_cast<long long>(s) * R) * 2]);
+  M = warp_max(M);
+  if (lane == 0) red[warp] = M;
+  __syncthreads();
+  M = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  const int i = r / a.group, h = kvh * a.group + (r - i * a.group);
+  bf16* orow = static_cast<bf16*>(a.o) +
+               ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * hd;
+  if (M == -INFINITY) {
+    for (int d = tid; d < hd; d += 128) orow[d] = __ushort_as_bfloat16(0);
+    return;
+  }
+  float L = 0.0f;
+  for (int s = tid; s < S; s += 128) {
+    const float* ml = sp.part_ml + (base + static_cast<long long>(s) * R) * 2;
+    const float w = exp2f(ml[0] - M);  // 0 for a split that saw no key
+    sw[s] = w;
+    L = fmaf(w, ml[1], L);
+  }
+  L = warp_sum(L);
+  __syncthreads();  // red[] read above; sw[] written
+  if (lane == 0) red[warp] = L;
+  __syncthreads();
+  const float inv = 1.0f / (red[0] + red[1] + red[2] + red[3]);
+  for (int d = tid; d < hd; d += 128) {
+    float x = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < S; ++s)
+      x = fmaf(sw[s], sp.part_o[(base + static_cast<long long>(s) * R) * hd +
+                                d],
+               x);
+    orow[d] = __float2bfloat16_rn(x * inv);
+  }
+}
+
+template <typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-           const AttnArgs& a, cudaStream_t s) {
+           cudaStream_t s, const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, threads, smem, s>>>(a);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int KD>
 int launch_scalar(const AttnArgs& a, dim3 grid, cudaStream_t s) {
   return launch(attn_scalar_kernel<KD>, grid, S_THREADS,
-                scalar_smem_bytes(a.hd), a, s);
+                scalar_smem_bytes(a.hd), s, a);
 }
 
 template <int HDP>
 int launch_mma(const AttnArgs& a, dim3 grid, cudaStream_t s) {
   return launch(attn_mma_kernel<HDP>, grid, M_THREADS,
-                mma_smem_bytes<HDP>(), a, s);
+                mma_smem_bytes<HDP>(), s, a);
+}
+
+template <int HDP>
+int launch_splitk(const AttnArgs& a, const SplitArgs& sp, int B, int Hkv,
+                  cudaStream_t s) {
+  const int rc = launch(attn_splitk_kernel<HDP>,
+                        dim3(sp.splits, Hkv, B), K_THREADS,
+                        splitk_smem_bytes<HDP>(), s, a, sp);
+  if (rc != 0) return rc;
+  attn_combine_kernel<<<dim3(a.Sq * a.group, Hkv, B), 128, 0, s>>>(a, sp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled is a driver-API function; the library links only
+// the runtime, so it is fetched once through the runtime's entry-point
+// query (the driver is loaded by then)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of k or v for attn_wgmma_kernel: 4-D, hd innermost, then
+// (key, kv-head, batch) in increasing stride (a dimension of extent 1 last,
+// with a stride that steps past the others); boxes of 64 columns x W_BN
+// keys, 128-byte swizzle. The key extent is kv_end, so keys past it
+// arrive as zeros and are never read.
+int kv_tensor_map(CUtensorMap* map, KvDims* dims, const void* ptr, int hd,
+                  int kv_end, int Hkv, int B, long long ss, long long sh,
+                  long long sb) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  struct Dim {
+    long long extent, stride;
+    int box, which;  // which: 0 key, 1 kv-head, 2 batch
+  } d[3] = {{kv_end > 0 ? kv_end : 1, ss * 2, W_BN, 0},
+            {Hkv, sh * 2, 1, 1},
+            {B, sb * 2, 1, 2}};
+  for (int i = 0; i < 3; ++i)  // insertion sort: extent 1 last, by stride
+    for (int j = i; j > 0; --j) {
+      const bool one_a = d[j - 1].extent == 1, one_b = d[j].extent == 1;
+      if (one_a > one_b || (one_a == one_b && !one_a &&
+                            d[j - 1].stride > d[j].stride)) {
+        const Dim x = d[j];
+        d[j] = d[j - 1];
+        d[j - 1] = x;
+      }
+    }
+  long long past = 2LL * hd;  // bytes spanned by the dimensions so far
+  for (int i = 0; i < 3; ++i) {
+    if (d[i].extent == 1) d[i].stride = (past + 15) / 16 * 16;
+    const long long span = d[i].stride * d[i].extent;
+    past = span > past ? span : past;
+  }
+  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(hd)};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {64};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  int* pos[3] = {&dims->key, &dims->head, &dims->batch};
+  for (int i = 0; i < 3; ++i) {
+    gdim[i + 1] = static_cast<cuuint64_t>(d[i].extent);
+    gstride[i] = static_cast<cuuint64_t>(d[i].stride);
+    box[i + 1] = static_cast<cuuint32_t>(d[i].box);
+    *pos[d[i].which] = i + 1;
+  }
+  const CUresult rc = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
+      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
+  CUtensorMap mk, mv;
+  KvDims dk, dv;
+  int rc = kv_tensor_map(&mk, &dk, a.k, HD, a.kv_end, Hkv, B, a.k_ss,
+                         a.k_sh, a.k_sb);
+  if (rc == 0)
+    rc = kv_tensor_map(&mv, &dv, a.v, HD, a.kv_end, Hkv, B, a.v_ss, a.v_sh,
+                       a.v_sb);
+  if (rc != 0) return rc;
+  if (dk.key != dv.key || dk.head != dv.head || dk.batch != dv.batch)
+    return static_cast<int>(cudaErrorInvalidValue);  // k, v laid out alike
+  const int n_mtiles = (a.Sq * a.group + W_BM - 1) / W_BM;
+  const dim3 grid(static_cast<unsigned>(n_mtiles) * Hkv * B);
+  return launch(attn_wgmma_kernel<HD>, grid, W_THREADS,
+                wgmma_smem_bytes<HD>(), s, mk, mv, a, dk, n_mtiles, Hkv);
 }
 
 }  // namespace
@@ -497,13 +1395,20 @@ int launch_mma(const AttnArgs& a, dim3 grid, cudaStream_t s) {
 // strides in elements; out contiguous (B, Sq, Hq, hd), same type.
 // dtype: 0 = float32, 1 = bfloat16. 1 <= hd <= 256, Hq % Hkv == 0,
 // 0 <= kv_end <= Skv. vec: 1 if 16-byte loads are allowed (bf16 only).
+// route (the wrapper's choice by shape): 0 attn_scalar_kernel (float32),
+// 1 attn_mma_kernel, 2 attn_wgmma_kernel (hd 64 or 128, vec), 3
+// attn_splitk_kernel + attn_combine_kernel (Sq * Hq / Hkv <= 16), which
+// takes `splits` chunks of `chunk` keys and float32 scratch part_o
+// (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml (..., 2).
 REPRO_EXPORT int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int q_offset, int kv_end,
-    int dtype, int vec, void* stream) {
-  if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0)
+    int dtype, int vec, int route, int chunk, int splits, void* part_o,
+    void* part_ml, void* stream) {
+  if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
+      (dtype == 0) != (route == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs a{q,      k,        v,      out,  Sq,   Hq,   hd,
                    Hq / Hkv, q_sb,   q_ss,     q_sh,   k_sb, k_ss, k_sh,
@@ -511,7 +1416,25 @@ REPRO_EXPORT int flash_attention_launch(
                    1.0f / sqrtf(static_cast<float>(hd)), vec};
   auto s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(Sq) * a.group;
-  if (dtype == 1) {
+  if (route == 2) {
+    if (!vec || (hd != 64 && hd != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return hd == 64 ? launch_wgmma<64>(a, B, Hkv, s)
+                    : launch_wgmma<128>(a, B, Hkv, s);
+  }
+  if (route == 3) {
+    if (rows > K_ROWS || splits < 1 || splits > K_MAX_SPLITS || chunk < 1 ||
+        part_o == nullptr || part_ml == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const SplitArgs sp{chunk, splits, static_cast<float*>(part_o),
+                       static_cast<float*>(part_ml)};
+    if (hd <= 16) return launch_splitk<16>(a, sp, B, Hkv, s);
+    if (hd <= 32) return launch_splitk<32>(a, sp, B, Hkv, s);
+    if (hd <= 64) return launch_splitk<64>(a, sp, B, Hkv, s);
+    if (hd <= 128) return launch_splitk<128>(a, sp, B, Hkv, s);
+    return launch_splitk<256>(a, sp, B, Hkv, s);
+  }
+  if (route == 1) {
     const dim3 grid(static_cast<unsigned>((rows + M_BM - 1) / M_BM), Hkv, B);
     if (hd <= 16) return launch_mma<16>(a, grid, s);
     if (hd <= 32) return launch_mma<32>(a, grid, s);
@@ -519,6 +1442,7 @@ REPRO_EXPORT int flash_attention_launch(
     if (hd <= 128) return launch_mma<128>(a, grid, s);
     return launch_mma<256>(a, grid, s);
   }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((rows + S_BM - 1) / S_BM), Hkv, B);
   switch ((hd + 31) / 32) {
     case 1: return launch_scalar<1>(a, grid, s);

@@ -8,8 +8,8 @@ wrapper of the CUDA kernel in ``repro_torch/csrc`` and the function that
 picks between them by the tensors' device (:mod:`.registry`). The kernels
 build with ``nvcc`` at first use (:mod:`.build`).
 """
-from .registry import (KERNELS, LAUNCHES, KernelArm,  # noqa: F401
-                       reset_launches, resolve_arm)
+from .registry import (KERNELS, LAUNCHES, ROUTE_COUNTS,  # noqa: F401
+                       KernelArm, reset_launches, resolve_arm)
 
-__all__ = ["KernelArm", "resolve_arm", "KERNELS", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["KernelArm", "resolve_arm", "KERNELS", "ROUTE_COUNTS",
+           "LAUNCHES", "reset_launches"]

@@ -4,7 +4,10 @@ Counterpart of ``repro/kernels/ell_spmm``: ``ell_spmm_ref`` is the plain
 PyTorch version, ``ell_spmm_cuda`` the wrapper of ``csrc/ell_spmm.cu``
 (which says what it replaces, what bounds it and how it is designed), and
 ``ell_aggregate`` appends the neutral row and picks the arm from the
-tensors' device.
+tensors' device. The wrapper takes one of two kernels by shape
+(:func:`f1_route`): ``ell_gather_f1_kernel`` for the engine's walk counts
+(F = 1), ``ell_spmm_kernel`` for the rest; ``LAUNCHES["ell_spmm"]`` counts
+both, and ``LAUNCHES["ell_gather_f1"]`` the first alone.
 
 Both arms accumulate over the D columns in ascending order, one float add
 (or max) at a time, as the Pallas kernel's ``fori_loop`` does, so the
@@ -22,10 +25,11 @@ from .. import build
 from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
                         resolve_arm)
 
-__all__ = ["ell_aggregate", "ell_spmm_ref", "ell_spmm_cuda", "OPS"]
+__all__ = ["ell_aggregate", "ell_spmm_ref", "ell_spmm_cuda", "f1_route",
+           "OPS"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ell_spmm_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"ell_spmm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
 
 OPS = ("sum", "max")
 
@@ -34,6 +38,13 @@ def _check_op(op: str) -> None:
     if op not in OPS:
         raise ValueError(f"unknown ell_spmm op {op!r}; valid: "
                          f"{' | '.join(OPS)}")
+
+
+def f1_route(D: int, F: int, aligned: bool) -> bool:
+    """Whether ``ell_gather_f1_kernel`` takes a call: F = 1, D a multiple
+    of 4 up to 128 (a group of D / 4 lanes per row, each lane one 16-byte
+    load of 4 indices) and the table 16-byte aligned."""
+    return F == 1 and D % 4 == 0 and 4 <= D <= 128 and aligned
 
 
 def ell_spmm_ref(ell_idx: torch.Tensor, xs: torch.Tensor,
@@ -73,12 +84,15 @@ def ell_spmm_cuda(ell_idx: torch.Tensor, xs: torch.Tensor,
         return out
     if D == 0:
         return out.fill_(fill)
+    f1 = f1_route(D, F, ell_idx.data_ptr() % 16 == 0)
     lib = build.load("ell_spmm", _SIGNATURES)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     rc = lib.ell_spmm_launch(ell_idx.data_ptr(), xs.data_ptr(),
-                             out.data_ptr(), V, D, F, OPS.index(op), stream)
+                             out.data_ptr(), V, D, F, OPS.index(op), int(f1),
+                             stream)
     build.check(lib, rc, "ell_spmm")
     LAUNCHES["ell_spmm"] += 1
+    LAUNCHES["ell_gather_f1"] += f1
     return out
 
 

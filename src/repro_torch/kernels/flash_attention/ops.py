@@ -2,10 +2,18 @@
 
 Counterpart of ``repro/kernels/flash_attention``: ``flash_attention_ref``
 is the plain PyTorch version (exact softmax attention in float32, the
-scores materialised, as ``ref.py``), ``flash_attention_cuda`` the wrapper
-of ``csrc/flash_attention.cu`` (which says what it replaces, what bounds
-it and how it is designed), and ``gqa_attention`` picks the arm from the
+scores materialised, as ``ref.py``), ``flash_attention_splitk_ref`` the
+same function computed as the decode route computes it (per-chunk
+partials merged by log-sum-exp), ``flash_attention_cuda`` the wrapper of
+``csrc/flash_attention.cu`` (which says what it replaces, what bounds it
+and how it is designed), and ``gqa_attention`` picks the arm from the
 tensors' device.
+
+The wrapper picks one of four kernels by shape alone
+(:func:`attention_route`): in bf16 ``splitk`` for decode rows,
+``wgmma`` for more rows at hd 64 or 128, ``mma`` for the other shapes;
+``scalar`` for float32. ``LAUNCHES["flash_attention"]`` counts its calls and
+``LAUNCHES["attn_<route>"]`` each route's.
 
 Both arms keep the model's layout, ``q (B, Sq, Hq, hd)`` and
 ``k, v (B, Skv, Hkv, hd)`` in and ``(B, Sq, Hq, hd)`` out, and index
@@ -27,6 +35,7 @@ every row sees key 0, so the two agree).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,15 +43,87 @@ import torch
 from .. import build
 from ..registry import LAUNCHES, ArmLike, KernelArm, resolve_arm
 
-__all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_cuda",
-           "MAX_HEAD_DIM"]
+__all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
+           "flash_attention_cuda", "attention_route", "attention_plan",
+           "splitk_chunks", "ROUTES", "MAX_HEAD_DIM"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch":
-               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 5 + [_P]}
+               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 8 + [_P] * 3}
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
+# the kernel of each route, by its number in flash_attention_launch
+ROUTES = ("scalar", "mma", "wgmma", "splitk")
+# attn_wgmma_kernel: its head dims
+WGMMA_HEAD_DIMS = (64, 128)
+# attn_splitk_kernel: the most rows (Sq * G) of one (kv-head, batch), the
+# step of a chunk's keys (two of the kernel's 32-key tiles), and the
+# blocks per SM to aim for
+SPLITK_MAX_ROWS = 16
+SPLITK_CHUNK = 64
+SPLITK_BLOCKS_PER_SM = 2
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def attention_route(rows: int, hd: int, dtype: torch.dtype,
+                    vec: bool) -> str:
+    """The kernel for ``rows = Sq * Hq / Hkv`` GQA rows of head dim ``hd``
+    (``vec``: 16-byte loads allowed, i.e. hd and every batch / sequence /
+    head stride a multiple of 8 and the tensors 16-byte aligned):
+    ``scalar`` for float32; in bf16 ``splitk`` for decode rows
+    (``rows <= 16``), ``wgmma`` for more rows at hd 64 or 128 with
+    ``vec``, ``mma`` for the rest (other head dims, unaligned inputs).
+    By shape only."""
+    if dtype == torch.float32:
+        return "scalar"
+    if rows <= SPLITK_MAX_ROWS:
+        return "splitk"
+    if hd in WGMMA_HEAD_DIMS and vec:
+        return "wgmma"
+    return "mma"
+
+
+def splitk_chunks(B: int, Hkv: int, key_end: int,
+                  sms: int = H100_SMS) -> tuple[int, int]:
+    """``(chunk, splits)`` of the decode route: the keys ``[0, key_end)``
+    cut into ``splits`` chunks of ``chunk`` keys (a multiple of 64, the
+    last one shorter), as few keys a chunk as make
+    ``B * Hkv * splits >= 2 * sms`` blocks where the cache is long enough.
+    At B 4, Hkv 8 and 544 keys: 9 chunks of 64 keys, 288 blocks."""
+    want = -(-SPLITK_BLOCKS_PER_SM * sms // max(1, B * Hkv))
+    chunk = max(SPLITK_CHUNK, key_end // want // SPLITK_CHUNK * SPLITK_CHUNK)
+    return chunk, max(1, -(-key_end // chunk))
+
+
+def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """16-byte loads allowed: bf16, hd and every batch / sequence / head
+    stride a multiple of 8 values, each tensor 16-byte aligned."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] % 8 == 0
+            and all(s % 8 == 0 for x in (q, k, v) for s in x.stride()[:3])
+            and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+
+
+def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, *, q_offset: Optional[int] = None,
+                   kv_valid_len: Optional[int] = None,
+                   sms: int = H100_SMS) -> tuple[str, int, int]:
+    """What :func:`flash_attention_cuda` launches for these tensors:
+    ``(route, chunk, splits)``, the last two 0 except for ``splitk``,
+    whose chunks cut the keys up to the last one any row sees."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    route = attention_route(Sq * (Hq // Hkv), hd, q.dtype,
+                            _aligned(q, k, v))
+    if route != "splitk":
+        return route, 0, 0
+    key_end = max(0, min(valid, q_offset + Sq)) if causal else valid
+    return (route, *splitk_chunks(B, Hkv, key_end, sms))
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -93,6 +174,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
+def flash_attention_splitk_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, causal: bool = True, *,
+                               q_offset: Optional[int] = None,
+                               kv_valid_len: Optional[int] = None,
+                               chunk: int = SPLITK_CHUNK) -> torch.Tensor:
+    """Plain version of the decode route: the key axis cut into chunks of
+    ``chunk`` (keys at or past ``kv_valid_len`` masked and never read);
+    each chunk's partial softmax state (row max ``m``, row sum ``l``,
+    unnormalised ``acc``) in float32, a chunk that sees no key giving
+    ``m = -inf, l = 0, acc = 0``; then the merge
+    ``sum_c e^(m_c - M) acc_c / sum_c e^(m_c - M) l_c`` with ``M`` the
+    largest ``m_c`` (zeros where no chunk sees a key). The same function
+    as :func:`flash_attention_ref`, cast to ``q``'s type."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    if chunk < 1:
+        raise ValueError(f"flash_attention: chunk must be >= 1, got {chunk}")
+    G = Hq // Hkv
+    n = max(1, -(-Skv // chunk))
+    pad = n * chunk - valid
+    k = torch.nn.functional.pad(k[:, :valid].float(), (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v[:, :valid].float(), (0, 0, 0, 0, 0, pad))
+    qf = q.float().reshape(B, Sq, Hkv, G, hd)
+    # (B, Hkv, G, Sq, n, chunk)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k) / (hd ** 0.5)
+    s = s.reshape(B, Hkv, G, Sq, n, chunk)
+    kv_pos = torch.arange(n * chunk, device=q.device).reshape(n, chunk)
+    masked = (kv_pos >= valid).expand(Sq, n, chunk)
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device) + q_offset
+        masked = masked | (kv_pos[None] > q_pos[:, None, None])
+    s = s.masked_fill(masked, float("-inf"))
+    m = s.amax(-1, keepdim=True)                        # -inf: no key seen
+    p = torch.exp(s - m.nan_to_num(0.0, neginf=0.0))    # 0 where masked
+    l = p.sum(-1)                                       # (..., Sq, n)
+    acc = torch.einsum("bhgqnk,bnkhd->bhgqnd", p,
+                       v.reshape(B, n, chunk, Hkv, hd))
+    m = m[..., 0]
+    M = m.amax(-1, keepdim=True)
+    w = torch.exp(m - M.nan_to_num(0.0, neginf=0.0))   # 0 for m = -inf
+    L = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(-2)
+    out = torch.where(L[..., None] > 0, out / L[..., None].clamp_min(
+        torch.finfo(torch.float32).tiny), torch.zeros_like(out))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, *,
                          q_offset: Optional[int] = None,
@@ -122,17 +250,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
-    vec = int(q.dtype == torch.bfloat16 and hd % 8 == 0
-              and all(s % 8 == 0 for s in strides)
-              and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
+    route, chunk, splits = attention_plan(
+        q, k, v, causal, q_offset=q_offset, kv_valid_len=valid,
+        sms=_sm_count(q.device))
+    part_o = part_ml = None
+    if route == "splitk":
+        # the partials (B, Hkv, splits, rows, hd), then their (m, l)
+        n = B * Hkv * splits * Sq * (Hq // Hkv)
+        scratch = torch.empty(n * (hd + 2), dtype=torch.float32,
+                              device=q.device)
+        part_o = scratch.data_ptr()
+        part_ml = part_o + 4 * n * hd
     lib = build.load("flash_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Hq, Hkv, hd, *strides, int(bool(causal)), q_offset, valid,
-        _DTYPES.index(q.dtype), vec, stream)
+        _DTYPES.index(q.dtype), int(_aligned(q, k, v)), ROUTES.index(route),
+        chunk, splits,
+        part_o, part_ml, stream)
     build.check(lib, rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"attn_{route}"] += 1
     return out
 
 

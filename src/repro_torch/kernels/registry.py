@@ -15,7 +15,9 @@ environment variable and no "auto" rule: nothing routes a CUDA tensor to
 the plain version, so a kernel that fails to build or launch raises
 instead of silently running the plain path.
 
-``LAUNCHES`` counts the CUDA launches of each kernel (plain integers).
+``LAUNCHES`` counts the CUDA launches of each kernel (plain integers),
+and, beside a wrapper's count, the launches of each route of a wrapper
+that picks among kernels by shape (``ROUTE_COUNTS``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Union
 import torch
 
 __all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
-           "check_tensor", "KERNELS", "LAUNCHES", "reset_launches"]
+           "check_tensor", "KERNELS", "ROUTE_COUNTS", "LAUNCHES",
+           "reset_launches"]
 
 # the hand-written kernels; each wrapper adds one to its LAUNCHES entry
 # where it launches its kernel, and nowhere else, so a run can show that
@@ -33,12 +36,17 @@ __all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
 KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
            "rowwise_overlap", "ell_spmm", "msbfs_expand", "path_overlap",
            "flash_attention")
-LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the routes of flash_attention (``attn_`` and a name of its ops.ROUTES;
+# one count per launch of the route's kernel, or of its pair for
+# attn_splitk) and ell_spmm's F = 1 kernel
+ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_mma", "attn_scalar",
+          "ell_gather_f1")
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + ROUTE_COUNTS, 0)
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in KERNELS:
+    """Set every kernel's and every route's launch count to 0."""
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 

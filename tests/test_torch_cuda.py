@@ -13,8 +13,10 @@ build, and the engine's deltas on the card equal those on the CPU.
 bf16 rounds p before the PV product), so it is held to tolerances: 3e-5
 absolute / 1e-4 relative in float32 (the JAX kernel tests'); in bf16
 1e-2 elementwise and a relative L2 error of at most 2e-2 in every output
-row. The reduced transformer on the card matches the CPU port in float32
-(TF32 off) at 1e-4.
+row. Each route of ``flash_attention`` (wgmma, split-K, mma, float32) and
+of ``ell_spmm`` (the F = 1 kernel or the general one) is taken by the
+shapes it is for. The reduced transformer on the card matches the CPU port
+in float32 (TF32 off) at 1e-4.
 """
 import numpy as np
 import pytest
@@ -25,7 +27,8 @@ from repro_torch.kernels import LAUNCHES, build  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
     ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    flash_attention_cuda, flash_attention_ref, gqa_attention)
+    attention_plan, flash_attention_cuda, flash_attention_ref,
+    flash_attention_splitk_ref, gqa_attention)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
     msbfs_expand_cuda, msbfs_expand_ref, msbfs_hop_packed, msbfs_step_cuda,
     msbfs_step_ref, pack_bits)
@@ -381,6 +384,105 @@ def test_flash_attention_refuses_what_it_cannot_run(dev):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q, k, torch.zeros((1, 4, 1, 16),
                                                device=dev)[..., ::2])
+
+
+# (route, (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len)):
+# wgmma at hd 64 and 128, at G 5 (65 rows and 35), non-causal with a
+# valid length; split-K at granite-8b's and qwen2.5-14b's decode, hd 24,
+# 256 and an unaligned hd 12, rows that see no key, an empty cache; mma at
+# hd 96 and 256
+ROUTE_CASES = [
+    ("wgmma", (2, 64, 64, 4, 1, 64, True, None, None)),
+    ("wgmma", (1, 13, 40, 40, 8, 128, True, None, None)),
+    ("wgmma", (2, 100, 333, 10, 2, 64, False, None, 310)),
+    ("wgmma", (1, 300, 300, 8, 2, 128, True, None, None)),
+    ("splitk", (2, 1, 600, 32, 8, 128, True, 599, 600)),
+    ("splitk", (2, 1, 77, 40, 8, 128, True, 76, 77)),
+    ("splitk", (2, 3, 300, 10, 2, 24, True, 100, 120)),
+    ("splitk", (1, 1, 700, 8, 1, 256, True, 699, 700)),
+    ("splitk", (1, 2, 50, 8, 2, 12, False, None, 40)),
+    ("splitk", (1, 4, 64, 4, 1, 64, True, -2, 64)),
+    ("splitk", (1, 1, 16, 4, 1, 64, True, 0, 0)),
+    ("wgmma", (1, 7, 50, 5, 1, 128, True, 20, 27)),
+    ("mma", (1, 7, 50, 5, 1, 96, True, 20, 27)),
+    ("mma", (2, 40, 90, 8, 2, 256, True, None, None)),
+]
+
+
+@pytest.mark.parametrize("route,case", ROUTE_CASES, ids=str)
+def test_flash_attention_route_matches_plain(dev, route, case):
+    """bf16: each shape takes its route (and only it) and matches the
+    plain version; split-K also its own plain version, cut into the
+    kernel's chunks."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, valid = case
+    r = np.random.default_rng(Sq * 7 + Skv + hd)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+               .to(dev, torch.bfloat16)
+               for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                             (B, Skv, Hkv, hd)))
+    kw = dict(q_offset=q_offset, kv_valid_len=valid)
+    plan = attention_plan(q, k, v, causal, **kw,
+                          sms=torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    assert plan[0] == route
+    before = {n: LAUNCHES[f"attn_{n}"] for n in ("wgmma", "splitk", "mma")}
+    got = flash_attention_cuda(q, k, v, causal, **kw)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[f"attn_{n}"] - c for n, c in before.items()} \
+        == {n: int(n == route) for n in before}
+    assert_attention_close(got, flash_attention_ref(q, k, v, causal, **kw),
+                           "bfloat16")
+    if route == "splitk":
+        assert_attention_close(got, flash_attention_splitk_ref(
+            q, k, v, causal, chunk=plan[1], **kw), "bfloat16")
+
+
+def test_wgmma_prefill_chunk_on_a_cache_layer_slice(dev):
+    """The wgmma route's TMA reads K / V of one cache layer up to
+    kv_valid_len only: the NaN tail past it never reaches the output."""
+    L, B, max_len, Hkv, Hq, hd = 2, 2, 256, 2, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cache = torch.randn((L, B, max_len, Hkv, hd), generator=gen,
+                        device=dev).bfloat16()
+    pos, n = 40, 64                       # 64 new queries after 40 cached
+    cache[:, :, pos + n:] = float("nan")
+    q = torch.randn((B, n, Hq, hd), generator=gen, device=dev).bfloat16()
+    k, v = cache[0], cache[1]
+    before = LAUNCHES["attn_wgmma"]
+    got = gqa_attention(q, k, v, True, q_offset=pos, kv_valid_len=pos + n)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attn_wgmma"] == before + 1
+    want = flash_attention_ref(q, k[:, :pos + n].clone(),
+                               v[:, :pos + n].clone(), True, q_offset=pos)
+    assert_attention_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ell_gather_f1_matches_plain_on_special_floats(dev, op, aligned):
+    """F = 1: pads in the middle of rows, -0.0, +-inf and NaN; the F = 1
+    kernel where the table is 16-byte aligned, the other kernel where it
+    is not, both equal to the plain version bit for bit."""
+    V, D = 1 << 16, 32
+    r = np.random.default_rng(21)
+    ell_np = r.integers(0, V, size=(V, D)).astype(np.int32)
+    ell_np[r.random((V, D)) < 0.6] = V
+    flat = torch.empty(V * D + 1, dtype=torch.int32, device=dev)
+    ell = (flat[:-1] if aligned else flat[1:]).view(V, D)
+    ell.copy_(torch.from_numpy(ell_np))
+    x = (r.standard_normal((V, 1)) * 10.0 ** r.integers(-3, 4, (V, 1))) \
+        .astype(np.float32)
+    for i, special in enumerate((-0.0, np.inf, -np.inf, np.nan)):
+        x[i::11] = special
+    fill = 0.0 if op == "sum" else float("-inf")
+    xs = torch.cat([torch.from_numpy(x).to(dev),
+                    torch.full((1, 1), fill, device=dev)])
+    before = LAUNCHES["ell_gather_f1"]
+    got = ell_spmm_cuda(ell, xs, op)
+    want = ell_spmm_ref(ell, xs, op)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_gather_f1"] == before + aligned
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "qwen2.5-14b"])

@@ -128,3 +128,143 @@ def test_module_imports_without_nvcc():
     assert "flash_attention" in build.SOURCES
     assert "flash_attention" in KERNELS and "flash_attention" in LAUNCHES
     assert (build.CSRC_DIR / "flash_attention.cu").exists()
+
+
+# ----------------------------------------------------------------------
+# the decode route's plain version and the wrapper's choice of kernel
+# ----------------------------------------------------------------------
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len): a decode row
+# whose cache tail holds chunks entirely past kv_valid_len, decode rows of
+# granite-8b's and qwen2.5-14b's groups (G 4 and 5), rows that see no key
+# (q_offset < 0), an empty cache, and non-causal reads
+SPLITK_CASES = [(2, 1, 200, 8, 2, 16, True, 20, 21),
+                (1, 1, 96, 8, 2, 24, True, 70, 71),
+                (2, 1, 64, 10, 2, 8, True, 40, 41),
+                (1, 4, 40, 4, 1, 8, True, -2, 40),
+                (1, 3, 16, 4, 2, 8, True, 5, 0),
+                (2, 3, 50, 6, 3, 12, False, None, 37),
+                (2, 5, 32, 6, 3, 24, True, 27, 32)]
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 1000])
+@pytest.mark.parametrize("case", SPLITK_CASES, ids=str)
+def test_splitk_plain_version_matches_plain_and_chunked_attention(case,
+                                                                  chunk):
+    *dims, causal, q_offset, valid = case
+    q, k, v = map(torch.from_numpy, _qkv(8, *dims))
+    k[:, max(valid, 0):] = float("nan")       # the tail is never read
+    v[:, max(valid, 0):] = float("nan")
+    got = ops.flash_attention_splitk_ref(q, k, v, causal, q_offset=q_offset,
+                                         kv_valid_len=valid, chunk=chunk)
+    want = ops.flash_attention_ref(q, k, v, causal, q_offset=q_offset,
+                                   kv_valid_len=valid)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **F32_TOL)
+    # the JAX package's chunked_attention, on the rows that see a key (it
+    # does not give zeros where a row sees none)
+    Sq, Skv = q.shape[1], k.shape[1]
+    qo = Skv - Sq if q_offset is None else q_offset
+    sees = np.array([min(valid, qo + i + 1) > 0 if causal else valid > 0
+                     for i in range(Sq)])
+    assert not got[:, ~sees].any()
+    if sees.any():
+        jax_want = chunked_attention(
+            *(jnp.asarray(x[:, :valid].numpy()) if i else
+              jnp.asarray(x.numpy()) for i, x in enumerate((q, k, v))),
+            causal=causal, q_offset=qo, chunk=16, kv_valid_len=valid)
+        np.testing.assert_allclose(got.numpy()[:, sees],
+                                   np.asarray(jax_want)[:, sees], **F32_TOL)
+
+
+def test_splitk_plain_version_rows_that_see_no_key_give_zeros():
+    q, k, v = map(torch.from_numpy, _qkv(9, 1, 4, 8, 2, 1, 8))
+    out = ops.flash_attention_splitk_ref(q, k, v, q_offset=-2, chunk=3)
+    assert not out[:, :2].any() and out[:, 2:].abs().sum() > 0
+    assert not ops.flash_attention_splitk_ref(q, k, v, kv_valid_len=0,
+                                              chunk=2).any()
+    with pytest.raises(ValueError, match="chunk"):
+        ops.flash_attention_splitk_ref(q, k, v, chunk=0)
+
+
+@pytest.mark.parametrize("rows,hd,dtype,vec,route", [
+    (1, 128, torch.bfloat16, True, "splitk"),     # decode, granite-8b G 4
+    (4, 128, torch.bfloat16, True, "splitk"),
+    (5, 128, torch.bfloat16, True, "splitk"),     # decode, qwen2.5-14b G 5
+    (16, 12, torch.bfloat16, False, "splitk"),    # any hd, unaligned
+    (17, 128, torch.bfloat16, True, "wgmma"),     # a prompt chunk
+    (63, 128, torch.bfloat16, True, "wgmma"),
+    (64, 128, torch.bfloat16, True, "wgmma"),
+    (32, 96, torch.bfloat16, True, "mma"),
+    (32, 128, torch.bfloat16, False, "mma"),
+    (65, 64, torch.bfloat16, True, "wgmma"),      # Sq 13 at G 5
+    (8192, 128, torch.bfloat16, True, "wgmma"),   # the prefill
+    (8192, 128, torch.bfloat16, False, "mma"),    # unaligned strides
+    (8192, 96, torch.bfloat16, True, "mma"),      # hd not 64 or 128
+    (8192, 256, torch.bfloat16, True, "mma"),
+    (4, 128, torch.float32, True, "scalar"),
+    (8192, 128, torch.float32, True, "scalar"),
+])
+def test_attention_route_thresholds(rows, hd, dtype, vec, route):
+    assert ops.attention_route(rows, hd, dtype, vec) == route
+
+
+@pytest.mark.parametrize("B,Hkv,key_end,want", [
+    (4, 8, 544, (64, 9)),        # granite-8b decode: 288 blocks
+    (4, 8, 300, (64, 5)),        # mid-cache: the chunk stays at 64 keys
+    (1, 8, 32768, (960, 35)),    # a long cache: 280 blocks
+    (4, 8, 0, (64, 1)),          # an empty cache still writes its zeros
+    (2, 2, 71, (64, 2)),
+    (1, 1, 10 ** 6, (3776, 265)),
+])
+def test_splitk_chunks(B, Hkv, key_end, want):
+    chunk, splits = ops.splitk_chunks(B, Hkv, key_end, sms=132)
+    assert (chunk, splits) == want
+    assert chunk % 64 == 0 and splits >= 1
+    assert (splits - 1) * chunk < max(key_end, 1) <= splits * chunk
+    if key_end >= 64 * -(-264 // (B * Hkv)):
+        assert B * Hkv * splits >= 2 * 132
+
+
+def _bf16_qkv(B, Sq, Skv, Hq, Hkv, hd):
+    return tuple(torch.from_numpy(x).bfloat16()
+                 for x in _qkv(10, B, Sq, Skv, Hq, Hkv, hd))
+
+
+def test_attention_plan_follows_shape_and_layout():
+    # granite-8b decode and prefill, qwen2.5-14b (G 5) decode
+    q, k, v = _bf16_qkv(4, 1, 544, 32, 8, 128)
+    assert ops.attention_plan(q, k, v, q_offset=543, kv_valid_len=544) \
+        == ("splitk", 64, 9)
+    assert ops.attention_plan(q, k, v, q_offset=299, kv_valid_len=300) \
+        == ("splitk", 64, 5)
+    q, k, v = _bf16_qkv(1, 1, 40, 40, 8, 128)
+    assert ops.attention_plan(q, k, v)[0] == "splitk"
+    q, k, v = _bf16_qkv(1, 13, 40, 40, 8, 128)        # 65 rows at G 5
+    assert ops.attention_plan(q, k, v) == ("wgmma", 0, 0)
+    q, k, v = _bf16_qkv(2, 64, 64, 32, 8, 128)
+    assert ops.attention_plan(q, k, v) == ("wgmma", 0, 0)
+    # a causal split-K cuts only up to the last key a row sees
+    q, k, v = _bf16_qkv(1, 2, 500, 8, 2, 64)
+    assert ops.attention_plan(q, k, v, q_offset=100)[1:] == (64, 2)
+    assert ops.attention_plan(q, k, v, False, q_offset=100)[1:] == (64, 8)
+    # unaligned: a head stride of 12 values, a pointer 2 bytes in
+    q, k, v = _bf16_qkv(2, 64, 64, 32, 8, 128)
+    wide = torch.zeros((2, 64, 8, 140), dtype=torch.bfloat16)[..., :128]
+    assert ops.attention_plan(q, wide, wide)[0] == "mma"
+    shifted = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)[1:] \
+        .view(k.shape)
+    assert ops.attention_plan(q, shifted, v)[0] == "mma"
+    assert ops.attention_plan(q.float(), k.float(), v.float())[0] \
+        == "scalar"
+
+
+def test_route_counters_are_registered():
+    from repro_torch.kernels import LAUNCHES, ROUTE_COUNTS, reset_launches
+    assert {r for r in ROUTE_COUNTS if r.startswith("attn_")} \
+        == {f"attn_{route}" for route in ops.ROUTES}
+    assert "ell_gather_f1" in ROUTE_COUNTS
+    assert set(ROUTE_COUNTS) <= set(LAUNCHES)
+    LAUNCHES["attn_wgmma"] += 3
+    reset_launches()
+    assert not any(LAUNCHES.values())

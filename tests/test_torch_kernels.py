@@ -253,6 +253,55 @@ def test_ell_spmm_plain_bit_equal_to_pallas_for_any_floats(op, V, D, F, seed):
     assert np.array_equal(_np(got).view(np.int32), ref.view(np.int32))
 
 
+def _skip_pads(ell, xs, op):
+    """The arithmetic of ``ell_gather_f1_kernel``: the ascending-d order of
+    ``ell_spmm_ref``, but a pad entry (== V) adds nothing where row V is
+    neutral (no gather is issued for it)."""
+    V, D = ell.shape
+    fill = 0.0 if op == "sum" else float("-inf")
+    pad = float(xs[V, 0])
+    skip = pad == 0.0 if op == "sum" else pad == float("-inf")
+    acc = torch.full((V, 1), fill, dtype=xs.dtype)
+    for d in range(D):
+        g = xs[ell[:, d]]
+        nxt = acc + g if op == "sum" else torch.maximum(acc, g)
+        acc = torch.where((ell[:, d] == V)[:, None] & skip, acc, nxt)
+    return acc
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("pad_value", ["neutral", "negative zero"])
+@pytest.mark.parametrize("V,D,seed", [(300, 32, 11), (77, 8, 12),
+                                      (50, 4, 13)])
+def test_skipping_pad_gathers_is_bit_identical(op, pad_value, V, D, seed):
+    r = np.random.default_rng(seed)
+    ell = r.integers(0, V, (V, D)).astype(np.int32)
+    ell[r.random((V, D)) < 0.5] = V          # pads in the middle of rows
+    ell[:3] = V                              # all-pad rows
+    x = (r.standard_normal((V, 1)) * 10.0 ** r.integers(-3, 4, (V, 1))) \
+        .astype(np.float32)
+    for i, special in enumerate((-0.0, 0.0, np.inf, -np.inf, np.nan)):
+        x[i::7] = special
+    fill = 0.0 if op == "sum" else -np.inf
+    if pad_value == "negative zero" and op == "sum":
+        fill = -0.0
+    xs = torch.from_numpy(np.concatenate([x, np.full((1, 1), fill,
+                                                     np.float32)]))
+    ell_t = torch.from_numpy(ell)
+    got = _skip_pads(ell_t, xs, op)
+    want = eops.ell_spmm_ref(ell_t, xs, op)
+    assert np.array_equal(_np(got).view(np.int32), _np(want).view(np.int32))
+    assert torch.isnan(want).any() and (want == float("inf")).any()
+
+
+@pytest.mark.parametrize("D,F,aligned,want", [
+    (32, 1, True, True), (4, 1, True, True), (128, 1, True, True),
+    (12, 1, True, True), (30, 1, True, False), (132, 1, True, False),
+    (0, 1, True, False), (32, 2, True, False), (32, 1, False, False)])
+def test_f1_route(D, F, aligned, want):
+    assert eops.f1_route(D, F, aligned) is want
+
+
 def test_ell_aggregate_zero_vertices_and_width():
     for op in ("sum", "max"):
         out = eops.ell_aggregate(torch.zeros((0, 4), dtype=torch.int32),
