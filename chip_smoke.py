@@ -27,13 +27,25 @@ Phases, each printing one JSON line (``"phase": ...``):
                results checked against the brute-force oracle on a few
                queries and against a ``Planner.BASIC`` run on all.
                Then one more run with the kernel wrappers wrapped, to keep
-               the inputs of each kernel's heaviest call (not timed).
+               the inputs of each kernel's heaviest call (not timed; for
+               ``path_member`` and ``rowwise_overlap`` the fused expand
+               level and joins that carry them). In every engine phase
+               each ``path_member`` launch is a fused level and each
+               ``rowwise_overlap`` launch a fused join
+               (``LAUNCHES["level_fused"]``, ``["join_fused"]``).
 5. sharing  -- a second batch on the same graph, 64 overlapping queries
                (``similar_queries``, similarity 0.8, k in 7..8), whose
                shared HC-s path queries and splice joins are what the
                paper is about and whose frontiers outgrow ``min_cap``:
                launches counted, oracle and BASIC checks, then a wrapped
-               run that keeps the heaviest join-kernel inputs.
+               run that keeps the heaviest join-kernel inputs. Then a
+               card-only ``torch.profiler`` window over one warm BATCH
+               run (device busy share, device events per level and per
+               join, copies to the host) and over one expand level, one
+               keyed and one splice join of that batch, each with its
+               readback of count and overflow: at most 3 launches each
+               (the keyed join's pair-setup ops apart, listed by name)
+               and one copy to the host.
 6. planners -- ``PathSession(g, EngineConfig(), device="cuda")``, the
                default configuration, runs the sharing batch under
                ``batch``, ``batch+``, ``basic+``, ``pathenum`` and
@@ -115,7 +127,10 @@ Phases, each printing one JSON line (``"phase": ...``):
                sum and F = 8 max; for ``path_overlap`` also the splice
                join of phase ``ops``), held against its plain PyTorch
                version on the card (exact equality: the outputs are
-               integers, or float32 sums taken in the same order), timed
+               integers, or float32 sums taken in the same order;
+               ``path_member`` and ``rowwise_overlap`` on the prefixes,
+               candidates and half rows of the heaviest fused level and
+               join), timed
                with CUDA events (median of 10 warm runs) beside the plain
                version, one PyTorch library call where one computes the
                same function, and the least time the card could take.
@@ -142,7 +157,13 @@ Phases, each printing one JSON line (``"phase": ...``):
                per launch; SDPA the same way), since a single launch's
                ``ms`` includes the Python wrapper, which at the decode
                rows takes longer than the kernels; ``ell_spmm``'s F = 1
-               row likewise.
+               row likewise. Rows ``expand_level`` and ``join``: the
+               fused passes on the heaviest recorded level and keyed join
+               of the main batch (and of the sharing batch, its splice
+               join, and the counting join on each keyed join's inputs),
+               equal to their plain compositions on every output, timed
+               alone, as 50 calls in one CUDA graph and beside the plain
+               composition, bound by bytes.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -194,7 +215,18 @@ KERNEL_ROWS = {
                      "src/repro/kernels/path_join/kernel.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:79"),
+    # the fused passes that carry path_member and rowwise_overlap on the
+    # engine's path: one expand level, one join
+    "expand_level": ("src/repro_torch/csrc/path_join.cu",
+                     "src/repro/kernels/path_join/kernel.py:109"),
+    "join": ("src/repro_torch/csrc/path_join.cu",
+             "src/repro/kernels/path_join/kernel.py:70"),
 }
+# each fused pass and the kernel whose count it also adds to
+FUSED = {"level_fused": "path_member", "join_fused": "rowwise_overlap"}
+# launches allowed per expand level and per join (memsets included; the
+# keyed join's pair setup apart)
+FUSED_LAUNCH_BUDGET = 3
 # the kernels of the first slice's path (plan_caps=False), which phases 4
 # and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
 FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "path_member",
@@ -306,6 +338,118 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.fn_name, self.fn)
+
+
+class CallRecorder:
+    """Wraps one function of a module while active (positional and keyword
+    arguments); keeps the arguments of the heaviest call (by ``work``) by
+    reference: the engine writes no tensor after it is made."""
+
+    def __init__(self, module, fn_name: str, work):
+        self.module, self.fn_name, self.work = module, fn_name, work
+        self.fn = getattr(module, fn_name)
+        self.best, self.best_work = None, -1
+
+    def __call__(self, *args, **kw):
+        w = self.work(args, kw)
+        if w > self.best_work:
+            self.best, self.best_work = {"args": args, "kw": dict(kw)}, w
+        return self.fn(*args, **kw)
+
+    def __enter__(self):
+        setattr(self.module, self.fn_name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.fn_name, self.fn)
+
+
+def level_recorder(by_cap: bool = False):
+    """The fused expand level (``enumerate.expand_level_cuda``), by valid
+    frontier rows (or its cap) x prefix length x candidates; ``rows`` is
+    the cap."""
+    from repro_torch.core import enumerate as enum
+    rec = CallRecorder(enum, "expand_level_cuda", lambda a, kw: (
+        a[0].shape[0] if by_cap else min(int(a[1]), a[0].shape[0]))
+        * (kw["level"] + 1) * a[2].shape[1])
+    rec.rows = lambda: rec.best["args"][0].shape[0]
+    return rec
+
+
+class JoinKernelRecorder:
+    """The three fused joins of ``core/join.py`` while active, each by
+    pair ids x the two half lengths; ``parts[kind].best`` is the heaviest
+    call of each kind, ``best`` the heaviest of all (with its kind)."""
+
+    KINDS = {"keyed": ("keyed_join_cuda", "out_cap", "a_col", "b_col"),
+             "keyed_count": ("keyed_join_count_cuda", "pair_cap", "a_col",
+                             "b_col"),
+             "splice": ("cross_join_cuda", "out_cap", "p_col", "c_col")}
+
+    def __init__(self, by_cap: bool = False):
+        from repro_torch.core import join
+        self.by_cap = by_cap
+        self.parts = {
+            kind: CallRecorder(join, fn, lambda a, kw, c=cap, x=x, y=y:
+                               self.pairs(a, kw, c) * (kw[x] + 1)
+                               * (kw[y] + 1))
+            for kind, (fn, cap, x, y) in self.KINDS.items()}
+
+    def pairs(self, args, kw, cap_key) -> int:
+        """Pair ids a join visits: all of its cap for a keyed join (its
+        pair count is known only inside), prefixes x children for a splice
+        join (or its cap, ``by_cap``)."""
+        if cap_key == "out_cap" and "p_col" in kw and not self.by_cap:
+            return min(int(args[1]) * int(args[3]), kw[cap_key])
+        return kw[cap_key]
+
+    @property
+    def best(self):
+        kind = max(self.parts, key=lambda k: self.parts[k].best_work)
+        if self.parts[kind].best is None:
+            return None
+        return dict(self.parts[kind].best, kind=kind)
+
+    def rows(self) -> int:
+        b = self.best
+        return b["kw"][self.KINDS[b["kind"]][1]]
+
+    def __enter__(self):
+        for r in self.parts.values():
+            r.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for r in self.parts.values():
+            r.__exit__(*exc)
+
+
+def join_halves(rec: dict):
+    """The half rows a recorded join compares, pair by pair: (A[:a_col +
+    1], B[:b_col + 1]) of a keyed join, (prefix, child) of a splice join."""
+    from repro_torch.core import join
+    kw = rec["kw"]
+    if rec["kind"] == "splice":
+        p_verts, p_count, c_verts, c_count = rec["args"]
+        p_idx, c_idx, _, _ = join._splice_pairs(
+            p_count, c_count, kw["out_cap"], p_verts.device)
+        return (p_verts[p_idx][:, :kw["p_col"] + 1],
+                c_verts[c_idx][:, :kw["c_col"] + 1])
+    a, b_verts, b_count = rec["args"]
+    cap = kw["out_cap"] if rec["kind"] == "keyed" else kw["pair_cap"]
+    a_pos, b_idx, _, _ = join._enumerate_pairs(a, b_verts, b_count,
+                                               kw["b_col"], cap)
+    return (a.verts[a_pos][:, :kw["a_col"] + 1],
+            b_verts[b_idx][:, :kw["b_col"] + 1])
+
+
+def require_fused(launches: dict, what: str) -> None:
+    """Every launch of path_member and rowwise_overlap on an engine path
+    was a fused pass, and the counts agree."""
+    for fused, kernel in FUSED.items():
+        require(launches[fused] == launches[kernel],
+                f"{what}: {launches[kernel]} {kernel} launches, "
+                f"{launches[fused]} of them {fused}")
 
 
 class JoinRecorder:
@@ -443,7 +587,6 @@ def make_recorders(torch, names) -> dict:
     from repro_torch.kernels.ell_spmm import ops as eops
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
-    from repro_torch.kernels.path_join import ops as jops
     makers = {
         "msbfs_step": lambda: Recorder(
             mops, "msbfs_step_cuda",
@@ -451,12 +594,12 @@ def make_recorders(torch, names) -> dict:
         "pairwise_popcount": lambda: Recorder(
             pops, "pairwise_popcount_cuda",
             lambda a, out: a[0].shape[0] ** 2 * a[0].shape[1]),
-        "path_member": lambda: Recorder(
-            jops, "path_member_cuda",
-            lambda a, out: a[0].shape[0] * a[0].shape[1] * a[1].shape[1]),
-        "rowwise_overlap": lambda: Recorder(
-            jops, "rowwise_overlap_cuda",
-            lambda a, out: a[0].shape[0] * a[0].shape[1] * a[1].shape[1]),
+        # the engine runs these two inside its fused level and joins
+        "path_member": level_recorder,
+        "rowwise_overlap": JoinKernelRecorder,
+        # the fused passes at the largest capacities the planner gives them
+        "level_cap": lambda: level_recorder(by_cap=True),
+        "join_cap": lambda: JoinKernelRecorder(by_cap=True),
         # every call has the same shape: the heaviest carries the most
         # walks (non-zero features)
         "ell_spmm": lambda: Recorder(
@@ -491,6 +634,7 @@ def phase_main(torch, g, queries):
     launches = dict(LAUNCHES)
     require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the main path never launched: {launches}")
+    require_fused(launches, "main")
 
     warm = []
     for _ in range(2):
@@ -508,6 +652,7 @@ def phase_main(torch, g, queries):
     basic = session.run(queries, planner="basic")
     t_basic = time.perf_counter() - t0
     basic_launches = dict(LAUNCHES)
+    require_fused(basic_launches, "main, BASIC")
     check_same(queries, cold, basic)
 
     recorders = make_recorders(torch, FIRST_SLICE)
@@ -550,6 +695,7 @@ def phase_sharing(torch, g, session, nq: int):
     launches = dict(LAUNCHES)
     require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the sharing batch never launched: {launches}")
+    require_fused(launches, "sharing")
     require(rep.stats["n_shared"] > 0, "the sharing batch shared nothing")
     counts = [r.count for r in rep]
     n_oracle, t_oracle = check_results(g, queries, rep, (7, 8))
@@ -566,9 +712,10 @@ def phase_sharing(torch, g, session, nq: int):
     require([r.count for r in rec] == counts, "recorded run differs")
     require(all(r.best is not None for r in join_rec.values()),
             "the sharing batch ran no splice or no keyed join")
-    rows = {k: recorders[k].best[0].shape[0] for k in joins}
+    rows = {k: recorders[k].rows() for k in joins}
     require(all(n > session.engine.cfg.min_cap for n in rows.values()),
             f"the sharing batch never outgrew min_cap: {rows}")
+    profile = profile_batch(torch, session, queries, recorders)
     emit({"phase": "sharing", "queries": len(queries),
           "k_hist": {k: sum(1 for q in queries if q[2] == k)
                      for k in (7, 8)},
@@ -585,8 +732,124 @@ def phase_sharing(torch, g, session, nq: int):
                                  "count": r.best["count"]}
                              for k, r in join_rec.items()},
           "oracle_checked": n_oracle, "t_oracle_s": t_oracle,
-          "basic_equal": True, "t_basic_s": t_basic})
+          "basic_equal": True, "t_basic_s": t_basic, "profile": profile})
     return recorders, join_rec, launches, queries, rep
+
+
+def device_kind(name: str) -> str:
+    """A device event of the profiler: a copy to the host, a memset, or a
+    kernel."""
+    low = name.lower()
+    return ("dtoh" if "memcpy" in low and "dtoh" in low else
+            "copy" if "memcpy" in low else
+            "memset" if "memset" in low else "kernel")
+
+
+def trace_device(torch, fn) -> tuple[list, float]:
+    """``fn()`` under ``torch.profiler`` tracing the card only: the device
+    events as (name, microseconds) and the host wall (synchronized at both
+    ends), in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, wall
+
+
+# a kernel that only waits (``torch.cuda._sleep``), launched first in a
+# short profiler window: on the H100 the profiler drops such a window's
+# first device event (without the marker a level's window showed its
+# kernel and copy but not its memset; with it, all three and no marker)
+MARKER = "spin_kernel"
+
+
+def launches_of(events, fused: str) -> dict:
+    """Count a window's device events: the fused kernel, memsets, copies
+    to the host, and every other kernel by name (the marker apart)."""
+    out = {"fused": 0, "memset": 0, "dtoh": 0, "copy": 0, "other": {},
+           "marker": 0}
+    for name, _ in events:
+        kind = device_kind(name)
+        if kind == "kernel" and MARKER in name:
+            out["marker"] += 1
+        elif kind == "kernel" and fused in name:
+            out["fused"] += 1
+        elif kind == "kernel":
+            short = name.split("(")[0][-80:]
+            out["other"][short] = out["other"].get(short, 0) + 1
+        else:
+            out[kind] += 1
+    return out
+
+
+def profile_batch(torch, session, queries, recorders=None) -> dict:
+    """A card-only profiler window over one warm BATCH run of the sharing
+    batch (device busy share, launches per level and per join), and, with
+    ``recorders``, over one expand level and one keyed and one splice join
+    of that batch's heaviest recorded calls, each with its host readback of
+    count and overflow: at most FUSED_LAUNCH_BUDGET launches (memsets
+    included, the keyed join's named pair-setup ops apart) and one copy to
+    the host."""
+    from repro_torch.core import enumerate as enum
+    from repro_torch.core import join
+    from repro_torch.core.pathset import read_status
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    events, wall = trace_device(
+        torch, lambda: session.run(queries, planner="batch"))
+    levels, joins = LAUNCHES["level_fused"], LAUNCHES["join_fused"]
+    require_fused(LAUNCHES, "sharing, profiled")
+    kinds = {}
+    for name, _ in events:
+        kinds[device_kind(name)] = kinds.get(device_kind(name), 0) + 1
+    busy_ms = sum(us for _, us in events) / 1e3
+    out = {"batch": {"wall_s": wall, "device_ms": busy_ms,
+                     "device_busy_share": busy_ms / (wall * 1e3),
+                     "events": kinds, "levels": levels, "joins": joins,
+                     "events_per_level_or_join":
+                         sum(kinds.values()) / max(levels + joins, 1),
+                     "dtoh_per_level_or_join":
+                         kinds.get("dtoh", 0) / max(levels + joins, 1)}}
+    if recorders is None:
+        return out
+
+    lvl = recorders["path_member"].best
+
+    def one_level():
+        got = enum.expand_level(*lvl["args"], **lvl["kw"])
+        read_status(got.frontier.count, got.frontier.overflow)
+
+    def one_join(kind):
+        rec = recorders["rowwise_overlap"].parts[kind].best
+        fn = join.keyed_join if kind == "keyed" else join.cross_join
+
+        def run():
+            got = fn(*rec["args"], **rec["kw"])
+            read_status(got.count, got.overflow)
+        return run
+
+    for what, fn, fused in (("level", one_level, "expand_level_kernel"),
+                            ("keyed_join", one_join("keyed"), "join_kernel"),
+                            ("splice_join", one_join("splice"),
+                             "join_kernel")):
+        fn()                                      # warm
+        events, _ = trace_device(
+            torch, lambda: (torch.cuda._sleep(10000), fn()))
+        n = launches_of(events, fused)
+        out[what] = n
+        require(n["fused"] == 1 and n["fused"] + n["memset"]
+                <= FUSED_LAUNCH_BUDGET and n["dtoh"] == 1,
+                f"{what}: {n} (at most {FUSED_LAUNCH_BUDGET} launches, one "
+                f"of them the fused kernel, and one copy to the host)")
+        if what != "keyed_join":
+            require(not n["other"], f"{what}: other kernels launched: {n}")
+    return out
 
 
 class RetryCounter:
@@ -631,6 +894,7 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
             launches[planner] = dict(LAUNCHES)
         require(launches[planner]["ell_spmm"] > 0,
                 f"{planner}: ell_spmm never launched on the default config")
+        require_fused(launches[planner], planner)
         require(launches[planner]["ell_gather_f1"]
                 == launches[planner]["ell_spmm"],
                 f"{planner}: {launches[planner]['ell_spmm']} ell_spmm calls, "
@@ -645,6 +909,10 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
             "routes": None if rep.routes is None else
             {r: rep.routes.count(r) for r in set(rep.routes)},
             "retry": rc.as_dict()}
+    # BATCH once more, warm: the first run of a session against a later one
+    rerun = session.run(queries, planner="batch")
+    check_same(queries, share_report, rerun, "a second default-config BATCH")
+    runs["batch_rerun"] = {"stats": {k: rerun.stats[k] for k in STAT_KEYS}}
     # the first slice's configuration on the same batch, for its retries
     with RetryCounter(main_session.engine) as rc_off:
         rep = main_session.run(queries, planner="batch")
@@ -655,13 +923,15 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
     auto = session.run(main_queries, planner="auto")
     t_auto = time.perf_counter() - t0
     auto_launches = dict(LAUNCHES)
+    require_fused(auto_launches, "auto, main batch")
     check_same(main_queries, main_report, auto,
                "plan_caps=False BATCH and default-config AUTO (main batch)")
 
-    recorders = make_recorders(torch, ("ell_spmm",))
+    recorders = make_recorders(torch, ("ell_spmm", "level_cap", "join_cap"))
     with recording(recorders):
         rec = session.run(queries, planner="batch")
     check_same(queries, share_report, rec, "recorded batch run")
+    profile = profile_batch(torch, session, queries)
     emit({"phase": "planners", "queries": len(queries), "runs": runs,
           "retry_plan_caps_false_batch": rc_off.as_dict(),
           "auto_main": {
@@ -673,15 +943,17 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
               "stats": {k: v for k, v in auto.stats.items()
                         if k.startswith(("t_", "n_", "routed_"))},
               "launches": auto_launches, "paths_equal_main": True},
-          "paths_equal_sharing": True})
+          "paths_equal_sharing": True, "profile_batch": profile})
     return recorders, launches["batch"]
 
 
 def phase_cache(g, queries, share_report):
     import numpy as np
     from repro_torch.core import EngineConfig, PathSession
+    from repro_torch.kernels import LAUNCHES, reset_launches
     session = PathSession(g, EngineConfig(cache_bytes=256 << 20),
                           device="cuda")
+    reset_launches()
     keys = ("t_wall_s", "n_materialized", "n_cache_hits", "n_cache_misses")
     out = {}
     cold = session.run(queries)
@@ -699,6 +971,7 @@ def phase_cache(g, queries, share_report):
     require(after.stats["n_materialized"] > 0
             and after.stats["n_cache_hits"] == 0,
             f"update_graph left the cache warm: {after.stats}")
+    require_fused(LAUNCHES, "cache")
     for name, rep in (("cold", cold), ("warm", warm), ("after_update", after)):
         out[name] = {k: rep.stats[k] for k in keys}
     emit({"phase": "cache", **out, "t_update_graph_s": t_update,
@@ -876,6 +1149,7 @@ def phase_delta(torch, g, batches):
             t0 = time.perf_counter()
             after = sess.run(queries)
             t_rerun = time.perf_counter() - t0
+            require_fused(LAUNCHES, f"delta {step}, {b} rerun")
             reports[b], reruns[b] = rep, after
             out[b] = {"report": rep, "entries_before": entries,
                       "msbfs_step_launches": launches["msbfs_step"],
@@ -1603,6 +1877,8 @@ def flash_attention_row(torch, lm) -> dict:
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                   share_launches, plan_rec, plan_launches, ops,
                   w1_rec, lm) -> list[dict]:
+    from repro_torch.core import enumerate as enum
+    from repro_torch.core import join
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     from repro_torch.kernels.path_join import ops as jops
@@ -1612,7 +1888,8 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     rows = []
     # each kernel's launches on the path that runs it
     launches = dict(launches, ell_spmm=plan_launches["ell_spmm"],
-                    **ops["launches"])
+                    expand_level=launches["level_fused"],
+                    join=launches["join_fused"], **ops["launches"])
 
     def row(name, shape, err, ms, plain_ms, nbytes, t_ops_ms,
             library_ms=None, **extra):
@@ -1692,11 +1969,15 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         popc_per_s=popc_rate, b1_bit_pairs_per_s=peaks["b1_bit_pairs_per_s"])
     del gam
 
-    # -- path_member / rowwise_overlap: the main batch's heaviest call is
-    # the row; the sharing batch's heaviest (frontiers past min_cap) is
-    # held against the plain version and timed as well
+    # -- path_member / rowwise_overlap on their own: the engine runs them
+    # inside its fused level and joins, so their inputs are derived from
+    # the heaviest fused calls of the main batch (and, checked and timed
+    # as well, of the sharing batch, whose frontiers pass min_cap): a
+    # level's prefixes and candidates, a join's gathered half rows
     def path_member(rec):
-        verts, cand = rec["path_member"].best
+        args, kw = rec["path_member"].best["args"], rec["path_member"].best["kw"]
+        verts = args[0][:, :kw["level"] + 1]
+        cand = enum.expand_level_ref(*args, **kw).nbrs
         N, L = verts.shape
         D = cand.shape[1]
         err = max_abs_err(torch, [(jops.path_member_cuda(verts, cand),
@@ -1707,7 +1988,7 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                 N * L * 4 + 2 * N * D * 4, N * D * L / int_rate * 1e3)
 
     def rowwise_overlap(rec):
-        a_v, b_v = rec["rowwise_overlap"].best
+        a_v, b_v = join_halves(rec["rowwise_overlap"].best)
         N, LA = a_v.shape
         LB = b_v.shape[1]
         err = max_abs_err(torch, [(jops.rowwise_overlap_cuda(a_v, b_v),
@@ -1724,9 +2005,152 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                            f"version on the sharing batch")
         shape, err, ms, plain_ms, nbytes, t_ops = measure(main_rec)
         row(name, shape, err, ms, plain_ms, nbytes=nbytes, t_ops_ms=t_ops,
+            inputs_from="the heaviest fused "
+                        + ("expand level" if name == "path_member"
+                           else "join") + " of the main batch",
             sharing={"launches": share_launches[name], "shape": shape2,
                      "max_abs_err": err2, "ms": ms2, "plain_ms": plain2,
                      **bound(nbytes2, t_ops2)})
+
+    # -- the fused passes themselves, against the plain compositions on
+    # the same inputs (every output, bit for bit), timed one call at a time
+    # (ms) and as 50 calls in one CUDA graph (device_ms)
+    def measure_fused(kernel, plain, args, kw, outputs, nbytes):
+        got, want = outputs(kernel(*args, **kw)), outputs(plain(*args, **kw))
+        torch.cuda.synchronize()
+        return {"max_abs_err": max_abs_err(torch, list(zip(got, want))),
+                "ms": cuda_ms(torch, lambda: kernel(*args, **kw)),
+                "device_ms": graph_ms(torch, lambda: kernel(*args, **kw)),
+                "device_ms_launches": ATTN_GRAPH_LAUNCHES,
+                "plain_ms": cuda_ms(torch, lambda: plain(*args, **kw)),
+                **bound(nbytes, 0.0)}
+
+    def level_bytes(args, kw):
+        """Valid frontier rows and their ELL rows and non-pad candidates'
+        prune entries read; nbrs, splice_hit, the frontier and its status
+        written."""
+        verts, count, ell, prune_tbl, _ = args
+        cap, L = verts.shape
+        D = ell.shape[1]
+        valid = min(int(count), cap)
+        nbrs = enum.expand_level_ref(*args, **kw).nbrs[:valid]
+        cand = int((nbrs != prune_tbl.shape[0] - 1).sum())
+        return (valid * L * 4 + (valid + (valid < cap)) * D * 4 + cand * 2
+                + cap * D * 5 + kw["out_cap"] * L * 4 + 16)
+
+    def level_outputs(o):
+        return (o.frontier.verts, o.frontier.count, o.frontier.overflow,
+                o.nbrs, o.splice_hit)
+
+    def fused_level(rec):
+        args, kw = rec.best["args"], rec.best["kw"]
+        r = measure_fused(enum.expand_level_cuda, enum.expand_level_ref,
+                          args, kw, level_outputs, level_bytes(args, kw))
+        r["shape"] = {"cap": args[0].shape[0], "L": args[0].shape[1],
+                      "D": args[2].shape[1], "count": int(args[1]),
+                      "level": kw["level"], "out_cap": kw["out_cap"]}
+        return r
+
+    def join_bytes(rec):
+        """The valid pairs' half rows (and a keyed join's bucket starts and
+        offsets) read, the assembled rows and the status written."""
+        kw = rec["kw"]
+        a_v, b_v = join_halves(rec)
+        if rec["kind"] == "splice":
+            pairs = min(int(rec["args"][1]) * int(rec["args"][3]),
+                        kw["out_cap"])
+            setup = 0
+        else:
+            offs = join._pair_setup(rec["args"][0], rec["args"][1],
+                                    rec["args"][2], kw["b_col"])[1]
+            cap = kw["out_cap" if rec["kind"] == "keyed" else "pair_cap"]
+            pairs = min(int(offs[-1]), cap)
+            setup = offs.shape[0] * 16
+        out = kw["out_cap"] * kw["out_width"] * 4 \
+            if rec["kind"] != "keyed_count" else 0
+        return pairs * (a_v.shape[1] + b_v.shape[1]) * 4 + setup + out + 16
+
+    joins = {"keyed": (join.keyed_join_cuda, join.keyed_join_ref,
+                       lambda o: tuple(o)),
+             "keyed_count": (join.keyed_join_count_cuda,
+                             join.keyed_join_count_ref, lambda o: tuple(o)),
+             "splice": (join.cross_join_cuda, join.cross_join_ref,
+                        lambda o: tuple(o))}
+
+    def fused_join(rec, kind):
+        kernel, plain, outputs = joins[kind]
+        r = measure_fused(kernel, plain, rec["args"], rec["kw"], outputs,
+                          join_bytes(dict(rec, kind=kind)))
+        if kind != "splice":
+            # the memset and the kernel alone, after the pair setup
+            kw = rec["kw"]
+            a, b_verts, b_count = rec["args"]
+            lo, offs = join._pair_setup(a, b_verts, b_count, kw["b_col"])
+            r["kernel_device_ms"] = graph_ms(
+                torch, lambda: jops.fused_join_cuda(
+                    kind, a.verts, b_verts, a_len=kw["a_col"] + 1,
+                    b_len=kw["b_col"] + 1, lo=lo, offs=offs,
+                    out_cap=kw.get("out_cap", kw.get("pair_cap")),
+                    width=kw.get("out_width", 0)))
+        a_v, b_v = join_halves(dict(rec, kind=kind))
+        r["shape"] = {"pairs": a_v.shape[0], "LA": a_v.shape[1],
+                      "LB": b_v.shape[1], **{k: v for k, v in
+                                               rec["kw"].items()}}
+        return r
+
+    def as_count(rec):
+        """A keyed join's inputs as the counting join's."""
+        kw = dict(rec["kw"])
+        kw["pair_cap"] = kw.pop("out_cap")
+        kw.pop("out_width")
+        return {"args": rec["args"], "kw": kw}
+
+    level_main = fused_level(main_rec["path_member"])
+    level_share = fused_level(share_rec["path_member"])
+    # the largest planned capacity of the default configuration's BATCH
+    # run (phase planners): most of its rows lie past count
+    level_plan = fused_level(plan_rec["level_cap"])
+    require(level_share["max_abs_err"] == level_plan["max_abs_err"] == 0,
+            "the fused expand level disagrees with its plain version on the "
+            "sharing batch")
+    row("expand_level", level_main["shape"], level_main["max_abs_err"],
+        level_main["ms"], level_main["plain_ms"],
+        nbytes=level_main["bytes"], t_ops_ms=0.0,
+        device_ms=level_main["device_ms"],
+        device_ms_launches=ATTN_GRAPH_LAUNCHES,
+        launches_from="LAUNCHES['level_fused'] of the main batch (each also "
+                      "a path_member launch)",
+        plain="core/enumerate.py expand_level_ref (eager PyTorch)",
+        sharing=dict(level_share, launches=share_launches["level_fused"]),
+        planned=dict(level_plan, launches=plan_launches["level_fused"]))
+    parts = {}
+    for batch, jr in (("main", main_rec["rowwise_overlap"].parts),
+                      ("sharing", share_rec["rowwise_overlap"].parts),
+                      ("planned", plan_rec["join_cap"].parts)):
+        if jr["keyed"].best is not None:
+            parts[f"{batch}_keyed"] = fused_join(jr["keyed"].best, "keyed")
+            parts[f"{batch}_keyed_count"] = fused_join(
+                as_count(jr["keyed"].best), "keyed_count")
+        if jr["splice"].best is not None:
+            parts[f"{batch}_splice"] = fused_join(jr["splice"].best,
+                                                  "splice")
+    require("main_keyed" in parts and "sharing_splice" in parts,
+            f"no keyed join on the main batch or no splice join on the "
+            f"sharing batch: {sorted(parts)}")
+    require(all(p["max_abs_err"] == 0 for p in parts.values()),
+            "a fused join disagrees with its plain version: "
+            + str({k: p["max_abs_err"] for k, p in parts.items()}))
+    main_keyed = parts.pop("main_keyed")
+    row("join", main_keyed["shape"], main_keyed["max_abs_err"],
+        main_keyed["ms"], main_keyed["plain_ms"],
+        nbytes=main_keyed["bytes"], t_ops_ms=0.0,
+        device_ms=main_keyed["device_ms"],
+        device_ms_launches=ATTN_GRAPH_LAUNCHES,
+        launches_from="LAUNCHES['join_fused'] of the main batch (each also "
+                      "a rowwise_overlap launch)",
+        plain="core/join.py keyed_join_ref (eager PyTorch, after the same "
+              "pair setup); ms and device_ms include the pair setup",
+        share_launches=share_launches["join_fused"], **parts)
 
     # -- ell_spmm: the heaviest call of the default configuration (F = 1,
     # sum), then two synthetic shapes on the same ELL table with random

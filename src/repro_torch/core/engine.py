@@ -45,7 +45,7 @@ from .graph import DeviceGraph, Graph
 from .index import QueryIndex, build_index, slack_from_dists, walk_counts_ell
 from .msbfs import K_MAX_INT8, msbfs_set_dist_ell
 from .join import cross_join, keyed_join, keyed_join_count, sort_by_last
-from .pathset import PathSet, concat, empty, singleton
+from .pathset import PathSet, concat, empty, read_status, singleton
 from .planner import CostRouter, Route, RouterConfig
 from .query import (BatchReport, Output, PathQuery, PathsStore, Planner,
                     QueryLike, QueryResult, midpoint_split)
@@ -782,15 +782,19 @@ class BatchPathEngine:
         pools: list[list[PathSet]] = [[] for _ in range(budget + 1)]
         frontier = singleton(source, width, self.device)
         pools[0].append(frontier)
+        n_frontier = 1
         for lvl in range(budget):
-            # the level's host sync point, as in the reference
-            if int(frontier.count) == 0:
+            if n_frontier == 0:
                 break
             out = expand_level(frontier.verts, frontier.count, ell_idx,
                                prune_tbl, stop_vertex,
                                level=lvl, budget=budget,
                                out_cap=caps[lvl + 1])
-            if bool(out.frontier.overflow):
+            # the level's one host sync: the new frontier's count and
+            # overflow in one device-to-host copy
+            n_frontier, overflow = read_status(out.frontier.count,
+                                               out.frontier.overflow)
+            if overflow:
                 return None
             for (csrc, cb, clevels) in children:
                 rmask = (out.splice_hit & (out.nbrs == csrc)).any(dim=1)
@@ -802,7 +806,7 @@ class BatchPathEngine:
                     cl = clevels[lam]
                     if int(cl.count) == 0:
                         continue
-                    res = self._retry_join(
+                    res, _ = self._retry_join(
                         lambda cap: cross_join(
                             prefixes.verts, prefixes.count,
                             cl.verts, cl.count,
@@ -824,21 +828,24 @@ class BatchPathEngine:
         return PathSet(ps.verts[:tight], ps.count, ps.overflow)
 
     def _retry_capacity(self, fn, est: int):
-        """Run ``fn(cap) -> (result, overflow)`` with cap-growing retry."""
+        """Run ``fn(cap) -> (result, count, overflow)`` with cap-growing
+        retry; returns ``(result, int(count))``, count and overflow read
+        with one device-to-host copy."""
         cap = _bucket(min(max(est, self.cfg.min_cap), self.cfg.join_cap),
                       self.cfg.min_cap)
         while True:
-            res, overflow = fn(cap)
-            if not bool(overflow):
-                return res
+            res, count, overflow = fn(cap)
+            n, overflow = read_status(count, overflow)
+            if not overflow:
+                return res, n
             if cap >= self.cfg.hard_cap:
                 raise EngineOverflow("join exceeds hard_cap")
             cap = min(cap * 4, self.cfg.hard_cap)
 
-    def _retry_join(self, fn, est: int) -> PathSet:
+    def _retry_join(self, fn, est: int) -> tuple[PathSet, int]:
         def attempt(cap):
             ps = fn(cap)
-            return ps, ps.overflow
+            return ps, ps.count, ps.overflow
         return self._retry_capacity(attempt, est)
 
     # ------------------------------------------------------------------
@@ -899,14 +906,14 @@ class BatchPathEngine:
                 bs = bwd_levels[lam]
                 if int(bs.count) == 0:
                     continue
-                res = self._retry_join(
+                res, n = self._retry_join(
                     lambda cap: keyed_join(sa, bs.verts, bs.count,
                                            a_col=a, b_col=lam,
                                            out_cap=cap, out_width=width),
                     est=max(int(fa.count), int(bs.count)))
-                if int(res.count):
+                if n:
                     outs.append(res)
-                    found += int(res.count)
+                    found += n
         if not outs:
             return empty(1, width, self.device)
         out = concat(outs)
@@ -936,11 +943,12 @@ class BatchPathEngine:
                 bs = bwd_levels[lam]
                 if int(bs.count) == 0:
                     continue
-                total += int(self._retry_capacity(
-                    lambda cap: keyed_join_count(sa, bs.verts, bs.count,
-                                                 a_col=a, b_col=lam,
-                                                 pair_cap=cap),
-                    est=max(int(fa.count), int(bs.count))))
+                _, n = self._retry_capacity(
+                    lambda cap: (None, *keyed_join_count(
+                        sa, bs.verts, bs.count, a_col=a, b_col=lam,
+                        pair_cap=cap)),
+                    est=max(int(fa.count), int(bs.count)))
+                total += n
                 if limit is not None and total >= limit:
                     return limit
         return total if limit is None else min(total, limit)

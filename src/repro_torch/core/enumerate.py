@@ -4,8 +4,12 @@ Counterpart of ``repro/core/enumerate.py``. The level-l frontier is a
 PathSet of all simple paths of length exactly l that survive the slack
 prune. One superstep expands every frontier path by every ELL neighbour at
 once, masks invalid candidates (padding / duplicate vertex / Lemma-3.1
-slack prune / splice triggers), and cumsum-compacts the survivors. The
-duplicate-vertex mask is one ``path_member`` launch per level.
+slack prune / splice triggers), and cumsum-compacts the survivors.
+``expand_level`` picks the arm by the frontier's device: on the card the
+whole level is one fused kernel (``expand_level_cuda``, around
+``path_member``'s duplicate test), elsewhere the eager composition of
+plain PyTorch ops around ``path_member_ref`` (``expand_level_ref``); the
+two agree bit for bit on every output.
 
 Splice handling (BatchEnum, Alg 4 lines 20-23): vertices that root a
 materialized dominating HC-s path query are *not* expanded when the cached
@@ -18,10 +22,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.path_join.ops import path_member
+from ..kernels.path_join.ops import fused_level_cuda, path_member_ref
+from ..kernels.registry import ArmLike, KernelArm, resolve_arm
 from .pathset import PathSet, compact_index, compact_rows
 
-__all__ = ["ExpandOut", "expand_level", "prune_table", "extract_rows",
+__all__ = ["ExpandOut", "expand_level", "expand_level_ref",
+           "expand_level_cuda", "prune_table", "extract_rows",
            "select_ending_at", "count_ending_at"]
 
 
@@ -41,7 +47,7 @@ def prune_table(slack: torch.Tensor, splice_budget: torch.Tensor) -> torch.Tenso
 def expand_level(verts: torch.Tensor, count: torch.Tensor,
                  ell_idx: torch.Tensor, prune_tbl: torch.Tensor,
                  stop_vertex: int, *, level: int, budget: int,
-                 out_cap: int) -> ExpandOut:
+                 out_cap: int, arm: ArmLike = None) -> ExpandOut:
     """One superstep: expand all level-`level` paths by one hop.
 
     verts:  (cap, L) int32 frontier paths (cols 0..level used).
@@ -51,7 +57,19 @@ def expand_level(verts: torch.Tensor, count: torch.Tensor,
             covers budget-(level+1) splice instead of expanding.
     stop_vertex: do not expand *from* this vertex (dedicated query
             optimization; pass -2 to disable).
+    arm: the kernel arm; by default the one of ``verts``' device.
     """
+    fn = expand_level_cuda if resolve_arm(verts.device, arm) \
+        is KernelArm.CUDA else expand_level_ref
+    return fn(verts, count, ell_idx, prune_tbl, stop_vertex, level=level,
+              budget=budget, out_cap=out_cap)
+
+
+def expand_level_ref(verts: torch.Tensor, count: torch.Tensor,
+                     ell_idx: torch.Tensor, prune_tbl: torch.Tensor,
+                     stop_vertex: int, *, level: int, budget: int,
+                     out_cap: int) -> ExpandOut:
+    """The plain version of :func:`expand_level` (any device)."""
     cap = verts.shape[0]
     n = prune_tbl.shape[0] - 1
     D = ell_idx.shape[1]
@@ -62,7 +80,7 @@ def expand_level(verts: torch.Tensor, count: torch.Tensor,
     nbrs = ell_idx[last]                             # (cap, D)
     valid = (nbrs != n) & row_valid[:, None]
     valid &= (last != stop_vertex)[:, None]
-    dup = path_member(verts[:, :level + 1], nbrs) > 0
+    dup = path_member_ref(verts[:, :level + 1], nbrs) > 0
     pruned = prune_tbl[nbrs]                         # (cap, D, 2) one gather
     keep = valid & ~dup & (pruned[..., 0] >= level + 1)
     remaining = budget - (level + 1)
@@ -77,6 +95,20 @@ def expand_level(verts: torch.Tensor, count: torch.Tensor,
     out = verts[src // D]
     out[:, level + 1] = nbrs.reshape(-1)[src]
     out = torch.where(hit[:, None], out, torch.full_like(out, -1))
+    return ExpandOut(frontier=PathSet(out, n_out, ovf),
+                     nbrs=nbrs, splice_hit=splice_hit)
+
+
+def expand_level_cuda(verts: torch.Tensor, count: torch.Tensor,
+                      ell_idx: torch.Tensor, prune_tbl: torch.Tensor,
+                      stop_vertex: int, *, level: int, budget: int,
+                      out_cap: int) -> ExpandOut:
+    """The fused kernel of :func:`expand_level` (CUDA tensors): one memset
+    and one launch, no host sync; the new frontier's count and overflow
+    are one int64 pair on the card (``pathset.read_status``)."""
+    out, n_out, ovf, nbrs, splice_hit = fused_level_cuda(
+        verts, count, ell_idx, prune_tbl, stop_vertex, level=level,
+        budget=budget, out_cap=out_cap)
     return ExpandOut(frontier=PathSet(out, n_out, ovf),
                      nbrs=nbrs, splice_hit=splice_hit)
 

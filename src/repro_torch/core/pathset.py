@@ -5,8 +5,9 @@ paths as a dense int32 matrix on the device. The first ``count`` rows are
 valid and packed at the front; unused cells are -1. ``count`` and
 ``overflow`` stay 0-d device tensors, so reading them (``int(ps.count)``)
 is a host sync, made where the engine needs the value, as in the
-reference. ``HostPathSet`` / ``offload`` / ``upload`` are the cross-batch
-cache's storage form and its round trip.
+reference; :func:`read_status` reads both with one copy.
+``HostPathSet`` / ``offload`` / ``upload`` are the cross-batch cache's
+storage form and its round trip.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 __all__ = ["PathSet", "HostPathSet", "empty", "singleton", "compact_index",
            "compact_rows", "concat", "to_host", "offload", "upload",
-           "pathset_nbytes"]
+           "pathset_nbytes", "read_status"]
 
 # per-PathSet bookkeeping charged on top of the vertex matrix (count +
 # overflow scalars); shared by HostPathSet.nbytes and the cache's
@@ -59,6 +60,27 @@ def singleton(vertex: int, width: int, device) -> PathSet:
     ps.verts[0, 0] = vertex
     return PathSet(ps.verts, torch.ones((), dtype=torch.int64, device=device),
                    ps.overflow)
+
+
+def _packed(count: torch.Tensor, overflow: torch.Tensor) -> bool:
+    """True where overflow is the low byte of the int64 word after count
+    (the fused kernels' status pair, ``path_join.ops.packed_status``)."""
+    return (count.dtype == torch.int64 and overflow.dtype == torch.bool
+            and count.dim() == 0 and overflow.dim() == 0
+            and count.device == overflow.device
+            and overflow.untyped_storage().data_ptr()
+            == count.untyped_storage().data_ptr()
+            and overflow.data_ptr() == count.data_ptr() + 8)
+
+
+def read_status(count: torch.Tensor, overflow: torch.Tensor
+                ) -> tuple[int, bool]:
+    """``(int(count), bool(overflow))``: where a fused kernel wrote them
+    (views of one int64 pair on the card), with one device-to-host copy."""
+    if _packed(count, overflow):
+        n, ovf = torch.as_strided(count, (2,), (1,)).tolist()
+        return n, bool(ovf)
+    return int(count), bool(overflow)
 
 
 def compact_index(mask: torch.Tensor, out_cap: int):

@@ -44,6 +44,56 @@
 // Inputs are row slices of wider path matrices, so every kernel here takes
 // row strides and only the last dimension must be contiguous; outputs are
 // dense.
+//
+// The engine does not call path_member and rowwise_overlap on their own:
+// each is the heart of a larger pass that it runs as one kernel, so a level
+// and a join cost two launches (a memset and the kernel) where the eager
+// composition of their plain versions costs 25-40.
+//
+// expand_level_kernel (path_member's pass, core/enumerate.py): one expand
+// level of the frontier. One warp per frontier row: lane d reads ELL entry
+// d of the row's last vertex (one coalesced 128-byte row at D = 32, in
+// 32-wide chunks past it), the row's prefix is read once and broadcast by
+// __shfl_sync for the duplicate test, the prune entry (slack, splice
+// budget) is one 2-byte load, and __ballot_sync / __popc give the row's
+// survivors and each lane's rank among them. It writes nbrs and
+// splice_hit for every row (rows at and past count read ELL row 0, as the
+// plain version does) and the surviving (prefix ++ candidate) rows in
+// (row, candidate) order.
+//
+// join_kernel (rowwise_overlap's pass, core/join.py): one thread per pair
+// id of a keyed join (binary search of the id in the bucket offsets), a
+// counting keyed join or a splice join (id // c_count, id % c_count, both
+// counts read on the device). It gathers the two half rows, counts their
+// shared vertices in registers (keyed valid <=> 1, splice valid <=> 0) and
+// writes the assembled row, A ++ reversed(B[:b_col]) or prefix ++ child, of
+// each valid pair in pair-id order; the counting join only adds its valid
+// pairs up (a warp reduction and one atomic a warp).
+//
+// Compaction keeps the order with a single-pass scan across blocks
+// (decoupled look-back): each block takes a tile ticket, publishes its
+// survivor count, and warp 0 sums its predecessors' counts 32 tiles at a
+// time, stopping at the first tile that has published its inclusive
+// prefix. Tickets are taken in the order blocks start, so a block waits
+// only on blocks that are running. A tile's state is one 64-bit word,
+// status in the top two bits and the count below, so a status and its
+// count are read and written together.
+//
+// The wrapper makes one allocation per call: the scan state (int64 words:
+// count, overflow flag, tile ticket, then one word per tile) followed by
+// the output rows. One cudaMemsetAsync fills it with 0xFF bytes, which is
+// -1 in every output cell (only survivors are written) and "not ready" in
+// every tile word; the counting join's state is zeroed instead. The last
+// tile writes count = min(total, out_cap) and overflow = total > out_cap
+// (keyed and splice joins: the pair count past out_cap) into words 0 and
+// 1, so the host reads both with one copy. Nothing allocates or syncs
+// inside, so the passes can be captured in a CUDA graph.
+//
+// Bound on the H100 of both passes: bytes. A level reads its frontier rows,
+// their ELL rows and the candidates' prune entries and writes nbrs,
+// splice_hit and the survivors; a join reads the half rows of its pairs
+// and writes the valid ones. At the main path's sizes (a few hundred rows)
+// both are far under a microsecond of traffic: what they save is launches.
 #include "common.cuh"
 
 __global__ void path_member_kernel(const int32_t* __restrict__ verts,
@@ -196,5 +246,457 @@ REPRO_EXPORT int path_overlap_launch(const void* a, long long astride,
       static_cast<const int32_t*>(a), astride,
       static_cast<const int32_t*>(b), bstride, static_cast<int32_t*>(out),
       NA, NB, LA, LB);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// The fused expand level and joins (see the top of this file).
+// ---------------------------------------------------------------------
+
+namespace {
+constexpr int kFusedWarps = 8;                  // rows / warps per block
+constexpr int kFusedThreads = kFusedWarps * 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+// state words: [0] count, [1] overflow, [2] tile ticket, [3 + t] tile t
+constexpr int kStateHead = 3;
+// a tile word: status in bits 62-63, count below; 0xFF fill = not ready
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kNotReady = 3ull;
+constexpr unsigned long long kValueMask = (1ull << 62) - 1;
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Thread 0 takes the block's tile ticket (tiles are numbered in the order
+// blocks start; the ticket word starts at 0xFFFFFFFF).
+__device__ __forceinline__ long long take_tile(unsigned long long* state,
+                                               long long* s_tile) {
+  if (threadIdx.x == 0) {
+    *s_tile = static_cast<long long>(
+        atomicAdd(reinterpret_cast<unsigned int*>(state + 2), 1u) + 1u);
+  }
+  __syncthreads();
+  return *s_tile;
+}
+
+// Called by all 32 lanes of one warp: publish the tile's aggregate, sum
+// the predecessors' (32 tiles per step, up to the nearest inclusive
+// prefix), publish the inclusive prefix and return the exclusive one.
+__device__ unsigned long long scan_lookback(unsigned long long* tiles,
+                                            long long tile,
+                                            unsigned long long aggregate) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) store_word(tiles, kInclusive | aggregate);
+    return 0;
+  }
+  if (lane == 0) store_word(tiles + tile, kAggregate | aggregate);
+  unsigned long long exclusive = 0;
+  long long nearest = tile - 1;
+  while (true) {
+    const long long t = nearest - lane;
+    unsigned long long s = t >= 0 ? load_word(tiles + t) : kInclusive;
+    while (__any_sync(kFullMask, (s >> 62) == kNotReady)) {
+      if ((s >> 62) == kNotReady) s = load_word(tiles + t);
+    }
+    const unsigned done = __ballot_sync(kFullMask, (s >> 62) == 2);
+    const int stop = done ? __ffs(done) - 1 : 31;
+    unsigned long long v = lane <= stop ? (s & kValueMask) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(kFullMask, v, off);
+    exclusive += __shfl_sync(kFullMask, v, 0);
+    if (done) break;
+    nearest -= 32;
+  }
+  if (lane == 0) store_word(tiles + tile, kInclusive | (exclusive + aggregate));
+  return exclusive;
+}
+
+// The block's exclusive prefix of its warps' counts: every warp's offset
+// in s_warp (exclusive) and the block's offset among all tiles in *s_base.
+// Only tiles 0..last_tile scan (the tiles after them hold no survivor);
+// last_tile writes the totals. Called by every thread of the block.
+__device__ void block_scan(unsigned long long warp_count,
+                           unsigned long long* state, long long tile,
+                           long long last_tile, long long out_cap,
+                           bool pairs_overflow,
+                           unsigned long long* s_warp,
+                           unsigned long long* s_base) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) s_warp[warp] = warp_count;
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned long long own = lane < kFusedWarps ? s_warp[lane] : 0;
+    unsigned long long v = own;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned long long y = __shfl_up_sync(kFullMask, v, off);
+      if (lane >= off) v += y;
+    }
+    const unsigned long long aggregate = __shfl_sync(kFullMask, v, 31);
+    if (lane < kFusedWarps) s_warp[lane] = v - own;
+    const unsigned long long base =
+        scan_lookback(state + kStateHead, tile, aggregate);
+    if (lane == 0) {
+      *s_base = base;
+      if (tile == last_tile) {
+        const unsigned long long total = base + aggregate;
+        const unsigned long long cap = static_cast<unsigned long long>(out_cap);
+        state[0] = total < cap ? total : cap;
+        state[1] = (total > cap || pairs_overflow) ? 1ull : 0ull;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// True where candidate c occurs in prefix[0..len-1]; every lane of the
+// warp calls it (the prefix is read once, 32 entries at a time, and
+// broadcast by shuffles).
+__device__ __forceinline__ bool on_prefix(int c, const int32_t* prefix,
+                                          int len) {
+  const int lane = threadIdx.x & 31;
+  bool dup = false;
+  for (int p0 = 0; p0 < len; p0 += 32) {
+    const int x = p0 + lane < len ? __ldg(prefix + p0 + lane) : 0;
+    const int m = min(32, len - p0);
+    for (int q = 0; q < m; ++q) dup |= (c == __shfl_sync(kFullMask, x, q));
+  }
+  return dup;
+}
+
+struct LevelArgs {
+  const int32_t* verts;
+  long long vstride;
+  const long long* count;  // () int64 on the device: valid frontier rows
+  int cap, L;
+  const int32_t* ell;      // (rows, D) contiguous, pad = n
+  int D;
+  const int8_t* prune;     // (n + 1, 2) contiguous: slack, splice budget
+  int n, stop_vertex, level, remaining;
+  int rows_per_warp;       // 1..32 consecutive rows per warp
+  int32_t* out;            // (out_cap, L), prefilled with -1
+  long long out_cap;
+  int32_t* nbrs;           // (cap, D)
+  bool* splice_hit;        // (cap, D)
+  unsigned long long* state;
+};
+
+// One 32-wide chunk of a row's candidates: whether lane's candidate is
+// kept, and whether it splices (kept and the splice budget covers the
+// rest). Every lane of the warp calls it.
+__device__ __forceinline__ void level_candidate(const LevelArgs& a, int c,
+                                                bool in_row,
+                                                const int32_t* prefix,
+                                                bool* keep, bool* hit) {
+  const bool dup = on_prefix(c, prefix, a.level + 1);
+  *keep = false;
+  *hit = false;
+  if (in_row && c != a.n && !dup) {
+    const char2 pr = reinterpret_cast<const char2*>(a.prune)[c];
+    *keep = static_cast<int>(pr.x) >= a.level + 1;
+    *hit = *keep && static_cast<int>(pr.y) >= a.remaining;
+  }
+}
+
+// One frontier row of a warp: its last vertex (ELL row 0 past count)
+// and whether it expands at all.
+struct LevelRow {
+  long long r;
+  int last;
+  bool expand;
+};
+
+__device__ __forceinline__ LevelRow level_row(const LevelArgs& a,
+                                              long long r,
+                                              long long valid_rows) {
+  LevelRow row;
+  row.r = r;
+  const bool valid = r < valid_rows;
+  row.last = valid ? __ldg(a.verts + r * a.vstride + a.level) : 0;
+  row.expand = valid && row.last != a.stop_vertex;
+  return row;
+}
+
+__global__ void __launch_bounds__(kFusedThreads)
+expand_level_kernel(LevelArgs a) {
+  __shared__ long long s_tile;
+  __shared__ unsigned long long s_warp[kFusedWarps];
+  __shared__ unsigned long long s_base;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tile = take_tile(a.state, &s_tile);
+  const long long tile_rows = static_cast<long long>(kFusedWarps) *
+                              a.rows_per_warp;
+  const long long first = tile * tile_rows +
+                          static_cast<long long>(warp) * a.rows_per_warp;
+  const long long valid_rows = min(*a.count, static_cast<long long>(a.cap));
+  // the tile of the last valid row writes the totals; tiles past it hold
+  // only rows past count (ELL row 0, no survivor) and take no part in
+  // the scan
+  const long long last_tile = valid_rows > 0 ? (valid_rows - 1) / tile_rows
+                                             : 0;
+
+  // pass 1: nbrs and splice_hit of every row, the warp's survivors, and
+  // which of its rows have any (bit j: row first + j)
+  unsigned long long survivors = 0;
+  unsigned has = 0;
+  for (int j = 0; j < a.rows_per_warp; ++j) {
+    const LevelRow row = level_row(a, first + j, valid_rows);
+    if (row.r >= a.cap) break;
+    const int32_t* ell_row = a.ell + static_cast<long long>(row.last) * a.D;
+    const int32_t* prefix = a.verts + row.r * a.vstride;
+    unsigned row_survivors = 0;
+    for (int d0 = 0; d0 < a.D; d0 += 32) {
+      const int d = d0 + lane;
+      const int c = d < a.D ? __ldg(ell_row + d) : a.n;
+      bool keep = false, hit = false;
+      if (row.expand) level_candidate(a, c, d < a.D, prefix, &keep, &hit);
+      if (d < a.D) {
+        a.nbrs[row.r * a.D + d] = c;
+        a.splice_hit[row.r * a.D + d] = hit;
+      }
+      row_survivors += __popc(__ballot_sync(kFullMask, keep && !hit));
+    }
+    survivors += row_survivors;
+    if (row_survivors) has |= 1u << j;
+  }
+  if (tile > last_tile) return;
+  block_scan(survivors, a.state, tile, last_tile, a.out_cap, false, s_warp,
+             &s_base);
+
+  // pass 2: the survivors' rows at their places, recomputed chunk by chunk
+  unsigned long long slot = s_base + s_warp[warp];
+  const unsigned lower = (1u << lane) - 1u;
+  while (has) {
+    const int j = __ffs(has) - 1;
+    has &= has - 1;
+    const LevelRow row = level_row(a, first + j, valid_rows);
+    const int32_t* ell_row = a.ell + static_cast<long long>(row.last) * a.D;
+    const int32_t* prefix = a.verts + row.r * a.vstride;
+    for (int d0 = 0; d0 < a.D; d0 += 32) {
+      const int d = d0 + lane;
+      const int c = d < a.D ? __ldg(ell_row + d) : a.n;
+      bool keep, hit;
+      level_candidate(a, c, d < a.D, prefix, &keep, &hit);
+      const bool mine = keep && !hit;
+      const unsigned ballot = __ballot_sync(kFullMask, mine);
+      const unsigned long long k = slot + __popc(ballot & lower);
+      if (mine && k < static_cast<unsigned long long>(a.out_cap)) {
+        int32_t* o = a.out + static_cast<long long>(k) * a.L;
+        for (int col = 0; col < a.L; ++col)
+          o[col] = col == a.level + 1 ? c : __ldg(prefix + col);
+      }
+      slot += __popc(ballot);
+    }
+  }
+}
+
+enum JoinKind { kKeyedJoin = 0, kKeyedCount = 1, kSpliceJoin = 2 };
+
+struct JoinArgs {
+  const int32_t* a;        // keyed: sorted A rows; splice: prefix rows
+  long long astride, a_rows;
+  const int32_t* b;        // keyed: B rows; splice: child rows
+  long long bstride, b_rows;
+  const long long* lo;     // keyed: (b_rows,) first A row of each bucket
+  const long long* offs;   // keyed: (b_rows,) inclusive pair offsets
+  const long long* p_count;  // splice: () int64
+  const long long* c_count;  // splice: () int64
+  int a_len, b_len;        // columns of each half: a_col + 1, b_col + 1
+  int32_t* out;            // (out_cap, width), prefilled with -1
+  int width;
+  long long out_cap;
+  unsigned long long* state;
+};
+
+template <int kKind>
+__global__ void __launch_bounds__(kFusedThreads) join_kernel(JoinArgs a) {
+  __shared__ long long s_tile;
+  __shared__ unsigned long long s_warp[kFusedWarps];
+  __shared__ unsigned long long s_base;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tile =
+      kKind == kKeyedCount ? blockIdx.x : take_tile(a.state, &s_tile);
+  const long long i = tile * kFusedThreads + threadIdx.x;
+
+  long long total;
+  if (kKind == kSpliceJoin) {
+    total = *a.p_count * *a.c_count;
+  } else {
+    total = a.b_rows > 0 ? __ldg(a.offs + a.b_rows - 1) : 0;
+  }
+  const long long limit = min(total, a.out_cap);
+  const bool valid = i < limit;
+
+  const int32_t* ra = a.a;
+  const int32_t* rb = a.b;
+  bool ok = false;
+  if (valid) {
+    long long ia, ib;
+    if (kKind == kSpliceJoin) {
+      const long long pc = *a.p_count, cc = *a.c_count;
+      const long long denom = max(cc, 1LL);
+      ia = min(i / denom, max(pc - 1, 0LL));
+      ib = min(i % denom, max(cc - 1, 0LL));
+    } else {
+      // the bucket of pair i: the first b with offs[b] > i
+      long long lo = 0, hi = a.b_rows;
+      while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (__ldg(a.offs + mid) > i) hi = mid; else lo = mid + 1;
+      }
+      ib = min(lo, a.b_rows - 1);
+      const long long prev = ib > 0 ? __ldg(a.offs + ib - 1) : 0;
+      ia = __ldg(a.lo + ib) + (i - prev);
+      ia = min(max(ia, 0LL), a.a_rows - 1);
+    }
+    ra = a.a + ia * a.astride;
+    rb = a.b + ib * a.bstride;
+    int shared = 0;
+    for (int p = 0; p < a.a_len; ++p) {
+      const int x = __ldg(ra + p);
+      if (x < 0) continue;
+      for (int q = 0; q < a.b_len; ++q) shared += (__ldg(rb + q) == x);
+    }
+    ok = kKind == kSpliceJoin ? shared == 0 : shared == 1;
+  }
+  const unsigned ballot = __ballot_sync(kFullMask, ok);
+
+  if (kKind == kKeyedCount) {
+    if (lane == 0 && ballot)
+      atomicAdd(a.state, static_cast<unsigned long long>(__popc(ballot)));
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      a.state[1] = total > a.out_cap ? 1ull : 0ull;
+    return;
+  }
+  // the tile of the last pair id below limit writes the totals; tiles past
+  // it hold no valid pair and take no part in the scan
+  const long long last_tile = limit > 0 ? (limit - 1) / kFusedThreads : 0;
+  if (tile > last_tile) return;
+  block_scan(__popc(ballot), a.state, tile, last_tile, a.out_cap,
+             total > a.out_cap, s_warp, &s_base);
+  if (!ok) return;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long j = static_cast<long long>(s_base + s_warp[warp]) +
+                      __popc(ballot & lower);
+  int32_t* o = a.out + j * a.width;
+  for (int p = 0; p < a.a_len; ++p) o[p] = __ldg(ra + p);
+  if (kKind == kSpliceJoin) {
+    for (int q = 0; q < a.b_len; ++q) o[a.a_len + q] = __ldg(rb + q);
+  } else {
+    // B's key vertex folded away, the rest reversed
+    for (int q = 0; q + 1 < a.b_len; ++q)
+      o[a.a_len + q] = __ldg(rb + a.b_len - 2 - q);
+  }
+}
+
+inline long long tiles_for(long long work, int per_tile) {
+  const long long t = (work + per_tile - 1) / per_tile;
+  return t > 0 ? t : 1;
+}
+
+}  // namespace
+
+// buf: one allocation of buf_bytes, the state (state_words int64) then the
+// output rows (out_cap, L) int32. verts (cap, L) rows vstride apart; count
+// () int64; ell (rows, D) and prune (n + 1, 2) int8 contiguous; nbrs
+// (cap, D) int32 and splice_hit (cap, D) bool contiguous; each warp takes
+// rows_per_warp consecutive rows (1..32).
+REPRO_EXPORT int expand_level_launch(
+    const void* verts, long long vstride, const void* count, int cap, int L,
+    const void* ell, int D, const void* prune, int n, int stop_vertex,
+    int level, int remaining, int rows_per_warp, void* buf,
+    long long buf_bytes, long long state_words, long long out_cap,
+    void* nbrs, void* splice_hit, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(buf, 0xFF, buf_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  LevelArgs a;
+  a.verts = static_cast<const int32_t*>(verts);
+  a.vstride = vstride;
+  a.count = static_cast<const long long*>(count);
+  a.cap = cap;
+  a.L = L;
+  a.ell = static_cast<const int32_t*>(ell);
+  a.D = D;
+  a.prune = static_cast<const int8_t*>(prune);
+  a.n = n;
+  a.stop_vertex = stop_vertex;
+  a.level = level;
+  a.remaining = remaining;
+  a.rows_per_warp = rows_per_warp;
+  a.state = static_cast<unsigned long long*>(buf);
+  a.out = reinterpret_cast<int32_t*>(a.state + state_words);
+  a.out_cap = out_cap;
+  a.nbrs = static_cast<int32_t*>(nbrs);
+  a.splice_hit = static_cast<bool*>(splice_hit);
+  if (rows_per_warp < 1 || rows_per_warp > 32) return cudaErrorInvalidValue;
+  const long long tiles = tiles_for(cap, kFusedWarps * rows_per_warp);
+  if (kStateHead + tiles > state_words) return cudaErrorInvalidValue;
+  expand_level_kernel<<<static_cast<unsigned int>(tiles), kFusedThreads, 0,
+                        s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kind: 0 keyed join, 1 counting keyed join, 2 splice join. buf as above
+// (the counting join: the state only). a (a_rows, >= a_len) and b
+// (b_rows, >= b_len) rows astride / bstride apart; keyed: lo and offs
+// (b_rows,) int64; splice: p_count and c_count () int64; out (out_cap,
+// width) after the state.
+REPRO_EXPORT int join_launch(int kind, const void* a, long long astride,
+                             long long a_rows, const void* b,
+                             long long bstride, long long b_rows,
+                             const void* lo, const void* offs,
+                             const void* p_count, const void* c_count,
+                             int a_len, int b_len, int width,
+                             long long out_cap, void* buf,
+                             long long buf_bytes, long long state_words,
+                             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(buf, kind == kKeyedCount ? 0 : 0xFF,
+                                    buf_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  JoinArgs j;
+  j.a = static_cast<const int32_t*>(a);
+  j.astride = astride;
+  j.a_rows = a_rows;
+  j.b = static_cast<const int32_t*>(b);
+  j.bstride = bstride;
+  j.b_rows = b_rows;
+  j.lo = static_cast<const long long*>(lo);
+  j.offs = static_cast<const long long*>(offs);
+  j.p_count = static_cast<const long long*>(p_count);
+  j.c_count = static_cast<const long long*>(c_count);
+  j.a_len = a_len;
+  j.b_len = b_len;
+  j.width = width;
+  j.out_cap = out_cap;
+  j.state = static_cast<unsigned long long*>(buf);
+  j.out = reinterpret_cast<int32_t*>(j.state + state_words);
+  const long long tiles = tiles_for(out_cap, kFusedThreads);
+  if (kStateHead + tiles > state_words) return cudaErrorInvalidValue;
+  const unsigned int grid = static_cast<unsigned int>(tiles);
+  switch (kind) {
+    case kKeyedJoin:
+      join_kernel<kKeyedJoin><<<grid, kFusedThreads, 0, s>>>(j);
+      break;
+    case kKeyedCount:
+      join_kernel<kKeyedCount><<<grid, kFusedThreads, 0, s>>>(j);
+      break;
+    case kSpliceJoin:
+      join_kernel<kSpliceJoin><<<grid, kFusedThreads, 0, s>>>(j);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,9 +38,11 @@ KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
            "flash_attention")
 # the routes of flash_attention (``attn_`` and a name of its ops.ROUTES;
 # one count per launch of the route's kernel, or of its pair for
-# attn_splitk) and ell_spmm's F = 1 kernel
+# attn_splitk), ell_spmm's F = 1 kernel, and the fused passes that carry
+# path_member (one expand level) and rowwise_overlap (one join) on the
+# engine's path (each also counted under its kernel's name)
 ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_mma", "attn_scalar",
-          "ell_gather_f1")
+                "ell_gather_f1", "level_fused", "join_fused")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + ROUTE_COUNTS, 0)
 
 

@@ -515,3 +515,201 @@ def test_reduced_model_on_card_matches_cpu(dev, arch):
         torch.testing.assert_close(a.cpu(), b, **tol)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == cfg.n_layers * (2 + 6)
+
+
+# ----------------------------------------------------------------------
+# the fused expand level and joins (csrc/path_join.cu) against their plain
+# versions: every output bit for bit, rows in order
+# ----------------------------------------------------------------------
+
+def _simple_rows(r, N, L, hi):
+    rows = [r.choice(hi, size=L, replace=False) for _ in range(N)]
+    return np.array(rows, np.int32).reshape(N, L)
+
+
+def _level(dev, seed, n, D, cap, count, level, budget, pad_frac=0.4,
+           splice_frac=0.1, strided=False):
+    from repro_torch.core.enumerate import prune_table
+    r = np.random.default_rng(seed)
+    ell = r.integers(0, n, (n, D)).astype(np.int32)
+    ell[r.random((n, D)) < pad_frac] = n
+    verts = np.full((cap, budget + 3), -1, np.int32)
+    if n >= level + 1 and count:
+        # distinct vertices per row, drawn fast: a random offset walk
+        start = r.integers(0, n, (count, 1))
+        steps = np.cumsum(r.integers(1, max(n // (level + 2), 2),
+                                     (count, level + 1)), axis=1)
+        verts[:count, :level + 1] = (start + steps) % n
+    remaining = budget - (level + 1)
+    slack = r.integers(-1, budget + 1, n + 1).astype(np.int8)
+    splice = np.where(r.random(n + 1) < splice_frac,
+                      r.integers(remaining, remaining + 2, n + 1),
+                      -1).astype(np.int8)
+    slack[-1] = splice[-1] = -1
+    v = torch.from_numpy(verts).to(dev)
+    v = v[:, :budget + 1] if strided else v[:, :budget + 1].contiguous()
+    return (v, torch.tensor(count, device=dev), torch.from_numpy(ell).to(dev),
+            prune_table(torch.from_numpy(slack), torch.from_numpy(splice))
+            .to(dev))
+
+
+def _outputs(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for part in out for t in _outputs(part)]
+
+
+def _equal(got, want):
+    got, want = _outputs(got), _outputs(want)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+
+
+# (n, D, cap, count, level, budget, out_cap, stop, strided): D 32 and 64,
+# count < cap, overflowing out_caps, stop_vertex set and -2, an empty
+# frontier, the first level, a 2**16-row frontier, a strided frontier
+LEVEL_CASES = [(300, 32, 64, 50, 2, 5, 4096, -2, False),
+               (300, 32, 64, 50, 2, 5, 40, -2, True),
+               (200, 64, 32, 31, 3, 6, 2048, "row", False),
+               (200, 64, 32, 20, 1, 4, 100, "row", True),
+               (120, 32, 16, 0, 2, 5, 256, -2, False),
+               (90, 32, 1, 1, 0, 3, 64, -2, False),
+               (1000, 96, 40, 40, 3, 7, 5000, 5, False),
+               (1 << 20, 32, 1 << 16, 60000, 3, 7, 1 << 21, -2, False),
+               # planned caps: many rows per warp, most rows past count
+               (1 << 20, 32, 1 << 20, 3000, 3, 7, 1 << 20, -2, False),
+               (5000, 32, 200_000, 150_001, 2, 6, 1 << 18, "row", True),
+               (1 << 20, 32, 1 << 16, 1 << 16, 5, 8, 1 << 16, "row", True)]
+
+
+@pytest.mark.parametrize("case", LEVEL_CASES)
+def test_fused_expand_level_matches_plain(dev, case):
+    from repro_torch.core.enumerate import expand_level_cuda, expand_level_ref
+    n, D, cap, count, level, budget, out_cap, stop, strided = case
+    verts, cnt, ell, prune = _level(dev, cap + D, n, D, cap, count, level,
+                                    budget, strided=strided)
+    if stop == "row":
+        stop = int(verts[count // 2, level])
+    kw = dict(level=level, budget=budget, out_cap=out_cap)
+    before = (LAUNCHES["path_member"], LAUNCHES["level_fused"])
+    got = expand_level_cuda(verts, cnt, ell, prune, stop, **kw)
+    want = expand_level_ref(verts, cnt, ell, prune, stop, **kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["path_member"], LAUNCHES["level_fused"]) == \
+        (before[0] + 1, before[1] + 1)
+    _equal(got, want)
+
+
+def test_fused_expand_level_in_a_cuda_graph(dev):
+    """Nothing inside allocates outside the graph's pool or syncs: 50
+    levels captured in one graph and replayed equal the plain version."""
+    from repro_torch.core.enumerate import expand_level_cuda, expand_level_ref
+    verts, cnt, ell, prune = _level(dev, 7, 5000, 32, 4096, 3000, 3, 6)
+    kw = dict(level=3, budget=6, out_cap=1 << 15)
+    want = expand_level_ref(verts, cnt, ell, prune, -2, **kw)
+    expand_level_cuda(verts, cnt, ell, prune, -2, **kw)          # warm
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [expand_level_cuda(verts, cnt, ell, prune, -2, **kw)
+                for _ in range(50)]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got in (outs[0], outs[-1]):
+        _equal(got, want)
+
+
+def _joins(dev, seed, NA, NB, a_col, b_col, a_count, b_count, keys):
+    from repro_torch.core.join import sort_by_last
+    r = np.random.default_rng(seed)
+    # rows wider than the halves the join reads, as in the engine
+    A = torch.from_numpy(_simple_rows(r, NA, a_col + 3, keys)).to(dev)
+    B = torch.from_numpy(_simple_rows(r, NB, b_col + 2, keys)).to(dev)
+    sa = sort_by_last(A, torch.tensor(a_count, device=dev), col=a_col)
+    return A, B, sa, torch.tensor(b_count, device=dev)
+
+
+# (NA, NB, a_col, b_col, a_count, b_count, keys, cap): few keys make big
+# buckets; caps that overflow; an empty side; 2**16 pairs and more
+KEYED_CASES = [(64, 48, 3, 2, 60, 40, 10, 1024),
+               (64, 48, 3, 2, 60, 40, 10, 32),
+               (20, 200, 1, 4, 20, 150, 10, 512),
+               (9, 9, 2, 2, 0, 9, 10, 16),
+               (4096, 4096, 3, 3, 4000, 4096, 300, 1 << 16),
+               (4096, 4096, 3, 3, 4000, 4096, 300, 1 << 20)]
+
+
+@pytest.mark.parametrize("case", KEYED_CASES)
+def test_fused_keyed_joins_match_plain(dev, case):
+    from repro_torch.core import join
+    NA, NB, a_col, b_col, a_count, b_count, keys, cap = case
+    A, B, sa, bc = _joins(dev, NA + cap, NA, NB, a_col, b_col, a_count,
+                          b_count, keys)
+    width = a_col + b_col + 2
+    kw = dict(a_col=a_col, b_col=b_col)
+    before = (LAUNCHES["rowwise_overlap"], LAUNCHES["join_fused"])
+    _equal(join.keyed_join_cuda(sa, B, bc, out_cap=cap, out_width=width,
+                                **kw),
+           join.keyed_join_ref(sa, B, bc, out_cap=cap, out_width=width, **kw))
+    _equal(join.keyed_join_count_cuda(sa, B, bc, pair_cap=cap, **kw),
+           join.keyed_join_count_ref(sa, B, bc, pair_cap=cap, **kw))
+    assert (LAUNCHES["rowwise_overlap"], LAUNCHES["join_fused"]) == \
+        (before[0] + 2, before[1] + 2)
+
+
+# (NP, NC, p_col, c_col, p_count, c_count, cap): overflow, an empty child
+# set, 2**16 pairs and more
+SPLICE_CASES = [(40, 30, 2, 3, 35, 30, 2048), (40, 30, 2, 3, 35, 30, 100),
+                (16, 16, 0, 4, 16, 0, 64), (7, 50, 3, 1, 7, 44, 512),
+                (512, 256, 3, 3, 500, 256, 1 << 17),
+                (512, 256, 3, 3, 500, 256, 1 << 16)]
+
+
+@pytest.mark.parametrize("case", SPLICE_CASES)
+def test_fused_splice_join_matches_plain(dev, case):
+    from repro_torch.core import join
+    NP, NC, p_col, c_col, p_count, c_count, cap = case
+    r = np.random.default_rng(NP + cap)
+    P = torch.from_numpy(_simple_rows(r, NP, p_col + 2, 400)).to(dev)
+    C = torch.from_numpy(_simple_rows(r, NC, c_col + 1, 400)).to(dev)
+    kw = dict(p_col=p_col, c_col=c_col, out_cap=cap,
+              out_width=p_col + c_col + 3)
+    args = (P, torch.tensor(p_count, device=dev), C,
+            torch.tensor(c_count, device=dev))
+    _equal(join.cross_join_cuda(*args, **kw), join.cross_join_ref(*args, **kw))
+
+
+def test_engine_on_card_runs_the_fused_passes_only(dev, monkeypatch):
+    """Every level and join of the engine on the card is a fused launch,
+    no CUDA tensor reaches a plain version, and the answers equal the
+    CPU's."""
+    from repro_torch.core import (EngineConfig, PathQuery, PathSession,
+                                  enumerate as enum, generators, join)
+    from repro_torch.kernels import reset_launches
+
+    def refuse_cuda(fn):
+        def plain(*args, **kw):
+            assert not any(isinstance(a, torch.Tensor) and a.is_cuda
+                           for a in args), f"{fn.__name__} on the card"
+            return fn(*args, **kw)
+        return plain
+
+    g = generators.community(3000, n_comm=6, avg_deg=6.0, seed=3)
+    base = generators.similar_queries(g, 12, similarity=0.8, k_range=(5, 6),
+                                      seed=4)
+    qs = [PathQuery(s, t, k) for s, t, k in base]
+    qs += [PathQuery(s, t, k, output="count") for s, t, k in base[:4]]
+    on_cpu = PathSession(g, EngineConfig(), device="cpu").run(qs)
+    for mod, name in ((enum, "expand_level_ref"), (join, "keyed_join_ref"),
+                      (join, "keyed_join_count_ref"),
+                      (join, "cross_join_ref")):
+        monkeypatch.setattr(mod, name, refuse_cuda(getattr(mod, name)))
+    reset_launches()
+    on_card = PathSession(g, EngineConfig(), device="cuda").run(qs)
+    assert LAUNCHES["level_fused"] == LAUNCHES["path_member"] > 0
+    assert LAUNCHES["join_fused"] == LAUNCHES["rowwise_overlap"] > 0
+    for q, a, b in zip(qs, on_card, on_cpu):
+        assert a.count == b.count
+        if q.output.value == "paths":
+            assert np.array_equal(a.paths, b.paths)
