@@ -32,13 +32,21 @@ Phases, each printing one JSON line (``"phase": ...``):
                level and joins that carry them). In every engine phase
                each ``path_member`` launch is a fused level and each
                ``rowwise_overlap`` launch a fused join
-               (``LAUNCHES["level_fused"]``, ``["join_fused"]``).
+               (``LAUNCHES["level_fused"]``, ``["join_fused"]``), and the
+               similarity stage launches ``gamma_pack`` and
+               ``pairwise_popcount`` once per direction. The recorded run
+               is repeated with the index and similarity stages on the
+               plain versions of their kernels (``msbfs_step_ref``;
+               ``gamma_pack_ref`` + ``intersections``): the distances, μ,
+               the clusters, the Ψ plans and every path set must be equal.
 5. sharing  -- a second batch on the same graph, 64 overlapping queries
                (``similar_queries``, similarity 0.8, k in 7..8), whose
                shared HC-s path queries and splice joins are what the
                paper is about and whose frontiers outgrow ``min_cap``:
                launches counted, oracle and BASIC checks, then a wrapped
-               run that keeps the heaviest join-kernel inputs. Then a
+               run that keeps the heaviest join-kernel inputs, checked
+               against the plain index and similarity stages as in phase
+               4. Then a
                card-only ``torch.profiler`` window over one warm BATCH
                run (device busy share, device events per level and per
                join, copies to the host) and over one expand level, one
@@ -119,7 +127,10 @@ Phases, each printing one JSON line (``"phase": ...``):
 11. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-12. kernels -- each kernel again on the inputs of its heaviest call in the
+12. kernels -- first a card-only ``torch.profiler`` window over one
+               ``similarity_matrix`` call of the main batch (device time
+               by kernel name against the call's host wall). Then each
+               kernel again on the inputs of its heaviest call in the
                main path (and, for the join kernels, in the sharing
                batch; for ``msbfs_step`` also the W = 1 sweep of phase
                ``delta``; for ``ell_spmm`` also two synthetic shapes on
@@ -163,7 +174,18 @@ Phases, each printing one JSON line (``"phase": ...``):
                join, and the counting join on each keyed join's inputs),
                equal to their plain compositions on every output, timed
                alone, as 50 calls in one CUDA graph and beside the plain
-               composition, bound by bytes.
+               composition, bound by bytes. ``msbfs_step``,
+               ``gamma_pack`` and ``pairwise_popcount`` are
+               also timed as 50 calls in one CUDA graph (``device_ms``;
+               each ``msbfs_step`` call restores visited from a saved copy
+               first, and the copies' own graph time is subtracted), and
+               ``msbfs_step`` so on every level of the main batch's index
+               build (``levels``: per hop and summed).
+               ``pairwise_popcount``'s library calls are three exact
+               products of the unpacked Γ, each required equal to the
+               kernel: float32 (TF32 off), bf16 with float32 output
+               (reduced-precision reduction off) and ``torch._int_mm`` on
+               int8; ``library_ms`` is the fastest.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -203,6 +225,9 @@ KERNEL_ROWS = {
                    "src/repro/kernels/msbfs_expand/kernel.py:95"),
     "pairwise_popcount": ("src/repro_torch/csrc/pairwise_popcount.cu",
                           "src/repro/kernels/pairwise_popcount/kernel.py:39"),
+    # the packing of Γ that feeds pairwise_popcount_pallas on the TPU path
+    "gamma_pack": ("src/repro_torch/csrc/pairwise_popcount.cu",
+                   "src/repro/kernels/pairwise_popcount/ops.py:15"),
     "path_member": ("src/repro_torch/csrc/path_join.cu",
                     "src/repro/kernels/path_join/kernel.py:109"),
     "rowwise_overlap": ("src/repro_torch/csrc/path_join.cu",
@@ -229,8 +254,10 @@ FUSED = {"level_fused": "path_member", "join_fused": "rowwise_overlap"}
 FUSED_LAUNCH_BUDGET = 3
 # the kernels of the first slice's path (plan_caps=False), which phases 4
 # and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
-FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "path_member",
-               "rowwise_overlap")
+FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "gamma_pack",
+               "path_member", "rowwise_overlap")
+# the similarity stage's launches per batch: one of each per direction
+SIMILARITY_LAUNCHES = 2
 # the planners phase 6 drives with the default configuration
 PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
 # the kernels of the ops API, which phase 9 drives
@@ -315,12 +342,14 @@ def popcount_total(torch, words) -> int:
 
 class Recorder:
     """Wraps one kernel wrapper in its module while active; keeps a copy
-    of the inputs of the heaviest call (by ``work``)."""
+    of the inputs of the heaviest call (by ``work``), and with
+    ``keep_all`` of every call in order (``calls``)."""
 
-    def __init__(self, module, fn_name: str, work):
+    def __init__(self, module, fn_name: str, work, keep_all: bool = False):
         self.module, self.fn_name, self.work = module, fn_name, work
         self.fn = getattr(module, fn_name)
         self.best, self.best_work = None, -1
+        self.keep_all, self.calls = keep_all, []
 
     def __call__(self, *args):
         import torch
@@ -330,6 +359,8 @@ class Recorder:
         w = self.work(saved, out)
         if w > self.best_work:
             self.best, self.best_work = saved, w
+        if self.keep_all:
+            self.calls.append(saved)
         return out
 
     def __enter__(self):
@@ -441,6 +472,15 @@ def join_halves(rec: dict):
                                                kw["b_col"], cap)
     return (a.verts[a_pos][:, :kw["a_col"] + 1],
             b_verts[b_idx][:, :kw["b_col"] + 1])
+
+
+def require_similarity(launches: dict, what: str) -> None:
+    """The similarity stage ran on its two kernels, once per direction."""
+    require(launches["gamma_pack"] == launches["pairwise_popcount"]
+            == SIMILARITY_LAUNCHES,
+            f"{what}: {launches['gamma_pack']} gamma_pack and "
+            f"{launches['pairwise_popcount']} pairwise_popcount launches, "
+            f"{SIMILARITY_LAUNCHES} of each expected")
 
 
 def require_fused(launches: dict, what: str) -> None:
@@ -588,12 +628,16 @@ def make_recorders(torch, names) -> dict:
     from repro_torch.kernels.msbfs_expand import ops as mops
     from repro_torch.kernels.pairwise_popcount import ops as pops
     makers = {
+        # every level: phase kernels times a whole index build's levels
         "msbfs_step": lambda: Recorder(
             mops, "msbfs_step_cuda",
-            lambda a, out: popcount_total(torch, out)),
+            lambda a, out: popcount_total(torch, out), keep_all=True),
         "pairwise_popcount": lambda: Recorder(
             pops, "pairwise_popcount_cuda",
             lambda a, out: a[0].shape[0] ** 2 * a[0].shape[1]),
+        "gamma_pack": lambda: Recorder(
+            pops, "gamma_pack_cuda",
+            lambda a, out: a[0].shape[0] * a[0].shape[1] * a[1].shape[0]),
         # the engine runs these two inside its fused level and joins
         "path_member": level_recorder,
         "rowwise_overlap": JoinKernelRecorder,
@@ -634,6 +678,7 @@ def phase_main(torch, g, queries):
     launches = dict(LAUNCHES)
     require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the main path never launched: {launches}")
+    require_similarity(launches, "main")
     require_fused(launches, "main")
 
     warm = []
@@ -656,9 +701,13 @@ def phase_main(torch, g, queries):
     check_same(queries, cold, basic)
 
     recorders = make_recorders(torch, FIRST_SLICE)
-    with recording(recorders):
+    with recording(recorders), stage_log() as klog:
         rec = session.run(queries, planner="batch")
     require([r.count for r in rec] == counts, "recorded run differs")
+    plain_stages_check = check_plain_stages(torch, session, queries, klog,
+                                            rec, "main")
+    from repro_torch.core.index import build_index
+    index = build_index(dg, queries)      # for phase kernels' profile
 
     emit({"phase": "main", "device_graph": {
               "ell_cap": dg.ell_cap, "r_ell_cap": dg.r_ell_cap},
@@ -676,8 +725,9 @@ def phase_main(torch, g, queries):
           "basic_equal": True, "t_basic_s": t_basic,
           "basic_stats": {k: basic.stats[k] for k in
                           ("t_build_index", "t_enumerate", "t_wall_s")},
-          "basic_launches": basic_launches})
-    return session, recorders, launches, cold
+          "basic_launches": basic_launches,
+          "plain_stages": plain_stages_check})
+    return session, recorders, launches, cold, index
 
 
 def phase_sharing(torch, g, session, nq: int):
@@ -695,6 +745,7 @@ def phase_sharing(torch, g, session, nq: int):
     launches = dict(LAUNCHES)
     require(all(launches[k] > 0 for k in FIRST_SLICE),
             f"a kernel of the sharing batch never launched: {launches}")
+    require_similarity(launches, "sharing")
     require_fused(launches, "sharing")
     require(rep.stats["n_shared"] > 0, "the sharing batch shared nothing")
     counts = [r.count for r in rep]
@@ -707,9 +758,11 @@ def phase_sharing(torch, g, session, nq: int):
     joins = ("path_member", "rowwise_overlap")
     recorders = make_recorders(torch, joins)
     join_rec = join_recorders()
-    with recording(recorders), recording(join_rec):
+    with recording(recorders), recording(join_rec), stage_log() as klog:
         rec = session.run(queries, planner="batch")
     require([r.count for r in rec] == counts, "recorded run differs")
+    plain_stages_check = check_plain_stages(torch, session, queries, klog,
+                                            rec, "sharing")
     require(all(r.best is not None for r in join_rec.values()),
             "the sharing batch ran no splice or no keyed join")
     rows = {k: recorders[k].rows() for k in joins}
@@ -732,7 +785,8 @@ def phase_sharing(torch, g, session, nq: int):
                                  "count": r.best["count"]}
                              for k, r in join_rec.items()},
           "oracle_checked": n_oracle, "t_oracle_s": t_oracle,
-          "basic_equal": True, "t_basic_s": t_basic, "profile": profile})
+          "basic_equal": True, "t_basic_s": t_basic, "profile": profile,
+          "plain_stages": plain_stages_check})
     return recorders, join_rec, launches, queries, rep
 
 
@@ -745,19 +799,34 @@ def device_kind(name: str) -> str:
             "memset" if "memset" in low else "kernel")
 
 
+# windows traced again when the profiler hands back no device event at all
+# (on the H100 a short window, run after other windows, sometimes came
+# back empty although its kernels ran; an empty trace is no trace)
+TRACE_TRIES = 3
+
+
 def trace_device(torch, fn) -> tuple[list, float]:
     """``fn()`` under ``torch.profiler`` tracing the card only: the device
     events as (name, microseconds) and the host wall (synchronized at both
-    ends), in seconds."""
+    ends), in seconds. A window with no device event is run again, at
+    most ``TRACE_TRIES`` times in all. The launch counts are set to 0
+    before each try, so on return they are those of the window whose
+    events come back."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    from repro_torch.kernels import reset_launches
+    for _ in range(TRACE_TRIES):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     return events, wall
 
 
@@ -798,9 +867,8 @@ def profile_batch(torch, session, queries, recorders=None) -> dict:
     from repro_torch.core import enumerate as enum
     from repro_torch.core import join
     from repro_torch.core.pathset import read_status
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES
 
-    reset_launches()
     events, wall = trace_device(
         torch, lambda: session.run(queries, planner="batch"))
     levels, joins = LAUNCHES["level_fused"], LAUNCHES["join_fused"]
@@ -850,6 +918,143 @@ def profile_batch(torch, session, queries, recorders=None) -> dict:
         if what != "keyed_join":
             require(not n["other"], f"{what}: other kernels launched: {n}")
     return out
+
+
+SIMILARITY_CALLS = 5          # calls in the similarity profile's window
+
+
+def profile_similarity(torch, index) -> dict:
+    """A card-only profiler window over ``SIMILARITY_CALLS`` calls of
+    ``similarity_matrix`` on the main batch's index (built outside the
+    window), after the marker kernel: device time per call by kernel name
+    against the host wall per call, which ends in the copy of both (Q, Q)
+    matrices to the host."""
+    from repro_torch.core.similarity import similarity_matrix
+    from repro_torch.kernels import LAUNCHES
+    mu = similarity_matrix(index)                    # warm
+    t0 = time.perf_counter()
+    for _ in range(SIMILARITY_CALLS):
+        similarity_matrix(index)
+    torch.cuda.synchronize()
+    wall_unprofiled = (time.perf_counter() - t0) / SIMILARITY_CALLS
+
+    def calls():
+        torch.cuda._sleep(10000)
+        torch.cuda.synchronize()
+        for _ in range(SIMILARITY_CALLS):
+            similarity_matrix(index)
+    events, wall = trace_device(torch, calls)
+    require(LAUNCHES["gamma_pack"] == LAUNCHES["pairwise_popcount"]
+            == SIMILARITY_LAUNCHES * SIMILARITY_CALLS,
+            f"similarity_matrix, profiled: {LAUNCHES}")
+    by_name = {}
+    for name, us in events:
+        if MARKER in name:
+            continue
+        short = name.split("(")[0][-80:]
+        by_name[short] = by_name.get(short, 0.0) + us / SIMILARITY_CALLS
+    kernels = {k: v for k, v in by_name.items() if device_kind(k) == "kernel"}
+    require("gamma_pack_kernel" in kernels
+            and "pairwise_popcount_kernel" in kernels,
+            f"the similarity profile misses a kernel: {sorted(by_name)}")
+    device_us = sum(by_name.values())
+    return {"calls": SIMILARITY_CALLS,
+            "wall_ms": wall_unprofiled * 1e3,
+            "profiled_wall_ms": wall * 1e3 / SIMILARITY_CALLS,
+            "device_ms": device_us / 1e3,
+            "device_busy_share": device_us / 1e3
+            / (wall * 1e3 / SIMILARITY_CALLS),
+            "device_us_by_name": dict(sorted(by_name.items(),
+                                             key=lambda kv: -kv[1])),
+            "Q": len(index.queries), "Su": index.dist_s.shape[1],
+            "Tu": index.dist_t.shape[1], "mu_mean": float(mu.mean())}
+
+
+class OutputLog:
+    """Wraps functions of a module while active and keeps every result."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.fns = {n: getattr(module, n) for n in names}
+        self.out = {n: [] for n in names}
+
+    def __enter__(self):
+        for n, fn in self.fns.items():
+            def logged(*args, _fn=fn, _n=n, **kw):
+                res = _fn(*args, **kw)
+                self.out[_n].append(res)
+                return res
+            setattr(self.module, n, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.fns.items():
+            setattr(self.module, n, fn)
+
+
+# what the engine computes from the index and similarity stages' kernels
+STAGE_OUTPUTS = ("build_index", "similarity_matrix", "cluster_queries",
+                 "detect_common_queries")
+
+
+def stage_log():
+    from repro_torch.core import engine
+    return OutputLog(engine, STAGE_OUTPUTS)
+
+
+@contextlib.contextmanager
+def plain_stages():
+    """The index and similarity stages on the plain versions of their
+    kernels (``msbfs_step_ref``; ``gamma_pack_ref`` + ``intersections``),
+    on the card's tensors."""
+    from repro_torch.core import msbfs, similarity
+    from repro_torch.kernels.msbfs_expand import ops as mops
+    from repro_torch.kernels.pairwise_popcount import ops as pops
+    saved = (msbfs.msbfs_step, similarity.gamma_intersections)
+    msbfs.msbfs_step = mops.msbfs_step_ref
+    similarity.gamma_intersections = (
+        lambda dist, col, ks, n: pops.intersections(
+            pops.gamma_pack_ref(dist, col, ks, n)))
+    try:
+        yield
+    finally:
+        msbfs.msbfs_step, similarity.gamma_intersections = saved
+
+
+def check_plain_stages(torch, session, queries, klog, report,
+                       what: str) -> dict:
+    """Run the batch once more with the index and similarity stages on
+    their plain versions; the distances, μ, the clusters, the Ψ plans and
+    every path set must equal the kernels' run (``klog``, ``report``)."""
+    import numpy as np
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    t0 = time.perf_counter()
+    with plain_stages(), stage_log() as plog:
+        plain = session.run(queries, planner="batch")
+    t_plain = time.perf_counter() - t0
+    require(LAUNCHES["msbfs_step"] == LAUNCHES["gamma_pack"]
+            == LAUNCHES["pairwise_popcount"] == 0,
+            f"{what}: the plain stages launched a kernel: {LAUNCHES}")
+    k, p = klog.out, plog.out
+    require(all(len(k[n]) == len(p[n]) > 0 for n in STAGE_OUTPUTS),
+            f"{what}: the stages ran "
+            f"{ {n: (len(k[n]), len(p[n])) for n in STAGE_OUTPUTS} } times")
+    for a, b in zip(k["build_index"], p["build_index"]):
+        require(torch.equal(a.dist_s, b.dist_s)
+                and torch.equal(a.dist_t, b.dist_t),
+                f"{what}: the index distances differ from the plain path")
+    require(all(np.array_equal(a, b) for a, b in
+                zip(k["similarity_matrix"], p["similarity_matrix"])),
+            f"{what}: μ differs from the plain path")
+    require(k["cluster_queries"] == p["cluster_queries"],
+            f"{what}: the clusters differ from the plain path")
+    require(k["detect_common_queries"] == p["detect_common_queries"],
+            f"{what}: the Ψ plans differ from the plain path")
+    check_same(queries, report, plain, f"{what}: kernels and plain stages")
+    return {"equal": True, "t_plain_run_s": t_plain,
+            "clusters": len(k["cluster_queries"][0]),
+            "plans": len(k["detect_common_queries"])}
 
 
 class RetryCounter:
@@ -1876,7 +2081,7 @@ def flash_attention_row(torch, lm) -> dict:
 
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                   share_launches, plan_rec, plan_launches, ops,
-                  w1_rec, lm) -> list[dict]:
+                  w1_rec, lm, main_index) -> list[dict]:
     from repro_torch.core import enumerate as enum
     from repro_torch.core import join
     from repro_torch.kernels.msbfs_expand import ops as mops
@@ -1904,7 +2109,10 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         rows.append(r)
 
     # -- msbfs_step: in place on visited/dist, so each run gets copies;
-    # the main batch's heaviest level, and the delta sweep's (W = 1)
+    # the main batch's heaviest level, and the delta sweep's (W = 1). Its
+    # device_ms: 50 calls in one CUDA graph, each restoring visited from a
+    # saved copy first (dist takes the same bytes again), less 50 copies
+    # alone; so also every level of the recorded index build.
     def msbfs_step(rec):
         ell, fr, vis, dist, hop = rec["msbfs_step"].best
         V, D = ell.shape
@@ -1920,28 +2128,77 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         err = max_abs_err(torch, [(out_k, out_p), (a[2], b[2]),
                                   (a[3], b[3])])
         new_bits = popcount_total(torch, out_k)
+
+        def graphed_ms(l_ell, l_fr, l_vis, l_dist, l_hop):
+            v2, d2 = l_vis.clone(), l_dist.clone()
+
+            def level():
+                v2.copy_(l_vis)
+                mops.msbfs_step_cuda(l_ell, l_fr, v2, d2, l_hop)
+            copy_ms = graph_ms(torch, lambda: v2.copy_(l_vis))
+            return graph_ms(torch, level) - copy_ms, copy_ms
+
+        device_ms, copy_ms = graphed_ms(ell, fr, vis, dist, hop)
+        levels = {"hops": [], "device_ms": []}
+        for call in rec["msbfs_step"].calls:
+            levels["device_ms"].append(graphed_ms(*call)[0])
+            levels["hops"].append(call[4])
+        levels["sum_device_ms"] = sum(levels["device_ms"])
         return ({"V": V, "D": D, "W": W, "hop": hop}, err,
                 cuda_ms(torch, mops.msbfs_step_cuda, fresh),
                 cuda_ms(torch, mops.msbfs_step_ref, fresh),
                 V * D * 4 + (V + 1) * W * 4 * 2 + V * W * 4 * 2 + new_bits,
-                V * W * D / int_rate * 1e3, new_bits)
+                V * W * D / int_rate * 1e3, new_bits,
+                {"device_ms": device_ms,
+                 "device_ms_launches": ATTN_GRAPH_LAUNCHES,
+                 "restore_copy_device_ms": copy_ms,
+                 "words_with_new_bits": int(torch.count_nonzero(out_k)),
+                 "levels": levels})
 
-    shape2, err2, ms2, plain2, nbytes2, t_ops2, bits2 = msbfs_step(w1_rec)
+    shape2, err2, ms2, plain2, nbytes2, t_ops2, bits2, x2 = \
+        msbfs_step(w1_rec)
     require(err2 == 0, "msbfs_step disagrees with its plain version on the "
                        "delta sweep")
-    shape, err, ms, plain_ms, nbytes, t_ops, new_bits = msbfs_step(main_rec)
+    shape, err, ms, plain_ms, nbytes, t_ops, new_bits, x = \
+        msbfs_step(main_rec)
     row("msbfs_step", shape, err, ms, plain_ms, nbytes=nbytes,
-        t_ops_ms=t_ops, new_bits=new_bits,
+        t_ops_ms=t_ops, new_bits=new_bits, **x,
         delta_sweep={"shape": shape2, "max_abs_err": err2, "ms": ms2,
-                     "plain_ms": plain2, "new_bits": bits2,
+                     "plain_ms": plain2, "new_bits": bits2, **x2,
                      **bound(nbytes2, t_ops2)})
+
+    # -- the similarity stage of the main batch under the profiler
+    emit({"phase": "similarity_profile",
+          **profile_similarity(torch, main_index)})
+
+    # -- gamma_pack: the heaviest call of the main batch (a direction's
+    # (n+1, Su) distances); reads the distances once, writes the words
+    dist, col, ks, n = main_rec["gamma_pack"].best
+    Q, Su = col.shape[0], dist.shape[1]
+    k_out = pops.gamma_pack_cuda(dist, col, ks, n)
+    p_out = pops.gamma_pack_ref(dist, col, ks, n)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [(k_out, p_out)])
+    row("gamma_pack", {"n": n, "Su": Su, "Q": Q}, err,
+        cuda_ms(torch, pops.gamma_pack_cuda, lambda: (dist, col, ks, n)),
+        cuda_ms(torch, pops.gamma_pack_ref, lambda: (dist, col, ks, n)),
+        nbytes=n * Su + Q * 5 + k_out.numel() * 4,
+        t_ops_ms=n * Q / int_rate * 1e3,
+        device_ms=graph_ms(torch, lambda: pops.gamma_pack_cuda(
+            dist, col, ks, n)),
+        device_ms_launches=ATTN_GRAPH_LAUNCHES,
+        plain="gamma_bits + pack_bits (eager PyTorch): the main path's "
+              "packing before this kernel")
 
     # -- pairwise_popcount: out is symmetric, so the function needs the
     # Q(Q+1)/2 pairs i <= j only. Two units can do that work: the CUDA
-    # cores' popc (what the kernel uses; rate: the larger of the
-    # programming guide's and the measured one) and the tensor cores'
-    # 1-bit AND+popc MMA (measured; no rate is published for the H100).
-    # The bound takes the faster.
+    # cores' popc (rate: the larger of the programming guide's and the
+    # measured one) and the tensor cores' 1-bit AND+popc MMA (what the
+    # kernel uses; measured, no rate is published for the H100). The bound
+    # takes the faster. Library calls on the unpacked (Q, 32*W) Γ, each
+    # exact (counts below 2**24; bf16 and int8 hold 0 and 1 exactly and
+    # accumulate in float32 and int32), each held equal to the kernel;
+    # library_ms is the fastest.
     (words,) = main_rec["pairwise_popcount"].best
     Q, W = words.shape
     k_out = pops.pairwise_popcount_cuda(words)
@@ -1949,9 +2206,25 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     torch.cuda.synchronize()
     err = max_abs_err(torch, [(k_out, p_out)])
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
-    gam = mops.unpack_bits(words, W * 32).float()
-    lib = (gam @ gam.T).to(torch.int32)
-    require(torch.equal(lib, k_out), "float32 matmul disagrees")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    gam = mops.unpack_bits(words, W * 32)
+    g32, g16, g8 = gam.float(), gam.bfloat16(), gam.to(torch.int8)
+    del gam
+    library = {
+        "float32 gam @ gam.T (TF32 off)": (lambda g: g @ g.T, g32),
+        "bf16 torch.mm(gam, gam.T, out_dtype=float32) (reduced-precision "
+        "reduction off)": (lambda g: torch.mm(g, g.T,
+                                              out_dtype=torch.float32), g16),
+        "torch._int_mm(gam, gam.T) on int8": (
+            lambda g: torch._int_mm(g, g.T), g8)}
+    library_ms = {}
+    for name, (fn, g) in library.items():
+        require(torch.equal(fn(g).to(torch.int32), k_out),
+                f"{name} disagrees with pairwise_popcount")
+        library_ms[name] = cuda_ms(torch, fn, lambda g=g: (g,))
+    fastest = min(library_ms, key=library_ms.get)
+    del g32, g16, g8, library
     pairs = Q * (Q + 1) // 2
     popc_rate = max(POPC_PER_CLK_SM * dev_info["sms"] * clock_hz,
                     peaks["popc_per_s"])
@@ -1961,13 +2234,13 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         cuda_ms(torch, pops.pairwise_popcount_cuda, lambda: (words,)),
         cuda_ms(torch, pops.intersections, lambda: (words,)),
         nbytes=Q * W * 4 + Q * Q * 4, t_ops_ms=min(t_popc, t_b1),
-        library_ms=cuda_ms(torch, lambda g: g @ g.T, lambda: (gam,)),
-        library_call="float32 gam @ gam.T over the unpacked (Q, 32*W) "
-                     "Gamma, TF32 off",
+        library_ms=library_ms[fastest], library_call=fastest,
+        library_ms_each=library_ms,
+        device_ms=graph_ms(torch, lambda: pops.pairwise_popcount_cuda(words)),
+        device_ms_launches=ATTN_GRAPH_LAUNCHES,
         ops={"pairs": pairs, "popc": pairs * W, "bit_pairs": pairs * W * 32},
         t_ops_popc_ms=t_popc, t_ops_b1_mma_ms=t_b1,
         popc_per_s=popc_rate, b1_bit_pairs_per_s=peaks["b1_bit_pairs_per_s"])
-    del gam
 
     # -- path_member / rowwise_overlap on their own: the engine runs them
     # inside its fused level and joins, so their inputs are derived from
@@ -2252,7 +2525,8 @@ def main(argv=None) -> int:
     dev_info = phase_device(torch)
     phase_build()
     g, queries = phase_workload(args.n, args.queries)
-    session, main_rec, launches, main_report = phase_main(torch, g, queries)
+    session, main_rec, launches, main_report, main_index = phase_main(
+        torch, g, queries)
     share_rec, join_rec, share_launches, share_queries, share_report = \
         phase_sharing(torch, g, session, args.sharing_queries)
     plan_rec, plan_launches = phase_planners(
@@ -2269,7 +2543,7 @@ def main(argv=None) -> int:
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,
-                         ops, w1_rec, lm)
+                         ops, w1_rec, lm, main_index)
     emit({"phase": "done", "t_total_s": time.perf_counter() - t_start})
     print(dev_info["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -2,9 +2,12 @@
 
 Counterpart of the kernel route of ``repro/core/similarity.py``. Γ(q) /
 Γ_r(q) are by-products of the index BFS: a vertex is in Γ(q) iff
-dist(q.s, v) <= q.k. They are materialized as boolean rows, packed into
-words, and the all-pairs intersection sizes come from the
-``pairwise_popcount`` kernel (two launches per batch: Γ and Γ_r).
+dist(q.s, v) <= q.k. On the card they go straight from the index's int8
+distances to packed words (``gamma_pack``) and the all-pairs intersection
+sizes come from ``pairwise_popcount`` (one launch of each per direction,
+two per batch); on the CPU the plain composition builds the boolean rows
+and packs them. The Γ sizes are the diagonal of the intersections
+(|Γ ∩ Γ| = |Γ|), and both (Q, Q) matrices reach the host in one copy.
 
 μ is the arithmetic mean of the two directional overlap coefficients
 i = |Γ_A ∩ Γ_B| / min(|Γ_A|, |Γ_B|), computed on the host in float64 from
@@ -16,30 +19,31 @@ import numpy as np
 import torch
 
 from .index import QueryIndex
-from ..kernels.pairwise_popcount.ops import pairwise_intersections
+from ..kernels.pairwise_popcount.ops import gamma_intersections
 
-__all__ = ["gamma_matrix", "similarity_matrix"]
+__all__ = ["gamma_inputs", "similarity_matrix"]
 
 
-def gamma_matrix(index: QueryIndex, reverse: bool = False) -> torch.Tensor:
-    """(Q, n) bool -- Γ_r if reverse else Γ."""
+def gamma_inputs(index: QueryIndex, reverse: bool = False):
+    """``(dist, col, ks)`` of Γ_r if reverse else Γ, on the index's device:
+    the (n+1, Su) int8 distances, each query's (Q,) int32 column in them
+    and its (Q,) int8 hop budget."""
     dist = index.dist_t if reverse else index.dist_s
-    col = index.tgt_col if reverse else index.src_col
+    col = torch.as_tensor(index.tgt_col if reverse else index.src_col,
+                          dtype=torch.int32, device=dist.device)
     ks = torch.as_tensor(np.array([q[2] for q in index.queries], np.int8),
                          device=dist.device)
-    cols = dist[:-1, torch.as_tensor(col, dtype=torch.int64,
-                                     device=dist.device)]    # (n, Q)
-    return (cols <= ks[None, :]).T
+    return dist, col, ks
 
 
 def similarity_matrix(index: QueryIndex) -> np.ndarray:
     """(Q, Q) float64 μ matrix on host (diagonal = 1)."""
-    gf = gamma_matrix(index, reverse=False)
-    gr = gamma_matrix(index, reverse=True)
-    inter_f = pairwise_intersections(gf).cpu().numpy()
-    inter_r = pairwise_intersections(gr).cpu().numpy()
-    size_f = gf.sum(1).cpu().numpy().astype(np.int64)
-    size_r = gr.sum(1).cpu().numpy().astype(np.int64)
+    n = index.dist_s.shape[0] - 1
+    inter_f, inter_r = torch.stack([
+        gamma_intersections(*gamma_inputs(index, reverse), n)
+        for reverse in (False, True)]).cpu().numpy()
+    size_f = np.diagonal(inter_f).astype(np.int64)
+    size_r = np.diagonal(inter_r).astype(np.int64)
 
     def overlap(inter, size):
         mins = np.minimum(size[:, None], size[None, :]).astype(np.float64)

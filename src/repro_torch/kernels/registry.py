@@ -33,7 +33,7 @@ __all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
 # the hand-written kernels; each wrapper adds one to its LAUNCHES entry
 # where it launches its kernel, and nowhere else, so a run can show that
 # the main path went through the kernels
-KERNELS = ("msbfs_step", "pairwise_popcount", "path_member",
+KERNELS = ("msbfs_step", "pairwise_popcount", "gamma_pack", "path_member",
            "rowwise_overlap", "ell_spmm", "msbfs_expand", "path_overlap",
            "flash_attention")
 # the routes of flash_attention (``attn_`` and a name of its ops.ROUTES;

@@ -33,7 +33,8 @@ from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
     msbfs_expand_cuda, msbfs_expand_ref, msbfs_hop_packed, msbfs_step_cuda,
     msbfs_step_ref, pack_bits)
 from repro_torch.kernels.pairwise_popcount.ops import (  # noqa: E402
-    intersections, pairwise_popcount_cuda)
+    gamma_intersections, gamma_pack_cuda, gamma_pack_ref, intersections,
+    pairwise_popcount_cuda)
 from repro_torch.kernels.path_join.ops import (  # noqa: E402
     keyed_join_valid, path_member_cuda, path_member_ref, path_overlap_cuda,
     path_overlap_ref, rowwise_overlap_cuda, rowwise_overlap_ref,
@@ -89,6 +90,87 @@ def test_msbfs_step_empty_frontier_and_zero_dims(dev):
     assert not out.any() and not vis.any() and bool((dist == 7).all())
     out0 = msbfs_step_cuda(ell[:0], fr[:1], vis[:0], dist[:0], 1)
     assert out0.shape == (1, W) and not out0.any()
+
+
+@pytest.mark.parametrize("W", [1, 2, 8, 9, 40])
+@pytest.mark.parametrize("D", [1, 5, 33, 64])
+def test_msbfs_step_warp_level_cases(dev, D, W):
+    # all-pad rows, rows whose visited words are all ones (skipped), rows
+    # saturated in some words only, a dense frontier and hop 127
+    V = 3000
+    r = np.random.default_rng(D * 100 + W)
+    ell = torch.from_numpy(_ell(r, V, D, 0.5)).to(dev)
+    ell[:7] = V
+    fr = torch.from_numpy(r.integers(-2**31, 2**31, size=(V + 1, W),
+                                     dtype=np.int64).astype(np.int32)).to(dev)
+    fr &= torch.from_numpy(r.integers(-2**31, 2**31, size=(V + 1, W),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    fr[V] = 0
+    vis = torch.from_numpy(r.integers(-2**31, 2**31, size=(V, W),
+                                      dtype=np.int64).astype(np.int32)).to(dev)
+    vis[7:40] = -1                                       # reached from all
+    vis[40:60, 0] = -1                                   # one word full
+    ell[7:20, 0] = 100                                   # full, not pads
+    dist = torch.from_numpy(r.integers(-5, 120, size=(V, W * 32))
+                            .astype(np.int8)).to(dev)
+    vis_k, dist_k = vis.clone(), dist.clone()
+    n0 = LAUNCHES["msbfs_step"]
+    out_k = msbfs_step_cuda(ell, fr, vis_k, dist_k, 127)
+    out_r = msbfs_step_ref(ell, fr, vis, dist, 127)
+    torch.cuda.synchronize()
+    assert LAUNCHES["msbfs_step"] == n0 + 1
+    assert torch.equal(out_k, out_r)
+    assert torch.equal(vis_k, vis)
+    assert torch.equal(dist_k, dist)
+    assert not out_k[V].any() and not out_k[7:40].any()
+
+
+def test_msbfs_step_in_a_cuda_graph_restoring_visited(dev):
+    # chip_smoke.py's device_ms: each captured call restores visited first
+    V, D, S = 1 << 16, 32, 256
+    r = np.random.default_rng(21)
+    ell = torch.from_numpy(_ell(r, V, D, 0.75)).to(dev)
+    fr = pack_bits(torch.from_numpy(r.random((V + 1, S)) < 0.02).to(dev))
+    fr[V] = 0
+    vis0 = pack_bits(torch.from_numpy(r.random((V, S)) < 0.05).to(dev))
+    dist = torch.full((V, S), 9, dtype=torch.int8, device=dev)
+    vis_r, dist_r = vis0.clone(), dist.clone()
+    want = msbfs_step_ref(ell, fr, vis_r, dist_r, 4)
+    vis = vis0.clone()
+    msbfs_step_cuda(ell, fr, vis, dist, 4)             # warm, off the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = []
+        for _ in range(20):
+            vis.copy_(vis0)
+            outs.append(msbfs_step_cuda(ell, fr, vis, dist, 4))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert torch.equal(vis, vis_r) and torch.equal(dist, dist_r)
+
+
+def test_msbfs_sweeps_on_card_match_cpu(dev):
+    from repro_torch.core import generators
+    from repro_torch.core.graph import DeviceGraph
+    from repro_torch.core.msbfs import msbfs_dist_ell, msbfs_set_dist_ell
+    g = generators.community(20_000, n_comm=8, avg_deg=8.0, seed=8)
+    card, cpu = DeviceGraph.build(g, "cuda"), DeviceGraph.build(g, "cpu")
+    srcs = torch.from_numpy(np.random.default_rng(9).choice(
+        g.n, 300, replace=False))
+    seed = torch.zeros(g.n + 1, dtype=torch.int8)
+    seed[srcs[:50]] = 1
+    for table in ("ell_idx", "r_ell_idx"):
+        n0 = LAUNCHES["msbfs_step"]
+        got = msbfs_dist_ell(getattr(card, table), srcs, n=g.n, k_max=6)
+        assert LAUNCHES["msbfs_step"] == n0 + 6
+        want = msbfs_dist_ell(getattr(cpu, table), srcs, n=g.n, k_max=6)
+        assert torch.equal(got.cpu(), want)
+        got = msbfs_set_dist_ell(getattr(card, table), seed.to(dev), n=g.n,
+                                 k_max=8)
+        want = msbfs_set_dist_ell(getattr(cpu, table), seed, n=g.n, k_max=8)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("V,D,W", [(1 << 20, 32, 8), (1 << 20, 32, 1),
@@ -202,14 +284,121 @@ def test_engine_deltas_on_card_match_cpu(dev):
             assert np.array_equal(x.paths, y.paths)
 
 
-@pytest.mark.parametrize("Q,W", [(256, 1 << 15), (17, 100), (1, 1), (5, 0),
-                                 (0, 4)])
+def _popcounts(words):
+    from repro_torch.kernels.pairwise_popcount.ops import popcount32
+    return popcount32(words.to(torch.int64) & 0xFFFFFFFF).sum(1)
+
+
+@pytest.mark.parametrize("Q,W", [(256, 1 << 15), (16, 8), (255, 9), (300, 7),
+                                 (33, (1 << 15) + 3), (17, 100), (1, 1),
+                                 (5, 0), (0, 4), (0, 0)])
 def test_pairwise_popcount_matches_plain(dev, Q, W):
     r = np.random.default_rng(Q * 7 + W)
     words = torch.from_numpy(
         r.integers(-2**31, 2**31, size=(Q, W), dtype=np.int64)
         .astype(np.int32)).to(dev)
-    assert torch.equal(pairwise_popcount_cuda(words), intersections(words))
+    n0 = LAUNCHES["pairwise_popcount"]
+    got = pairwise_popcount_cuda(words)
+    assert LAUNCHES["pairwise_popcount"] == n0 + (Q > 0 and W > 0)
+    assert torch.equal(got, intersections(words))
+    assert torch.equal(got, got.T)
+    assert torch.equal(torch.diagonal(got).long(), _popcounts(words))
+
+
+def test_pairwise_popcount_all_ones_rows_reach_2_20(dev):
+    Q, W = 200, 1 << 15
+    r = np.random.default_rng(11)
+    words = torch.from_numpy(
+        r.integers(-2**31, 2**31, size=(Q, W), dtype=np.int64)
+        .astype(np.int32)).to(dev)
+    words[::3] = -1                                     # all 32 bits set
+    got = pairwise_popcount_cuda(words)
+    assert torch.equal(got, intersections(words))
+    assert int(got[0, 3]) == int(got[0, 0]) == 1 << 20
+    assert torch.equal(got, got.T)
+    assert torch.equal(torch.diagonal(got).long(), _popcounts(words))
+
+
+def test_pairwise_popcount_in_a_cuda_graph(dev):
+    # the split-K zeroing is a memset inside the call: 50 captured calls
+    # replay to the same exact result
+    r = np.random.default_rng(12)
+    words = torch.from_numpy(
+        r.integers(-2**31, 2**31, size=(256, 1 << 15), dtype=np.int64)
+        .astype(np.int32)).to(dev)
+    want = intersections(words)
+    pairwise_popcount_cuda(words)                      # warm, off the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [pairwise_popcount_cuda(words) for _ in range(50)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+
+
+def _gamma_inputs(dev, n, Su, Q, seed, *, inf=7):
+    r = np.random.default_rng(seed)
+    dist = r.integers(0, inf + 1, size=(n + 1, Su)).astype(np.int8)
+    dist[r.random((n + 1, Su)) < 0.4] = inf
+    dist[n] = inf
+    col = r.integers(0, Su, Q).astype(np.int32)
+    col[: min(Q, Su)] = np.arange(min(Q, Su))            # every column used
+    ks = r.integers(0, inf, Q).astype(np.int8)
+    ks[:2] = 0
+    return (torch.from_numpy(dist).to(dev), torch.from_numpy(col).to(dev),
+            torch.from_numpy(ks).to(dev))
+
+
+@pytest.mark.parametrize("n,Su,Q", [(1 << 20, 256, 256), (1000, 7, 12),
+                                    (1000, 8, 8), (70_001, 255, 300),
+                                    (5000, 300, 310), (31, 3, 5), (1, 1, 1),
+                                    (513, 4, 2)])
+def test_gamma_pack_matches_plain(dev, n, Su, Q):
+    dist, col, ks = _gamma_inputs(dev, n, Su, Q, seed=n + Su + Q)
+    n0 = LAUNCHES["gamma_pack"]
+    got = gamma_pack_cuda(dist, col, ks, n)
+    assert LAUNCHES["gamma_pack"] == n0 + 1
+    assert torch.equal(got, gamma_pack_ref(dist, col, ks, n))
+    # a view of the first rows (the index's dist[:n] is n+1 rows)
+    assert torch.equal(gamma_pack_cuda(dist[:n], col, ks, n), got)
+
+
+def test_gamma_pack_all_inf_and_zero_budgets(dev):
+    n, Su, Q = 4099, 6, 9
+    dist = torch.full((n + 1, Su), 7, dtype=torch.int8, device=dev)
+    dist[5, 2] = 0                                       # the source itself
+    col = torch.tensor([2, 2, 0, 1, 2, 3, 4, 5, 2], dtype=torch.int32,
+                       device=dev)
+    ks = torch.tensor([0, 6, 0, 0, 3, 6, 6, 6, 7], dtype=torch.int8,
+                      device=dev)
+    got = gamma_pack_cuda(dist, col, ks, n)
+    assert torch.equal(got, gamma_pack_ref(dist, col, ks, n))
+    assert int(got[0, 0]) == 1 << 5 and int(got[8].count_nonzero()) > 100
+
+
+def test_gamma_intersections_on_card_match_cpu(dev):
+    dist, col, ks = _gamma_inputs(dev, 100_003, 61, 70, seed=5)
+    got = gamma_intersections(dist, col, ks, 100_003)
+    want = gamma_intersections(dist.cpu(), col.cpu(), ks.cpu(), 100_003)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_similarity_on_card_matches_cpu(dev):
+    from repro_torch.core import generators
+    from repro_torch.core.graph import DeviceGraph
+    from repro_torch.core.index import build_index
+    from repro_torch.core.similarity import similarity_matrix
+    from repro_torch.kernels import reset_launches
+    g = generators.community(5001, n_comm=4, avg_deg=6.0, seed=6)
+    qs = generators.random_queries(g, 40, k_range=(2, 5), seed=7)
+    qs += [(qs[0][0], qs[1][1], 0), (qs[0][0], qs[2][1], 3)]
+    reset_launches()
+    mu = similarity_matrix(build_index(DeviceGraph.build(g, "cuda"), qs))
+    assert LAUNCHES["gamma_pack"] == LAUNCHES["pairwise_popcount"] == 2
+    ref = similarity_matrix(build_index(DeviceGraph.build(g, "cpu"), qs))
+    assert np.array_equal(mu, ref)
 
 
 @pytest.mark.parametrize("N,L,D", [(200_000, 7, 32), (300, 1, 4), (0, 3, 8)])

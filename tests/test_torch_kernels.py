@@ -365,6 +365,8 @@ def test_explicit_cuda_arm_on_cpu_tensor_raises():
                                    x[:2], torch.zeros((2, 64),
                                                       dtype=torch.int8), 1),
     lambda x: pops.pairwise_popcount_cuda(x),
+    lambda x: pops.gamma_pack_cuda(x.to(torch.int8), x[0],
+                                   x[0].to(torch.int8), 2),
     lambda x: jops.path_member_cuda(x, x),
     lambda x: jops.rowwise_overlap_cuda(x, x),
     lambda x: eops.ell_spmm_cuda(x, torch.zeros((3, 1))),
