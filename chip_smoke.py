@@ -9,10 +9,13 @@ Phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
 and BASIC); phases 6 and 7 the engine's default configuration
 (``EngineConfig()``: walk-count capacity planning on ``ell_spmm``) under
 every planner, and the cross-batch cache; phase 8 incremental graph
-deltas under both ``delta_backend`` values; phase 9 the kernel ops API
-(``msbfs_hop_packed``, ``path_overlap`` and the join-validity matrices);
-phase 10 the transformer's serving path (granite-8b prefill and KV-cache
-decode on the ``flash_attention`` kernel).
+deltas under both ``delta_backend`` values; phase 9 streaming serving
+(``PathSession.submit`` / ``pump`` / ``results`` over the
+``StreamingServer``, driven by exp11's open-loop arrival streams); phase
+10 the kernel ops API (``msbfs_hop_packed``, ``path_overlap`` and the
+join-validity matrices); phase 11 the transformer's serving path
+(granite-8b prefill and KV-cache decode on the ``flash_attention``
+kernel).
 
 Phases, each printing one JSON line (``"phase": ...``):
 
@@ -92,7 +95,39 @@ Phases, each printing one JSON line (``"phase": ...``):
                session's on the new graph, and a few queries the oracle's.
                ``t_apply_s`` is printed beside an ``update_graph`` of the
                same graph.
-9. ops      -- the ops API on the main path's inputs: ``msbfs_hop_packed``
+9. streaming -- exp11's open-loop serving (``benchmarks/exp11_open_loop.py``)
+               on the same graph: ``EngineConfig(min_cap=64,
+               cache_bytes=64 << 20)`` (capacity planning on), planner
+               ``batch``, two replica groups. Admission: micro-batches of
+               4..16, max delay 1.5 quanta, at most 32 waiting, expired
+               deadlines shed, tenants gold / silver / bronze (25 / 35 /
+               40%, weights 4 / 2 / 1, deadlines 4 / 10 / no quanta);
+               sources Zipf-skewed (a = 1.05) over one seeded
+               permutation, k in 3..4, outputs 60% paths, 25% count, 15%
+               exists; half of the targets Zipf-drawn as in exp11 (at
+               2**20 beyond k hops: empty answers), half the end of a
+               random walk of 1..k hops from the source (a path exists); a balanced delta of 4 edges in and 4 out every 24
+               arrivals. A ``ServiceModelClock`` charges c0 + c1 * Q per
+               dispatch (c0, c1 from warm walls at 4 and 16 queries), so
+               admission is deterministic. Levels: Poisson at 0.5x and
+               1.0x and a two-state MMPP at 3.0x the calibrated
+               capacity, 128 arrivals each (exp11's floor; its default is
+               320). Checks: every qid resolves exactly once (OK or a
+               typed SHED), 8 OK path results a level (4 non-empty, 4
+               empty where there are) equal the brute-force oracle on the
+               graph they were answered on, the 3.0x level sheds;
+               ``msbfs_step``, ``gamma_pack``, ``pairwise_popcount``, the
+               fused level and join and ``ell_gather_f1`` launch in each
+               stream (each level, the replay, the failover segment: the
+               counts are set to 0 before each); the 1.0x level
+               runs with the span tracer on (its Chrome export, loaded
+               back, is summarized in the phase line) and is replayed from
+               its start graph with the same batches, sheds, completion
+               times and results; then a failover segment (48 queries,
+               three groups, group 0 dies on its second item): results
+               exactly once, one failover, the cache kept, a revived
+               group serves.
+10. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
                on the frontier of the heaviest ``msbfs_step`` call of the
                main batch, ``path_overlap`` on 4096 x 4096 rows of 6
                vertex ids with -1 pads, ``splice_join_valid`` on the
@@ -100,7 +135,7 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``keyed_join_valid`` on its heaviest keyed join with
                NA*NB <= 2**26, whose valid-pair sums must equal the joins'
                counts.
-10. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
+11. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
                layers, d_model 4096, 32 q-heads, 8 kv-heads, hd 128,
                d_ff 14336, vocab 49152: 8.25 G parameters) in bf16, drawn
                on the card from a seeded ``torch.Generator`` with the JAX
@@ -124,10 +159,10 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``decode_step``, each prefill and forward on the wgmma
                route and each decode step on the split-K route (check (a)
                on the float32 route).
-11. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+12. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-12. kernels -- first a card-only ``torch.profiler`` window over one
+13. kernels -- first a card-only ``torch.profiler`` window over one
                ``similarity_matrix`` call of the main batch (device time
                by kernel name against the call's host wall). Then each
                kernel again on the inputs of its heaviest call in the
@@ -260,7 +295,7 @@ FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "gamma_pack",
 SIMILARITY_LAUNCHES = 2
 # the planners phase 6 drives with the default configuration
 PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
-# the kernels of the ops API, which phase 9 drives
+# the kernels of the ops API, which phase 10 drives
 OPS_KERNELS = ("msbfs_expand", "path_overlap")
 # phase 8: the far delta's deletions and insertions (exp10's background
 # churn), and the pool it needs beyond every hop ball (exp10's "strict")
@@ -268,7 +303,36 @@ FAR_EDGES = 128
 FAR_POOL = 8 * FAR_EDGES
 # the wide delta's deletions (and insertions) per edge: exp10's rate
 WIDE_RATE = 0.0025
-# phase 10: the published configuration served, prefill_32k cut in
+# phase streaming: exp11's open-loop serving (benchmarks/exp11_open_loop.py)
+# on this graph: micro-batches of at most 16, tenants (name, admission
+# weight, deadline in batch quanta), the output mix, the offered loads
+# (arrival process, multiple of the calibrated capacity), Zipf-skewed
+# endpoints over one seeded permutation of the vertices, k in 3..4
+# (exp11's traffic), but with STREAM_REACH of the targets the end of a
+# random walk of 1..k hops from the source: exp11's Zipf pairs at 2**20 lie
+# beyond 4 hops, and a stream of empty answers never enumerates or joins
+STREAM_MAX_BATCH = 16
+STREAM_TENANTS = (("gold", 4.0, 4.0), ("silver", 2.0, 10.0),
+                  ("bronze", 1.0, None))
+STREAM_TENANT_P = (0.25, 0.35, 0.40)
+STREAM_OUTPUTS = (("paths", 0.60), ("count", 0.25), ("exists", 0.15))
+STREAM_LEVELS = (("poisson", 0.5), ("poisson", 1.0), ("mmpp", 3.0))
+STREAM_ZIPF_A = 1.05
+STREAM_K = (3, 4)
+STREAM_REACH = 0.5
+# arrivals per level: exp11's floor, cut from its 320
+STREAM_ARRIVALS = 128
+# OK path results per level held to the brute-force oracle (half of them
+# non-empty, half empty, where a level has them)
+STREAM_ORACLE = 8
+# the level run with the tracer on, and replayed for determinism
+STREAM_TRACED = 1.0
+# the failover segment: queries, replica groups, gamma (exp11's)
+STREAM_FAILOVER = (48, 3, 0.9)
+# the kernels every stream must launch (LAUNCHES names)
+STREAM_KERNELS = ("msbfs_step", "gamma_pack", "pairwise_popcount",
+                  "level_fused", "join_fused", "ell_gather_f1")
+# phase 11: the published configuration served, prefill_32k cut in
 # sequence (32768 -> 2048) and batch (32 -> 4), the decode cache's
 # teacher-forced and greedy steps, and check (a)'s depth
 LM_ARCH = "granite-8b"
@@ -805,17 +869,20 @@ def device_kind(name: str) -> str:
 TRACE_TRIES = 3
 
 
-def trace_device(torch, fn) -> tuple[list, float]:
+def trace_device(torch, fn, setup=None) -> tuple[list, float]:
     """``fn()`` under ``torch.profiler`` tracing the card only: the device
     events as (name, microseconds) and the host wall (synchronized at both
     ends), in seconds. A window with no device event is run again, at
-    most ``TRACE_TRIES`` times in all. The launch counts are set to 0
-    before each try, so on return they are those of the window whose
-    events come back."""
+    most ``TRACE_TRIES`` times in all; ``setup()``, where given, runs
+    before each try, outside the window. The launch counts are set to 0
+    after it, so on return they are those of the window whose events
+    come back."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import reset_launches
     for _ in range(TRACE_TRIES):
+        if setup is not None:
+            setup()
         reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -1458,6 +1525,449 @@ def phase_delta(torch, g, batches):
     return w1_rec
 
 
+class ZipfSampler:
+    """exp11's Zipf-skewed vertex sampler: rank r has mass 1/r^a over one
+    seeded permutation of the vertices. The CDF is built once; a draw is
+    one uniform and a ``searchsorted``, which is what ``rng.choice(n,
+    p=p)`` does (the same draws) after rebuilding the CDF of all n."""
+
+    def __init__(self, np, n: int, seed: int, a: float = STREAM_ZIPF_A):
+        p = np.arange(1, n + 1, dtype=np.float64) ** -a
+        self.cdf = np.cumsum(p / p.sum())
+        self.cdf /= self.cdf[-1]
+        self.perm = np.random.default_rng(seed).permutation(n)
+        self.np = np
+
+    def draw(self, rng) -> int:
+        i = self.np.searchsorted(self.cdf, rng.random(), side="right")
+        return int(self.perm[i])
+
+
+def walk_end(g, s: int, k: int, rng) -> int:
+    """The end of a random walk of 1..k hops from ``s`` along out-edges
+    (it stops early at a vertex with none): a path of at most k hops
+    reaches it, unless it is ``s``."""
+    v = s
+    for _ in range(int(rng.integers(1, k + 1))):
+        lo, hi = int(g.indptr[v]), int(g.indptr[v + 1])
+        if hi == lo:
+            break
+        v = int(g.indices[lo + int(rng.integers(hi - lo))])
+    return v
+
+
+def stream_events(np, g, edge_src, zipf, seed: int, kind: str, rate: float,
+                  n_arrivals: int, quantum_s: float, delta_every: int):
+    """exp11's trace: (time, query) and (time, delta) events in time
+    order; a balanced delta of 4 random edges in and 4 original edges
+    out every ``delta_every`` arrivals. ``STREAM_REACH`` of the targets
+    are a random walk's end (:func:`walk_end`), the rest Zipf draws."""
+    from repro_torch.core import GraphDelta, PathQuery
+    rng = np.random.default_rng(seed)
+    if kind == "poisson":
+        gaps = rng.exponential(1.0 / rate, size=n_arrivals)
+    else:          # 2-state MMPP: 0.4x and 2.8x the rate, dwell ~12
+        rates, state = (0.4 * rate, 2.8 * rate), 0
+        gaps = np.empty(n_arrivals)
+        for i in range(n_arrivals):
+            gaps[i] = rng.exponential(1.0 / rates[state])
+            if rng.random() < 1.0 / 12.0:
+                state = 1 - state
+    times = np.cumsum(gaps)
+    events = []
+    for t in times:
+        s = zipf.draw(rng)
+        k = int(rng.integers(STREAM_K[0], STREAM_K[1] + 1))
+        d = walk_end(g, s, k, rng) if rng.random() < STREAM_REACH else s
+        while d == s:
+            d = zipf.draw(rng)
+        r, acc, output = rng.random(), 0.0, STREAM_OUTPUTS[-1][0]
+        for name, mass in STREAM_OUTPUTS:
+            acc += mass
+            if r < acc:
+                output = name
+                break
+        tenant, _, dl = STREAM_TENANTS[rng.choice(len(STREAM_TENANTS),
+                                                  p=STREAM_TENANT_P)]
+        events.append((float(t), PathQuery(
+            s, d, k, output=output, tenant=tenant,
+            deadline_s=None if dl is None else dl * quantum_s)))
+    for i in range(delta_every, n_arrivals, delta_every):
+        adds = []
+        while len(adds) < 4:
+            u, v = rng.integers(0, g.n, size=2)
+            if u != v:
+                adds.append((int(u), int(v)))
+        idx = rng.choice(len(g.indices), size=4, replace=False)
+        dels = [(int(edge_src[j]), int(g.indices[j])) for j in idx]
+        events.append((float(times[i]),
+                       GraphDelta.from_pairs(add=adds, remove=dels)))
+    events.sort(key=lambda e: e[0])
+    return events
+
+
+def stream_replay(engine, events, policy, cost, n_groups: int = 2,
+                  gamma=None, fail_injector=None) -> dict:
+    """exp11's open-loop client: arrivals stamped with their trace time,
+    the model clock stepped to the next arrival or the oldest waiter's
+    max_delay expiry, ``pump`` after each step. Returns the session, the
+    arrival and completion times, the results and, per result, the graph
+    it was answered on (the engine's graph after the pump that answered
+    it: a pump flushes queued deltas before it admits)."""
+    from repro_torch.core import GraphDelta, PathSession
+    from repro_torch.launch.serve import ServiceModelClock
+    clock = ServiceModelClock(*cost)
+    session = PathSession(engine, planner="batch", n_groups=n_groups,
+                          policy=policy, gamma=gamma, warm_bias_eps=0.0,
+                          clock=clock)
+    session.server.fail_injector = fail_injector
+    admitted = []
+    submit = session.server.sched.submit
+
+    def record(clusters):
+        admitted.append([list(cl) for cl in clusters])
+        return submit(clusters)
+    session.server.sched.submit = record
+    arrival, done_t, results, graph_of, pending = {}, {}, {}, {}, {}
+
+    def collect(drain=False):
+        for qid, r in session.results(drain=drain).items():
+            require(qid not in results, f"qid {qid} resolved twice")
+            results[qid], done_t[qid] = r, clock()
+            graph_of[qid] = engine.g
+            pending.pop(qid, None)
+
+    i = 0
+    while i < len(events) or pending:
+        targets = [events[i][0]] if i < len(events) else []
+        if pending:
+            targets.append(min(pending.values()) + policy.max_delay_s
+                           + 1e-9)
+        t = max(clock(), min(targets))
+        while i < len(events) and events[i][0] <= t:
+            t_ev, what = events[i]
+            i += 1
+            if isinstance(what, GraphDelta):
+                session.apply_delta(what)
+                continue
+            qid = session.submit(what, now=t_ev)
+            arrival[qid] = t_ev
+            pending[qid] = t_ev
+        clock.t = max(clock.t, t)
+        session.pump()
+        collect()
+    collect(drain=True)
+    return {"session": session, "clock": clock, "arrival": arrival,
+            "done_t": done_t, "results": results, "graph_of": graph_of,
+            "admitted": admitted}
+
+
+def stream_outcome(r) -> tuple:
+    """What a result says, comparable across runs."""
+    if not r.ok:
+        return ("shed", r.shed_reason)
+    out = r.query.output.value
+    if out == "paths":
+        return ("paths", r.paths.tobytes(), r.paths.shape)
+    return (out, r.count if out == "count" else None, r.exists)
+
+
+def stream_check_oracle(rep, n: int) -> tuple[int, int]:
+    """``n`` OK path results against the brute-force oracle on the graph
+    each was answered on (fewer where a stream has fewer): the first
+    empty ones (by qid), at most ``n // 2`` where there are as many
+    non-empty ones, then the first non-empty ones. Returns the numbers
+    held, in all and non-empty."""
+    from repro_torch.core import oracle
+    paths = [qid for qid in sorted(rep["results"])
+             if rep["results"][qid].ok
+             and rep["results"][qid].query.output.value == "paths"]
+    full = [q for q in paths if len(rep["results"][q].paths)]
+    empty = [q for q in paths if not len(rep["results"][q].paths)]
+    n_empty = min(len(empty), n - min(len(full), n // 2))
+    picked = full[:n - n_empty] + empty[:n_empty]
+    for qid in picked:
+        r = rep["results"][qid]
+        s, t, k = r.query.key
+        check_paths(rep["graph_of"][qid], r.query.key, r.paths)
+        expect = oracle.path_set(oracle.enumerate_paths_bruteforce(
+            rep["graph_of"][qid], s, t, k))
+        require(oracle.path_set(r.paths) == expect
+                and len(r.paths) == len(expect),
+                f"streamed query {r.query.key}: {len(r.paths)} paths, "
+                f"oracle {len(expect)}")
+    return len(picked), len(picked) - n_empty
+
+
+def stream_level_stats(np, rep, events, quantum_s: float, window) -> dict:
+    srv, results = rep["session"].server, rep["results"]
+    n_arr = len(rep["arrival"])
+    require(sorted(results) == sorted(rep["arrival"])
+            and len(results) == n_arr,
+            f"lost queries: {n_arr} arrivals, {len(results)} results")
+    ok = [qid for qid, r in results.items() if r.ok]
+    e2e = np.array([rep["done_t"][q] - rep["arrival"][q] for q in ok])
+    q = [float(np.percentile(e2e, p)) if e2e.size else 0.0
+         for p in (50, 99, 99.9)]
+    reasons = {}
+    for r in results.values():
+        if not r.ok:
+            reasons[r.shed_reason] = reasons.get(r.shed_reason, 0) + 1
+    elapsed = max(rep["clock"](), events[-1][0])
+    walls = [b["wall_s"] for b in srv.batch_log]
+    asm = [b["t_assemble_s"] for b in srv.batch_log]
+    deltas = srv.delta_log
+    tenants = {}
+    for b in srv.batch_log:
+        for name, c in b["tenants"].items():
+            tenants[name] = tenants.get(name, 0) + c
+    return {
+        "n_arrivals": n_arr, "n_ok": len(ok), "n_lost": 0,
+        # answers with at least one path (the rest are exact empties)
+        "n_nonempty": sum(1 for q in ok if results[q].exists),
+        "n_shed": n_arr - len(ok), "shed_rate": (n_arr - len(ok)) / n_arr,
+        "shed_reasons": reasons,
+        "n_deadline_miss": srv.n_deadline_miss,
+        "n_pressure_fast_path": int(sum(
+            v for (name, _), v in window.items()
+            if name == "serve_pressure_fast_path_total")),
+        "goodput_qps_virtual": (len(ok) - srv.n_deadline_miss) / elapsed,
+        "p50_s": q[0], "p99_s": q[1], "p999_s": q[2],
+        "p50_x": q[0] / quantum_s, "p99_x": q[1] / quantum_s,
+        "p999_x": q[2] / quantum_s,
+        "n_batches": len(srv.batch_log), "dispatches":
+            rep["clock"].dispatches,
+        "batch_wall_p50_s": float(np.percentile(walls, 50)),
+        "batch_wall_max_s": max(walls),
+        "batch_wall_sum_s": sum(walls),
+        "t_assemble_p50_s": float(np.percentile(asm, 50)),
+        "t_assemble_sum_s": sum(asm),
+        "clusters_per_batch": sum(b["n_clusters"] for b in srv.batch_log)
+        / len(srv.batch_log),
+        "n_materialized": sum(b["n_materialized"] for b in srv.batch_log),
+        "n_cache_hits": sum(b["n_cache_hits"] for b in srv.batch_log),
+        "tenants": tenants,
+        "deltas_applied": len(deltas),
+        "t_apply_sum_s": sum(d["t_apply_s"] for d in deltas),
+        "cache_evicted": sum(d.get("cache_evicted", 0) for d in deltas),
+        "cache_kept_last": next((d["cache_kept"] for d in reversed(deltas)
+                                 if "cache_kept" in d), None),
+    }
+
+
+def phase_streaming(torch, g) -> dict:
+    """Phase streaming (see the module docstring)."""
+    import numpy as np
+    from repro_torch.core import (EngineConfig, PathQuery, PathSession,
+                                  generators)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import AdmissionPolicy, GroupFailure
+    from repro_torch.obs import metrics as obsmetrics
+    from repro_torch.obs import trace as obstrace
+
+    t_phase = time.perf_counter()
+    engine = PathSession(g, EngineConfig(min_cap=64,
+                                         cache_bytes=64 << 20),
+                         device="cuda").engine
+
+    # the service model c0 + c1*Q from warm walls at 4 and 16 queries
+    def warm_wall(size: int) -> float:
+        qs = generators.random_queries(g, size, STREAM_K, seed=11)
+        sess = PathSession(engine, planner="batch", n_groups=2,
+                           warm_bias_eps=0.0, policy=AdmissionPolicy(
+                               max_batch=size, min_batch=size,
+                               max_delay_s=0.0))
+        walls = []
+        for _ in range(3):
+            for q in qs:
+                sess.submit(q)
+            got = sess.results()
+            require(len(got) == size and all(r.ok for r in got.values()),
+                    "calibration lost queries")
+            walls.append(sess.batch_log[-1]["wall_s"])
+        calibration[size] = walls
+        return max(min(walls), 1e-5)
+
+    t0 = time.perf_counter()
+    calibration = {}
+    small = STREAM_MAX_BATCH // 4
+    w_full, w_small = warm_wall(STREAM_MAX_BATCH), warm_wall(small)
+    c1 = max((w_full - w_small) / (STREAM_MAX_BATCH - small), w_full / 256)
+    c0 = max(w_small - small * c1, w_full / 64)
+    t_calibrate = time.perf_counter() - t0
+    cost = (c0, c1)
+    quantum = c0 + STREAM_MAX_BATCH * c1
+    capacity = STREAM_MAX_BATCH / quantum
+    policy = AdmissionPolicy(
+        max_batch=STREAM_MAX_BATCH, min_batch=4, max_delay_s=1.5 * quantum,
+        max_queue=2 * STREAM_MAX_BATCH, shed_expired=True,
+        tenant_weights={name: w for name, w, _ in STREAM_TENANTS})
+    zipf = ZipfSampler(np, g.n, seed=7)
+    edge_src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    delta_every = max(24, STREAM_ARRIVALS // 8)
+
+    def stream_launches(what: str) -> dict:
+        """The stream's launches since the counts were last set to 0;
+        each kernel of the path must be among them."""
+        got = {k: LAUNCHES[k] for k in STREAM_KERNELS}
+        require(all(v > 0 for v in got.values()),
+                f"{what}: a kernel of the stream never launched: {got}")
+        return got
+
+    levels, traced, launches = [], None, {}
+    for li, (kind, mult) in enumerate(STREAM_LEVELS):
+        t0 = time.perf_counter()
+        events = stream_events(np, g, edge_src, zipf, 100 + li, kind,
+                               mult * capacity, STREAM_ARRIVALS, quantum,
+                               delta_every)
+        g_start = engine.g
+        msnap = obsmetrics.registry().snapshot()
+        if mult == STREAM_TRACED:
+            obstrace.enable(capacity=1 << 20).reset()
+        reset_launches()
+        rep = stream_replay(engine, events, policy, cost)
+        launches[f"{kind} {mult}x"] = stream_launches(f"{kind} {mult}x")
+        if mult == STREAM_TRACED:
+            obstrace.disable()
+            path = os.path.join(ROOT, "build", "streaming_trace.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            obstrace.tracer().export(path)
+            doc = obstrace.load(path)
+            obstrace.tracer().reset()
+            traced = {"level": f"{kind} {mult}x", "file": "build/"
+                      "streaming_trace.json",
+                      "n_spans": sum(1 for e in doc["traceEvents"]
+                                     if e.get("ph") == "X"),
+                      "coverage_serve_batch": obstrace.coverage(
+                          doc, root="serve.batch"),
+                      "summary": obstrace.summarize(doc)}
+            require(traced["n_spans"] > 0 and {"serve.batch",
+                    "serve.assemble", "engine.run"}
+                    <= obstrace.stage_names(doc),
+                    "the traced level recorded no serving spans")
+            replay_from = (g_start, events, rep)
+        stats = stream_level_stats(
+            np, rep, events, quantum,
+            obsmetrics.registry().since(msnap))
+        stats["oracle_checked"], stats["oracle_nonempty"] = \
+            stream_check_oracle(rep, STREAM_ORACLE)
+        require(stats["oracle_nonempty"] > 0,
+                f"{kind} {mult}x: no non-empty path result to check")
+        stats.update(kind=kind, offered_mult=mult,
+                     offered_qps_virtual=mult * capacity,
+                     host_s=time.perf_counter() - t0)
+        levels.append(stats)
+        del rep
+    require(levels[-1]["n_shed"] > 0, "the overloaded level shed nothing")
+
+    # determinism: the traced level again, untraced, from its start graph
+    # (and an empty cache: set_graph drops it) on every try, under a
+    # card-only profiler (the serving window's device busy share)
+    t0 = time.perf_counter()
+    g_start, events, first = replay_from
+    box = {}
+    dev_events, dev_wall = trace_device(
+        torch, lambda: box.update(
+            again=stream_replay(engine, events, policy, cost)),
+        setup=lambda: engine.set_graph(g_start))
+    launches["replay"] = stream_launches("the replay")
+    again = box["again"]
+    require(again["admitted"] == first["admitted"],
+            "the replay admitted other batches")
+    require([(b["n_queries"], b["n_clusters"], b["tenants"], b["n_shed"],
+              b["n_deadline_miss"], b["n_deltas"]) for b in
+             first["session"].batch_log] ==
+            [(b["n_queries"], b["n_clusters"], b["tenants"], b["n_shed"],
+              b["n_deadline_miss"], b["n_deltas"]) for b in
+             again["session"].batch_log], "the replay's batches differ")
+    require(sorted(again["results"]) == sorted(first["results"])
+            and all(stream_outcome(again["results"][q])
+                    == stream_outcome(first["results"][q])
+                    for q in first["results"])
+            and again["done_t"] == first["done_t"],
+            "the replay's sheds or results differ")
+    dev_s = sum(us for _, us in dev_events) / 1e6
+    determinism = {"level": f"{STREAM_TRACED}x", "equal": True,
+                   "batches": len(again["admitted"]),
+                   "profiled_wall_s": dev_wall, "device_s": dev_s,
+                   "device_events": len(dev_events),
+                   "busy_share": dev_s / dev_wall,
+                   "batch_wall_sum_s": sum(
+                       b["wall_s"] for b in again["session"].batch_log),
+                   "t_apply_sum_s": sum(
+                       d["t_apply_s"] for d in again["session"]
+                       .server.delta_log),
+                   "host_s": time.perf_counter() - t0}
+    del first, again, replay_from
+
+    # failover: group 0 dies executing its second item
+    t0 = time.perf_counter()
+    n_fo, groups, gamma = STREAM_FAILOVER
+    fo_queries = [PathQuery(int(s), int(t), int(k)) for s, t, k in
+                  generators.random_queries(engine.g, n_fo, STREAM_K,
+                                            seed=977)]
+    events = [(i * quantum * 0.05, q) for i, q in enumerate(fo_queries)]
+    seen = {"n": 0}
+
+    def injector(grp, item):
+        if grp == 0:
+            seen["n"] += 1
+            if seen["n"] == 2:
+                raise GroupFailure(grp)
+
+    cache_before = engine.cache
+    reset_launches()
+    fo = stream_replay(engine, events, AdmissionPolicy(
+        max_batch=STREAM_MAX_BATCH, min_batch=1, max_delay_s=0.4 * quantum),
+        cost, n_groups=groups, gamma=gamma, fail_injector=injector)
+    srv = fo["session"].server
+    require(sorted(fo["results"]) == sorted(fo["arrival"]) == list(range(n_fo))
+            and all(r.ok for r in fo["results"].values()),
+            "failover lost or shed queries")
+    require(srv.n_failovers == 1 and srv.sched.requeued >= 1
+            and srv.dead_groups == {0},
+            f"failover: {srv.n_failovers} failovers, "
+            f"{srv.sched.requeued} requeued, dead {srv.dead_groups}")
+    require(engine.cache is cache_before and len(engine.cache) > 0,
+            "the cache did not survive the failover")
+    launches["failover"] = stream_launches("the failover segment")
+    fo_oracle, fo_oracle_nonempty = stream_check_oracle(fo, STREAM_ORACLE)
+    fo_nonempty = sum(1 for r in fo["results"].values() if r.exists)
+    require(fo_oracle_nonempty > 0, "the failover segment found no path")
+    srv.revive_group(0)
+    seen["n"] = -10 ** 9
+    extra = [fo["session"].submit(q) for q in fo_queries[:STREAM_MAX_BATCH]]
+    got = fo["session"].results()
+    require(sorted(got) == extra and all(r.ok for r in got.values()),
+            "the revived group did not serve")
+    failover = {"n_queries": n_fo, "n_groups": groups,
+                "failovers": srv.n_failovers,
+                "requeued": srv.sched.requeued, "steals": srv.sched.steals,
+                "n_lost": 0, "exactly_once": True,
+                "oracle_checked": fo_oracle,
+                "oracle_nonempty": fo_oracle_nonempty,
+                "n_nonempty": fo_nonempty,
+                "cache_entries_after": len(engine.cache),
+                "revived_ok": True, "host_s": time.perf_counter() - t0}
+    out = {"phase": "streaming", "n": g.n, "m": g.m,
+           "c0_s": c0, "c1_s": c1, "quantum_s": quantum,
+           "capacity_qps_virtual": capacity,
+           "calibration_walls_s": calibration,
+           "t_calibrate_s": t_calibrate,
+           "arrivals_per_level": STREAM_ARRIVALS,
+           "reachable_share": STREAM_REACH,
+           "policy": {"max_batch": policy.max_batch,
+                      "min_batch": policy.min_batch,
+                      "max_delay_quanta": 1.5,
+                      "max_queue": policy.max_queue},
+           "levels": levels, "launches": launches,
+           "determinism": determinism, "failover": failover,
+           "cache": engine.cache.info(),
+           "trace": traced, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def overlap_rows(torch, n: int, N: int, L: int, gen):
     """(N, L) int32 rows of random vertex ids below n, each cut to a
     random length of 1..L with -1 pads after it."""
@@ -1469,7 +1979,7 @@ def overlap_rows(torch, n: int, N: int, L: int, gen):
 
 
 def phase_ops(torch, g, main_rec, join_rec) -> dict:
-    """Phase 9 (see the module docstring): the four calls of the ops API,
+    """Phase 10 (see the module docstring): the four calls of the ops API,
     counted, then checked against the engine's own kernels and joins."""
     from repro_torch.core.join import keyed_join_count
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -2535,6 +3045,7 @@ def main(argv=None) -> int:
     w1_rec = phase_delta(torch, g, (
         ("sharing", share_queries), ("main", queries),
         ("main, k = 4", [q for q in queries if q[2] == 4])))
+    phase_streaming(torch, g)
     ops = phase_ops(torch, g, main_rec, join_rec)
     del g, session, main_report, share_report       # the graph state
     gc.collect()

@@ -18,16 +18,24 @@ device tables and invalidate the cache hop-scoped, pricing the damage on
 the host (``delta_backend="host"``) or with the set-seeded MS-BFS on the
 ``msbfs_step`` kernel (any other value, as in the reference).
 
+Every stage is a span of the process-wide tracer (``self.obs``, under the
+reference's span names); the spans behind the ``t_*`` stats (``stage``)
+end in a device synchronize, so each stat measures completed work. The
+finer spans (a node, a level, a join, a cache access) add no
+synchronize: each level and join already reads its count back, and a
+level's span fences its frontier when the tracer runs with
+``fence=True``. ``EngineConfig.trace`` turns recording on.
+
 Not in this port yet, and refused with ``NotImplementedError`` instead of
 silently degrading: sharding (``mesh`` / ``n_devices > 1``), compile
-telemetry (``log_compiles``), span tracing (``trace*``), and the knob of
-the segment arm (``edge_chunk``) when set away from its default.
+telemetry (``log_compiles``), the profiler bridge (``trace_annotations``),
+and the knob of the segment arm (``edge_chunk``) when set away from its
+default.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 import warnings
 from typing import Callable, Optional, Sequence, Union
 
@@ -52,6 +60,7 @@ from .query import (BatchReport, Output, PathQuery, PathsStore, Planner,
 from .similarity import similarity_matrix
 from ..kernels.registry import resolve_arm, resolve_device
 from ..obs import metrics as obsmetrics
+from ..obs import trace as obstrace
 
 __all__ = ["EngineConfig", "BatchPathEngine", "EngineOverflow",
            "BatchResult", "resolve_device"]
@@ -93,9 +102,10 @@ class EngineConfig:
     mesh: Optional[object] = None   # sharding (not ported)
     n_devices: Optional[int] = None
     balance_clusters: bool = False  # only acts on sharded runs
-    trace: bool = False             # span tracing (not ported)
-    trace_fence: bool = False
-    trace_annotations: bool = False
+    trace: bool = False             # record stage spans into the process
+    # tracer (Chrome-trace exportable); off = spans still time every stage
+    trace_fence: bool = False       # synchronize fenced tensors' devices
+    trace_annotations: bool = False  # profiler bridge (not ported)
     router: Optional[RouterConfig] = None  # Planner.AUTO routing thresholds
     # and output-kind weights (None = planner.RouterConfig defaults)
 
@@ -118,33 +128,14 @@ def _check_config(cfg: EngineConfig) -> None:
         "mesh (sharded execution)": cfg.mesh is not None,
         "n_devices>1 (sharded execution)": (cfg.n_devices or 0) > 1,
         "log_compiles=True (compile telemetry)": cfg.log_compiles,
-        "trace / trace_fence / trace_annotations (span tracing)":
-            cfg.trace or cfg.trace_fence or cfg.trace_annotations,
+        "trace_annotations=True (the profiler bridge)":
+            cfg.trace_annotations,
         "edge_chunk (the segment arm)": cfg.edge_chunk != 1 << 22,
     }
     for what, bad in refused.items():
         if bad:
             raise NotImplementedError(f"EngineConfig {what} is not ported "
                                       f"yet; it comes with {_NEXT_SLICE}")
-
-
-class _Stage:
-    duration = 0.0
-
-
-@contextlib.contextmanager
-def _stage(device: torch.device):
-    """Wall time of one engine stage, ending in a device synchronize so
-    that asynchronous kernels are charged to the stage that launched them
-    (the reference reads the same ``t_*`` stats off its spans)."""
-    stage = _Stage()
-    t0 = time.perf_counter()
-    try:
-        yield stage
-    finally:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stage.duration = time.perf_counter() - t0
 
 
 def _bucket(x: int, min_cap: int = 256) -> int:
@@ -172,6 +163,23 @@ class BatchPathEngine:
         self.cache = cache
         # Planner.AUTO tier routing + per-cluster planner choice
         self.router = CostRouter(self.cfg.router)
+        # stage spans: the recorder is process-wide -- any engine with
+        # cfg.trace turns recording on; the handle is always present
+        # because every t_* stat is a span's duration (recorded or not)
+        self.obs = obstrace.enable(fence=self.cfg.trace_fence) \
+            if self.cfg.trace else obstrace.tracer()
+
+    @contextlib.contextmanager
+    def stage(self, name: str, **attrs):
+        """One stage: a span of the engine's tracer that ends in a device
+        synchronize, so asynchronous kernels are charged to the stage that
+        launched them."""
+        with self.obs.span(name, **attrs) as sp:
+            try:
+                yield sp
+            finally:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
 
     def set_graph(self, graph: Graph) -> None:
         """Swap the graph wholesale: rebuild the device views and drop
@@ -205,8 +213,10 @@ class BatchPathEngine:
         ``apply_delta`` and ``_apply_delta_impl`` for its compile
         telemetry, which is not ported.)
         """
-        with _stage(self.device) as sp:
+        with self.stage("engine.apply_delta") as sp:
             applied = _merge_delta(self.g, delta)
+            sp.set(n_added=int(applied.added_src.size),
+                   n_removed=int(applied.removed_src.size))
             report = {
                 "n_added": int(applied.added_src.size),
                 "n_removed": int(applied.removed_src.size),
@@ -215,7 +225,8 @@ class BatchPathEngine:
             }
             if applied.n_changed:
                 if self.cache is not None:
-                    report.update(self._invalidate_for(applied))
+                    with self.obs.span("cache.invalidate"):
+                        report.update(self._invalidate_for(applied))
                 self.dg, incremental = update_device_graph(self.dg, applied)
                 report["device_update"] = ("incremental" if incremental
                                            else "rebuild")
@@ -324,11 +335,12 @@ class BatchPathEngine:
         if not qs:   # degenerate but legal (e.g. a filter left nothing)
             stats["t_build_index"] = stats["t_enumerate"] = 0.0
             return BatchReport(queries=qs, results=(), stats=stats)
-        with _stage(self.device) as root:
+        with self.stage("engine.run", planner=planner.value,
+                        n_queries=len(qs)) as root:
             if planner is Planner.PATHENUM:
                 report = self._run_pathenum(qs, stats)
             else:
-                with _stage(self.device) as sidx:
+                with self.stage("index.build", n_queries=len(qs)) as sidx:
                     index = build_index(self.dg, [q.key for q in qs])
                 stats["t_build_index"] = sidx.duration
                 if planner is Planner.AUTO:
@@ -381,10 +393,10 @@ class BatchPathEngine:
 
     def _run_basic(self, queries, index: QueryIndex, plus: bool,
                    stats) -> BatchReport:
-        with _stage(self.device) as senum:
+        with self.stage("enumerate.batch", n_queries=len(queries)) as senum:
             results = []
             for qi, q in enumerate(queries):
-                with _stage(self.device) as sq:
+                with self.stage("assemble.query", qi=qi) as sq:
                     r = self._direct_query(q, qi, index, plus, stats)
                 r.time_s = sq.duration
                 results.append(r)
@@ -405,11 +417,12 @@ class BatchPathEngine:
                   "n_cache_hits": 0, "n_cache_misses": 0,
                   "n_rows_assembled": 0, "n_shared": 0, "n_dedup": 0,
                   "n_share_edges": 0, "t_detect": 0.0}
-        with _stage(self.device) as se:
+        with self.stage("enumerate.cluster", size=len(cluster),
+                        direct=True) as se:
             results: dict[int, QueryResult] = {}
             for qi in cluster:
                 q = queries[qi]
-                with _stage(self.device) as sq:
+                with self.stage("assemble.query", qi=qi) as sq:
                     results[qi] = self._direct_query(q, qi, index, plus,
                                                      cstats)
                 results[qi].time_s = sq.duration
@@ -422,10 +435,10 @@ class BatchPathEngine:
         results = []
         t_idx = t_enum = 0.0
         for q in queries:
-            with _stage(self.device) as sidx:
+            with self.stage("index.build", pathenum=True) as sidx:
                 index = build_index(self.dg, [q.key])
             t_idx += sidx.duration
-            with _stage(self.device) as sq:
+            with self.stage("assemble.query") as sq:
                 a, b = self._split(0, index, False)
                 fs = self._dedicated_slack(index, 0, forward=True)
                 fl = self._run_node(False, q.s, a, fs, [], stop_vertex=q.t)
@@ -470,7 +483,8 @@ class BatchPathEngine:
         needs a mesh, so no route is ever upgraded on one device).
         """
         qis = list(range(len(queries))) if subset is None else list(subset)
-        with _stage(self.device) as sc:
+        with self.stage("cluster.queries",
+                        precomputed=clusters is not None) as sc:
             if clusters is None:
                 mu = similarity_matrix(index)
                 if subset is None:
@@ -486,6 +500,7 @@ class BatchPathEngine:
                 if sorted(seen) != sorted(qis):
                     raise ValueError(
                         "clusters must partition the query indices")
+            sc.set(n_clusters=len(clusters))
         stats["t_cluster"] = sc.duration
         stats["n_clusters"] = len(clusters)
 
@@ -528,12 +543,13 @@ class BatchPathEngine:
         the remainder runs through :meth:`_run_clustered`, which also
         picks each cluster's planner and tier. Exactness is
         planner-independent, so routing can only move wall time."""
-        with _stage(self.device) as sr:
+        with self.stage("route.estimate", n_queries=len(queries)) as sr:
             dists = self._dists_host(index)
             ests = self.router.estimate(index, queries, dists)
             routes = {e.qi: e.route for e in ests}
             green = [e.qi for e in ests if e.route is Route.GREEN]
             rest = [e.qi for e in ests if e.route is not Route.GREEN]
+            sr.set(n_green=len(green))
         stats["t_route"] = sr.duration
 
         # AUTO answers may skip whole stages; pre-zero the batch counters
@@ -582,10 +598,11 @@ class BatchPathEngine:
         direct per-query plan with no detection/clustering/cache."""
         ds, _ = self._dists_host(index)
         results: dict[int, QueryResult] = {}
-        with _stage(self.device) as sg:
+        with self.stage("route.green", n_queries=len(green)) as sg:
             for qi in green:
                 q = queries[qi]
-                with _stage(self.device) as sq:
+                with self.stage("assemble.query", qi=qi,
+                                route="green") as sq:
                     if int(ds[q.t, index.src_col[qi]]) > q.k:
                         r = self._empty_result(q)
                     elif q.output is Output.EXISTS:
@@ -614,7 +631,7 @@ class BatchPathEngine:
         cstats = {"n_psi_nodes": 0, "n_materialized": 0,
                   "n_cache_hits": 0, "n_cache_misses": 0,
                   "n_rows_assembled": 0}
-        with _stage(self.device) as sd:
+        with self.stage("detect.cluster", size=len(cluster)) as sd:
             halves_f = {}
             halves_b = {}
             ends_f = {}
@@ -647,7 +664,7 @@ class BatchPathEngine:
                 + sum(len(n.in_edges) for n in plan_b.nodes))
         cstats["t_detect"] = sd.duration
 
-        with _stage(self.device) as se:
+        with self.stage("enumerate.cluster", size=len(cluster)) as se:
             cache_f = self._run_plan(plan_f, index, forward=True,
                                      stats=cstats)
             cache_b = self._run_plan(plan_b, index, forward=False,
@@ -657,7 +674,7 @@ class BatchPathEngine:
             results: dict[int, QueryResult] = {}
             for qi in cluster:
                 q = queries[qi]
-                with _stage(self.device) as sq:
+                with self.stage("assemble.query", qi=qi) as sq:
                     a = halves_f[qi][1]
                     b = halves_b[qi][1]
                     fid = plan_f.half_of_query[qi]
@@ -722,8 +739,12 @@ class BatchPathEngine:
             if nid in need:
                 continue
             need.add(nid)
-            got = self.cache.get(keys[nid], self.device) \
-                if nid in keys else None
+            if nid in keys:
+                with self.obs.span("cache.get") as sg:
+                    got = self.cache.get(keys[nid], self.device)
+                    sg.set(hit=got is not None)
+            else:
+                got = None
             if got is not None:
                 cache[nid] = got
             else:
@@ -739,7 +760,8 @@ class BatchPathEngine:
             cache[nid] = self._run_node(not forward, node.src, node.budget,
                                         slack, children, stop_vertex=stops[nid])
             if self.cache is not None and nid in keys:
-                self.cache.put(keys[nid], cache[nid])
+                with self.obs.span("cache.put"):
+                    self.cache.put(keys[nid], cache[nid])
         if stats is not None:
             stats["n_psi_nodes"] += len(plan.nodes)
             stats["n_materialized"] += len(mat)
@@ -753,18 +775,20 @@ class BatchPathEngine:
     # ------------------------------------------------------------------
     def _run_node(self, reverse: bool, source: int, budget: int, slack,
                   children, stop_vertex: int = -2):
-        caps = self._plan_caps(reverse, source, budget, slack)
-        for _ in range(8):
-            out = self._run_node_once(reverse, source, budget, slack,
-                                      children, stop_vertex, caps)
-            if out is not None:
-                return out
-            caps = [min(c * 4, self.cfg.hard_cap) for c in caps]
-            if all(c >= self.cfg.hard_cap for c in caps[1:]):
-                raise EngineOverflow(
-                    f"node (src={source}, budget={budget}) exceeds "
-                    f"hard_cap")
-        raise EngineOverflow("retry limit reached")
+        with self.obs.span("enumerate.node", src=source, budget=budget,
+                           reverse=reverse):
+            caps = self._plan_caps(reverse, source, budget, slack)
+            for _ in range(8):
+                out = self._run_node_once(reverse, source, budget, slack,
+                                          children, stop_vertex, caps)
+                if out is not None:
+                    return out
+                caps = [min(c * 4, self.cfg.hard_cap) for c in caps]
+                if all(c >= self.cfg.hard_cap for c in caps[1:]):
+                    raise EngineOverflow(
+                        f"node (src={source}, budget={budget}) exceeds "
+                        f"hard_cap")
+            raise EngineOverflow("retry limit reached")
 
     def _run_node_once(self, reverse, source, budget, slack, children,
                        stop_vertex, caps):
@@ -786,34 +810,38 @@ class BatchPathEngine:
         for lvl in range(budget):
             if n_frontier == 0:
                 break
-            out = expand_level(frontier.verts, frontier.count, ell_idx,
-                               prune_tbl, stop_vertex,
-                               level=lvl, budget=budget,
-                               out_cap=caps[lvl + 1])
-            # the level's one host sync: the new frontier's count and
-            # overflow in one device-to-host copy
-            n_frontier, overflow = read_status(out.frontier.count,
-                                               out.frontier.overflow)
+            with self.obs.span("msbfs.level", level=lvl,
+                               reverse=reverse) as sl:
+                out = expand_level(frontier.verts, frontier.count, ell_idx,
+                                   prune_tbl, stop_vertex,
+                                   level=lvl, budget=budget,
+                                   out_cap=caps[lvl + 1])
+                sl.fence(out.frontier.verts)
+                # the level's one host sync: the new frontier's count and
+                # overflow in one device-to-host copy
+                n_frontier, overflow = read_status(out.frontier.count,
+                                                   out.frontier.overflow)
             if overflow:
                 return None
             for (csrc, cb, clevels) in children:
-                rmask = (out.splice_hit & (out.nbrs == csrc)).any(dim=1)
-                prefixes = extract_rows(frontier.verts, rmask,
-                                        out_cap=frontier.cap)
-                if int(prefixes.count) == 0:
-                    continue
-                for lam in range(0, min(cb, budget - lvl - 1) + 1):
-                    cl = clevels[lam]
-                    if int(cl.count) == 0:
+                with self.obs.span("join.splice", level=lvl):
+                    rmask = (out.splice_hit & (out.nbrs == csrc)).any(dim=1)
+                    prefixes = extract_rows(frontier.verts, rmask,
+                                            out_cap=frontier.cap)
+                    if int(prefixes.count) == 0:
                         continue
-                    res, _ = self._retry_join(
-                        lambda cap: cross_join(
-                            prefixes.verts, prefixes.count,
-                            cl.verts, cl.count,
-                            p_col=lvl, c_col=lam, out_cap=cap,
-                            out_width=width),
-                        est=int(prefixes.count) * int(cl.count))
-                    pools[lvl + 1 + lam].append(res)
+                    for lam in range(0, min(cb, budget - lvl - 1) + 1):
+                        cl = clevels[lam]
+                        if int(cl.count) == 0:
+                            continue
+                        res, _ = self._retry_join(
+                            lambda cap: cross_join(
+                                prefixes.verts, prefixes.count,
+                                cl.verts, cl.count,
+                                p_col=lvl, c_col=lam, out_cap=cap,
+                                out_width=width),
+                            est=int(prefixes.count) * int(cl.count))
+                        pools[lvl + 1 + lam].append(res)
             frontier = out.frontier
             pools[lvl + 1].append(out.frontier)
         merged = [concat(p) if p else empty(1, width, self.device)
@@ -906,11 +934,12 @@ class BatchPathEngine:
                 bs = bwd_levels[lam]
                 if int(bs.count) == 0:
                     continue
-                res, n = self._retry_join(
-                    lambda cap: keyed_join(sa, bs.verts, bs.count,
-                                           a_col=a, b_col=lam,
-                                           out_cap=cap, out_width=width),
-                    est=max(int(fa.count), int(bs.count)))
+                with self.obs.span("join.keyed", lam=lam):
+                    res, n = self._retry_join(
+                        lambda cap: keyed_join(sa, bs.verts, bs.count,
+                                               a_col=a, b_col=lam,
+                                               out_cap=cap, out_width=width),
+                        est=max(int(fa.count), int(bs.count)))
                 if n:
                     outs.append(res)
                     found += n
@@ -943,11 +972,12 @@ class BatchPathEngine:
                 bs = bwd_levels[lam]
                 if int(bs.count) == 0:
                     continue
-                _, n = self._retry_capacity(
-                    lambda cap: (None, *keyed_join_count(
-                        sa, bs.verts, bs.count, a_col=a, b_col=lam,
-                        pair_cap=cap)),
-                    est=max(int(fa.count), int(bs.count)))
+                with self.obs.span("join.keyed", lam=lam, count=True):
+                    _, n = self._retry_capacity(
+                        lambda cap: (None, *keyed_join_count(
+                            sa, bs.verts, bs.count, a_col=a, b_col=lam,
+                            pair_cap=cap)),
+                        est=max(int(fa.count), int(bs.count)))
                 total += n
                 if limit is not None and total >= limit:
                     return limit

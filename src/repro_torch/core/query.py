@@ -32,6 +32,7 @@ from typing import Iterator, Optional, Sequence, Union
 import numpy as np
 
 from .pathset import PathSet
+from ..obs import trace as obstrace
 
 __all__ = ["Output", "Planner", "PathQuery", "QueryResult", "BatchReport",
            "PathsStore", "QueryLike", "ResultStatus", "midpoint_split"]
@@ -226,7 +227,8 @@ class PathsStore:
     @property
     def host(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._pathset.verts[:self.count].cpu().numpy()
+            with obstrace.span("transfer.paths", rows=self.count):
+                self._host = self._pathset.verts[:self.count].cpu().numpy()
             self._pathset = None   # release the padded device buffer
         return self._host
 

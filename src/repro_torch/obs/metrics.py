@@ -1,10 +1,9 @@
 """Process-wide metrics registry: counters, gauges, log-bucketed histograms.
 
-A copy of ``repro/obs/metrics.py`` (stdlib only). Span tracing
-(``repro/obs/trace.py``) and the compile log are not ported, so the
-references to them below describe the reference package.
+A copy of ``repro/obs/metrics.py`` (stdlib only). The compile log is not
+ported, so the references to it below describe the reference package.
 
-Spans (:mod:`repro.obs.trace`) answer "where did *this* run spend its
+Spans (:mod:`repro_torch.obs.trace`) answer "where did *this* run spend its
 wall"; metrics answer the fleet questions — cache hit ratio over the last
 thousand batches, p99 end-to-end query latency, bytes resident per cache.
 The registry is deliberately tiny and stdlib-only:

@@ -183,9 +183,7 @@ def test_empty_batch_and_precomputed_clusters(workload):
     dict(plan_caps=False, mesh=object()),
     dict(plan_caps=False, n_devices=2),
     dict(plan_caps=False, log_compiles=True),
-    dict(plan_caps=False, trace=True),
     dict(plan_caps=False, edge_chunk=1 << 20),
-    dict(plan_caps=False, trace_fence=True),
     dict(plan_caps=False, trace_annotations=True),
 ])
 def test_unported_options_raise(workload, cfg):
@@ -224,16 +222,6 @@ def test_delta_options_act_like_reference(workload, cfg):
                                  else "delta")
     for a, b in zip(eng.run(qs), j_eng.run(qs)):
         assert np.array_equal(a.paths, np.asarray(b.paths))
-
-
-@pytest.mark.parametrize("call", [
-    lambda s: s.submit((0, 1, 3)), lambda s: s.pump(), lambda s: s.results(),
-    lambda s: s.result(0), lambda s: s.batch_log,
-    lambda s: s.server,
-])
-def test_session_streaming_raises(workload, call):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        call(workload["session"])
 
 
 def test_kernel_backend_must_agree_with_device(workload):

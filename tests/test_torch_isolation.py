@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor ``repro``, and the entry points never run on the CPU
-unless asked to."""
+neither ``jax`` nor ``repro``, and the entry points (the engine, the
+session, the streaming server and its CLI, the model) never run on the
+CPU unless asked to."""
 import ast
 import os
 import pathlib
@@ -77,6 +78,43 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BatchPathEngine(g, cfg, device="cuda")
     assert BatchPathEngine(g, cfg, device="cpu").device.type == "cpu"
+
+
+def test_streaming_needs_cuda_unless_asked_for_cpu():
+    from repro_torch.core import (BatchPathEngine, EngineConfig,
+                                  PathSession, generators)
+    from repro_torch.launch.serve import StreamingServer
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    g = generators.grid(4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingServer(BatchPathEngine(g, EngineConfig()))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PathSession(g, n_groups=1).submit((0, 5, 3))
+    srv = StreamingServer(BatchPathEngine(g, EngineConfig(), device="cpu"))
+    qid = srv.submit((0, 5, 3))
+    srv.drain()
+    assert srv.results[qid].ok
+
+
+def test_serve_cli_needs_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--n", "400",
+            "--queries", "4", "--k-min", "3", "--k-max", "3",
+            "--validate", "1"]
+    out = subprocess.run(args, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    out = subprocess.run(args + ["--devices", "2", "--device", "cpu"],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and "queue 1, item 2" in out.stderr
+    out = subprocess.run(args + ["--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "on cpu (torch kernels)" in out.stdout and "OK" in out.stdout
 
 
 def test_the_model_needs_cuda_unless_asked_for_cpu():
