@@ -12,8 +12,10 @@ every planner, and the cross-batch cache; phase 8 incremental graph
 deltas under both ``delta_backend`` values; phase 9 streaming serving
 (``PathSession.submit`` / ``pump`` / ``results`` over the
 ``StreamingServer``, driven by exp11's open-loop arrival streams); phase
-10 the kernel ops API (``msbfs_hop_packed``, ``path_overlap`` and the
-join-validity matrices); phase 11 the transformer's serving path
+10 sharded execution (four engine replicas on the card, each on its own
+CUDA stream); phase 11 the kernel ops API (``msbfs_hop_packed``,
+``path_overlap`` and the join-validity matrices); phase 12 the
+transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
 kernel).
 
@@ -127,7 +129,44 @@ Phases, each printing one JSON line (``"phase": ...``):
                three groups, group 0 dies on its second item): results
                exactly once, one failover, the cache kept, a revived
                group serves.
-10. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
+10. sharded -- ``mesh=["cuda:0"] * 4``: four engine replicas on the card,
+               replica 0 on the caller's stream, the others each on its
+               own. The main batch (``plan_caps=False``, 239 clusters)
+               under ``batch``: rows in the same order, counts and
+               clusters equal to phase 4's run, ``per_device`` with 4
+               entries adding up to the run. ``n_devices=1`` is the
+               identity: the sharing batch under ``batch`` and ``auto``
+               equal to phase 6's runs, with no ``per_device``. The
+               sharing batch forms one cluster, which no mesh splits, so
+               the four-replica engine runs it with ``balance_clusters``
+               (4 clusters); its first, cold run goes under a card-only
+               profiler between two readings of the caching allocator,
+               and each lightly loaded replica must finish within
+               ``SHARDED_COLD_MAX_S``. It is held to the identity engine
+               given the same partition under ``batch``, ``basic`` and
+               ``auto``: rows, counts, clusters, cluster planners;
+               ``auto``'s cluster routes follow the router's rule (RED
+               iff a cluster's summed estimate clears ``red_min_cost``),
+               and if none is RED at the default 2**22 the run is
+               repeated with the heaviest cluster's cost as the
+               threshold, where RED must appear. The six path kernels launch in the sharing batch's
+               run; warm walls with four replicas and one (medians of 3);
+               one warm run under a card-only profiler, where the fused
+               level must run on at least two streams (busy share,
+               device time over the fan-out's wall, the most streams
+               with a kernel in flight at once). Deltas: a plain and a
+               four-replica engine (64 MB caches) on the main batch's
+               k = 4 queries, phase 8's far and near deltas applied to
+               both: equal ``n_touched``, 4 equal cache epochs, replica
+               tables equal to the primary's, rows equal after each.
+               Serving: phase 9's traced 1.0x level replayed from its
+               start graph over a four-replica engine: the same qids
+               resolve exactly once to the same outcomes at the same
+               model times, the same batch cuts, no steals, every
+               micro-batch of more than one cluster placed on the 4
+               replicas (``per_device``, ``n_devices``), and a batch wall
+               p50 within ``SHARDED_SERVE_MAX_X`` of phase 9's.
+11. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
                on the frontier of the heaviest ``msbfs_step`` call of the
                main batch, ``path_overlap`` on 4096 x 4096 rows of 6
                vertex ids with -1 pads, ``splice_join_valid`` on the
@@ -135,7 +174,7 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``keyed_join_valid`` on its heaviest keyed join with
                NA*NB <= 2**26, whose valid-pair sums must equal the joins'
                counts.
-11. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
+12. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
                layers, d_model 4096, 32 q-heads, 8 kv-heads, hd 128,
                d_ff 14336, vocab 49152: 8.25 G parameters) in bf16, drawn
                on the card from a seeded ``torch.Generator`` with the JAX
@@ -159,10 +198,10 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``decode_step``, each prefill and forward on the wgmma
                route and each decode step on the split-K route (check (a)
                on the float32 route).
-12. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+13. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-13. kernels -- first a card-only ``torch.profiler`` window over one
+14. kernels -- first a card-only ``torch.profiler`` window over one
                ``similarity_matrix`` call of the main batch (device time
                by kernel name against the call's host wall). Then each
                kernel again on the inputs of its heaviest call in the
@@ -295,7 +334,7 @@ FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "gamma_pack",
 SIMILARITY_LAUNCHES = 2
 # the planners phase 6 drives with the default configuration
 PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
-# the kernels of the ops API, which phase 10 drives
+# the kernels of the ops API, which phase 11 drives
 OPS_KERNELS = ("msbfs_expand", "path_overlap")
 # phase 8: the far delta's deletions and insertions (exp10's background
 # churn), and the pool it needs beyond every hop ball (exp10's "strict")
@@ -332,7 +371,17 @@ STREAM_FAILOVER = (48, 3, 0.9)
 # the kernels every stream must launch (LAUNCHES names)
 STREAM_KERNELS = ("msbfs_step", "gamma_pack", "pairwise_popcount",
                   "level_fused", "join_fused", "ell_gather_f1")
-# phase 11: the published configuration served, prefill_32k cut in
+# phase sharded: four engine replicas on the one card
+SHARDED_MESH = ["cuda:0"] * 4
+# the most seconds a lightly loaded replica (one query of the balanced
+# sharing batch; 0.08-0.15 s cold on an H100) may take in the first,
+# cold four-replica run: a wait that every replica shares shows there
+SHARDED_COLD_MAX_S = 1.0
+# the most a sharded micro-batch's wall p50 may be over the one-replica
+# server's on the same stream (1.6-2.0x on an H100: the replica threads'
+# host work contends for the interpreter)
+SHARDED_SERVE_MAX_X = 3.0
+# phase 12: the published configuration served, prefill_32k cut in
 # sequence (32768 -> 2048) and batch (32 -> 4), the decode cache's
 # teacher-forced and greedy steps, and check (a)'s depth
 LM_ARCH = "granite-8b"
@@ -791,7 +840,7 @@ def phase_main(torch, g, queries):
                           ("t_build_index", "t_enumerate", "t_wall_s")},
           "basic_launches": basic_launches,
           "plain_stages": plain_stages_check})
-    return session, recorders, launches, cold, index
+    return session, recorders, launches, cold, index, warm
 
 
 def phase_sharing(torch, g, session, nq: int):
@@ -870,11 +919,11 @@ TRACE_TRIES = 3
 
 
 def trace_device(torch, fn, setup=None) -> tuple[list, float]:
-    """``fn()`` under ``torch.profiler`` tracing the card only: the device
-    events as (name, microseconds) and the host wall (synchronized at both
-    ends), in seconds. A window with no device event is run again, at
-    most ``TRACE_TRIES`` times in all; ``setup()``, where given, runs
-    before each try, outside the window. The launch counts are set to 0
+    """``fn()`` under ``torch.profiler`` tracing the card only: each device
+    event as (name, stream, start ns, end ns), and the host wall
+    (synchronized at both ends), in seconds. A window with no device
+    event is run again, at most ``TRACE_TRIES`` times in all;
+    ``setup()``, where given, runs before each try, outside the window. The launch counts are set to 0
     after it, so on return they are those of the window whose events
     come back."""
     from torch.profiler import ProfilerActivity, profile
@@ -890,11 +939,18 @@ def trace_device(torch, fn, setup=None) -> tuple[list, float]:
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [(e.name(), e.device_resource_id(), e.start_ns(),
+                   e.end_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
         if events:
             break
     return events, wall
+
+
+def device_ns(events) -> int:
+    """The summed time of a window's device events, in nanoseconds."""
+    return sum(t1 - t0 for *_, t0, t1 in events)
 
 
 # a kernel that only waits (``torch.cuda._sleep``), launched first in a
@@ -909,7 +965,7 @@ def launches_of(events, fused: str) -> dict:
     to the host, and every other kernel by name (the marker apart)."""
     out = {"fused": 0, "memset": 0, "dtoh": 0, "copy": 0, "other": {},
            "marker": 0}
-    for name, _ in events:
+    for name, *_ in events:
         kind = device_kind(name)
         if kind == "kernel" and MARKER in name:
             out["marker"] += 1
@@ -941,9 +997,9 @@ def profile_batch(torch, session, queries, recorders=None) -> dict:
     levels, joins = LAUNCHES["level_fused"], LAUNCHES["join_fused"]
     require_fused(LAUNCHES, "sharing, profiled")
     kinds = {}
-    for name, _ in events:
+    for name, *_ in events:
         kinds[device_kind(name)] = kinds.get(device_kind(name), 0) + 1
-    busy_ms = sum(us for _, us in events) / 1e3
+    busy_ms = device_ns(events) / 1e6
     out = {"batch": {"wall_s": wall, "device_ms": busy_ms,
                      "device_busy_share": busy_ms / (wall * 1e3),
                      "events": kinds, "levels": levels, "joins": joins,
@@ -1015,11 +1071,12 @@ def profile_similarity(torch, index) -> dict:
             == SIMILARITY_LAUNCHES * SIMILARITY_CALLS,
             f"similarity_matrix, profiled: {LAUNCHES}")
     by_name = {}
-    for name, us in events:
+    for name, _, t0, t1 in events:
         if MARKER in name:
             continue
         short = name.split("(")[0][-80:]
-        by_name[short] = by_name.get(short, 0.0) + us / SIMILARITY_CALLS
+        by_name[short] = by_name.get(short, 0.0) \
+            + (t1 - t0) / 1e3 / SIMILARITY_CALLS
     kernels = {k: v for k, v in by_name.items() if device_kind(k) == "kernel"}
     require("gamma_pack_kernel" in kernels
             and "pairwise_popcount_kernel" in kernels,
@@ -1156,7 +1213,7 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     session = PathSession(g, EngineConfig(), device="cuda")
-    runs, launches = {}, {}
+    runs, launches, reports = {}, {}, {}
     for planner in PLANNERS:
         with RetryCounter(session.engine) as rc:
             reset_launches()
@@ -1174,6 +1231,8 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
                 f"ell_gather_f1_kernel (the walk counts are F = 1)")
         check_same(queries, share_report, rep,
                    f"plan_caps=False BATCH and default-config {planner}")
+        if planner in ("batch", "auto"):
+            reports[planner] = rep          # phase sharded's reference
         runs[planner] = {
             "stats": {k: v for k, v in rep.stats.items()
                       if k.startswith(("t_", "n_", "routed_"))},
@@ -1216,7 +1275,7 @@ def phase_planners(torch, g, main_session, main_queries, main_report,
                         if k.startswith(("t_", "n_", "routed_"))},
               "launches": auto_launches, "paths_equal_main": True},
           "paths_equal_sharing": True, "profile_batch": profile})
-    return recorders, launches["batch"]
+    return recorders, launches["batch"], reports
 
 
 def phase_cache(g, queries, share_report):
@@ -1356,7 +1415,8 @@ class DistsRecorder:
 
 def phase_delta(torch, g, batches):
     """Phase 8 (see the module docstring). ``batches``: the candidate
-    (name, queries) in order of preference."""
+    (name, queries) in order of preference. Returns the W = 1 sweep's
+    recorder, the batch taken and the far and near deltas."""
     import numpy as np
     from repro_torch.core import (DeviceGraph, EngineConfig, GraphDelta,
                                   PathSession, host_set_dist, oracle)
@@ -1395,7 +1455,7 @@ def phase_delta(torch, g, batches):
     require(len(sessions["host"].cache) > 0, "the cold run cached nothing")
 
     rng = np.random.default_rng(3)
-    steps, w1_rec, near_path = [], None, None
+    steps, w1_rec, near_path, applied_deltas = [], None, None, {}
     for step in ("far", "near", "wide", "cap"):
         g_old = sessions["host"].engine.g
         dg_old = sessions["host"].engine.dg
@@ -1411,6 +1471,7 @@ def phase_delta(torch, g, batches):
         else:
             delta = cap_delta(g_old, dg_old, rng)
         out = {"step": step, "n_add": delta.n_add, "n_del": delta.n_del}
+        applied_deltas[step] = delta
         reports, reruns = {}, {}
         for b, sess in sessions.items():
             entries = len(sess.cache)
@@ -1522,7 +1583,7 @@ def phase_delta(torch, g, batches):
                                      for b in backends} for st in steps},
           "t_update_graph_s": {st["step"]: st["t_update_graph_s"]
                                for st in steps}})
-    return w1_rec
+    return w1_rec, queries, [applied_deltas[s] for s in ("far", "near")]
 
 
 class ZipfSampler:
@@ -1662,6 +1723,12 @@ def stream_replay(engine, events, policy, cost, n_groups: int = 2,
             "admitted": admitted}
 
 
+def batch_cuts(batch_log) -> list:
+    """What admission decided for each micro-batch of a server."""
+    return [(b["n_queries"], b["n_clusters"], b["tenants"], b["n_shed"],
+             b["n_deadline_miss"], b["n_deltas"]) for b in batch_log]
+
+
 def stream_outcome(r) -> tuple:
     """What a result says, comparable across runs."""
     if not r.ok:
@@ -1756,7 +1823,8 @@ def stream_level_stats(np, rep, events, quantum_s: float, window) -> dict:
 
 
 def phase_streaming(torch, g) -> dict:
-    """Phase streaming (see the module docstring)."""
+    """Phase streaming (see the module docstring). Returns the traced
+    level's stream and what the single-device server gave on it."""
     import numpy as np
     from repro_torch.core import (EngineConfig, PathQuery, PathSession,
                                   generators)
@@ -1874,19 +1942,16 @@ def phase_streaming(torch, g) -> dict:
     again = box["again"]
     require(again["admitted"] == first["admitted"],
             "the replay admitted other batches")
-    require([(b["n_queries"], b["n_clusters"], b["tenants"], b["n_shed"],
-              b["n_deadline_miss"], b["n_deltas"]) for b in
-             first["session"].batch_log] ==
-            [(b["n_queries"], b["n_clusters"], b["tenants"], b["n_shed"],
-              b["n_deadline_miss"], b["n_deltas"]) for b in
-             again["session"].batch_log], "the replay's batches differ")
+    require(batch_cuts(first["session"].batch_log)
+            == batch_cuts(again["session"].batch_log),
+            "the replay's batches differ")
     require(sorted(again["results"]) == sorted(first["results"])
             and all(stream_outcome(again["results"][q])
                     == stream_outcome(first["results"][q])
                     for q in first["results"])
             and again["done_t"] == first["done_t"],
             "the replay's sheds or results differ")
-    dev_s = sum(us for _, us in dev_events) / 1e6
+    dev_s = device_ns(dev_events) / 1e9
     determinism = {"level": f"{STREAM_TRACED}x", "equal": True,
                    "batches": len(again["admitted"]),
                    "profiled_wall_s": dev_wall, "device_s": dev_s,
@@ -1898,6 +1963,14 @@ def phase_streaming(torch, g) -> dict:
                        d["t_apply_s"] for d in again["session"]
                        .server.delta_log),
                    "host_s": time.perf_counter() - t0}
+    level_1x = {"g_start": g_start, "events": events, "policy": policy,
+                "cost": cost, "quantum": quantum,
+                "outcomes": {q: stream_outcome(r)
+                             for q, r in first["results"].items()},
+                "done_t": first["done_t"],
+                "batches": batch_cuts(first["session"].batch_log),
+                "stats": next(lv for lv in levels
+                              if lv["offered_mult"] == STREAM_TRACED)}
     del first, again, replay_from
 
     # failover: group 0 dies executing its second item
@@ -1964,6 +2037,342 @@ def phase_streaming(torch, g) -> dict:
            "determinism": determinism, "failover": failover,
            "cache": engine.cache.info(),
            "trace": traced, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return level_1x
+
+
+def stream_overlap(events) -> dict:
+    """Of a window's device events: their summed time, the time at least
+    one was running (the union of their intervals), and the largest
+    number of distinct streams with a kernel running at one instant."""
+    marks = []
+    for name, stream, t0, t1 in events:
+        marks += [(t0, 1, stream, device_kind(name)),
+                  (t1, -1, stream, device_kind(name))]
+    marks.sort(key=lambda m: (m[0], m[1]))
+    live, kernels, busy_ns, widest, last = 0, {}, 0, 0, None
+    for t, step, stream, kind in marks:
+        if live > 0:
+            busy_ns += t - last
+        live += step
+        last = t
+        if kind == "kernel":
+            kernels[stream] = kernels.get(stream, 0) + step
+            widest = max(widest, sum(1 for v in kernels.values() if v > 0))
+    return {"device_ms": device_ns(events) / 1e6,
+            "busy_ms": busy_ns / 1e6, "max_streams_in_flight": widest}
+
+
+def allocator_counts(torch) -> dict:
+    """The caching allocator's counts that a stall on it would move:
+    bytes reserved, device allocations and frees, and the retries after
+    a failed device allocation (each frees every cached block)."""
+    st = torch.cuda.memory_stats()
+    return {"reserved_bytes": st.get("reserved_bytes.all.current", 0),
+            "device_allocs": st.get("num_device_alloc", 0),
+            "device_frees": st.get("num_device_free", 0),
+            "alloc_retries": st.get("num_alloc_retries", 0)}
+
+
+def check_rows_equal(queries, want, got, what: str) -> None:
+    """The same path rows in the same order, counts and flags."""
+    import numpy as np
+    for q, a, b in zip(queries, want, got):
+        require(np.array_equal(a.paths, b.paths) and a.count == b.count
+                and a.exists == b.exists, f"{what}: query {q} differs")
+
+
+def check_per_device(rep, n_queries: int, what: str) -> list:
+    """A fanned-out run's placement: one entry per replica, whose
+    clusters and queries add up to the run's."""
+    pd = rep.stats.get("per_device")
+    require(pd is not None and len(pd) == len(SHARDED_MESH)
+            and rep.stats["n_devices"] == len(SHARDED_MESH),
+            f"{what}: per_device {pd}")
+    require(sum(d["n_clusters"] for d in pd) == rep.stats["n_clusters"]
+            and sum(d["n_queries"] for d in pd) == n_queries,
+            f"{what}: per_device does not add up to the run: {pd}")
+    return pd
+
+
+def placement(pd) -> dict:
+    loads = [d["cost"] for d in pd]
+    mean = sum(loads) / len(loads)
+    return {"per_device": pd,
+            "lpt_makespan_over_mean": max(loads) / mean if mean else None}
+
+
+def phase_sharded(torch, g, main_in, share_in, delta_in, level_1x) -> dict:
+    """Phase sharded (see the module docstring)."""
+    import numpy as np
+    from repro_torch.core import EngineConfig, PathQuery, PathSession
+    from repro_torch.core import build_index
+    from repro_torch.core.clustering import cluster_queries
+    from repro_torch.core.planner import RouterConfig
+    from repro_torch.core.similarity import similarity_matrix
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import metrics as obsmetrics
+
+    t_phase = time.perf_counter()
+    out = {"phase": "sharded", "mesh": SHARDED_MESH,
+           "device_count": torch.cuda.device_count()}
+
+    def launched(what: str, kernels=STREAM_KERNELS) -> dict:
+        got = {k: LAUNCHES[k] for k in kernels}
+        require(all(v > 0 for v in got.values()),
+                f"{what}: a kernel of the path never launched: {got}")
+        return got
+
+    # the main batch (plan_caps=False) against phase main's cold run
+    queries, main_report, main_warm = main_in
+    s4 = PathSession(g, EngineConfig(plan_caps=False), mesh=SHARDED_MESH,
+                     device="cuda")
+    ex = s4.engine.executor
+    require(ex.n_replicas == len(SHARDED_MESH) and ex.sharded
+            and ex.index_dg is s4.engine.dg, "the mesh was not taken")
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = s4.run(queries, planner="batch")
+    host = time.perf_counter() - t0
+    check_rows_equal(queries, main_report, rep, "main batch, 4 replicas")
+    require(rep.stats["n_clusters"] == main_report.stats["n_clusters"],
+            "main batch: the clusters differ")
+    pd = check_per_device(rep, len(queries), "main batch")
+    out["main"] = {"host_wall_s": host, "t_wall_s": rep.stats["t_wall_s"],
+                   "t_fanout_s": rep.stats["t_fanout_s"],
+                   "t_place_s": rep.stats["t_place_s"],
+                   "n_clusters": rep.stats["n_clusters"],
+                   "stats": {k: rep.stats[k] for k in STAT_KEYS},
+                   "phase_main_warm_t_wall_s": [w["t_wall_s"]
+                                                for w in main_warm],
+                   # plan_caps=False: no walk counts, no ell_spmm
+                   "launches": launched("main batch, 4 replicas",
+                                        FIRST_SLICE),
+                   **placement(pd)}
+    del s4, rep
+
+    # the sharing batch: the identity mesh against phase planners, then
+    # four replicas. It forms one cluster, which no mesh splits, so the
+    # four-replica engine balances it into as many clusters as replicas;
+    # its reference is the identity engine on that same partition.
+    share, planner_reports = share_in
+    s1 = PathSession(g, EngineConfig(n_devices=1), device="cuda")
+    require(not s1.engine.executor.sharded, "n_devices=1 is sharded")
+    ident = {}
+    for planner in ("batch", "auto"):
+        r1 = s1.run(share, planner=planner)
+        ref = planner_reports[planner]
+        check_rows_equal(share, ref, r1, f"sharing {planner}, n_devices=1")
+        require("per_device" not in r1.stats
+                and r1.stats["n_clusters"] == ref.stats["n_clusters"]
+                and r1.stats.get("cluster_planners")
+                == ref.stats.get("cluster_planners")
+                and r1.routes == ref.routes,
+                f"sharing {planner}: n_devices=1 is not the identity")
+        ident[planner] = {"n_clusters": r1.stats["n_clusters"],
+                          "cluster_routes": r1.stats.get("cluster_routes")}
+    out["identity"] = ident
+    s4 = PathSession(g, EngineConfig(balance_clusters=True),
+                     mesh=SHARDED_MESH, device="cuda")
+    index = build_index(s4.engine.dg, share)
+    clusters = cluster_queries(similarity_matrix(index),
+                               s4.engine.cfg.gamma,
+                               min_clusters=len(SHARDED_MESH))
+    # the first, cold four-replica run, under a card-only profiler and
+    # between two readings of the caching allocator
+    runs = {}
+    mem0, box = allocator_counts(torch), {}
+    events, wall = trace_device(torch, lambda: box.update(
+        rep=s4.run(share, planner="batch")))
+    rep = box["rep"]
+    mem1 = allocator_counts(torch)
+    runs["batch_launches"] = launched("sharing batch, 4 replicas")
+    cold = [d["t_wall_s"] for d in rep.stats["per_device"]]
+    heavy = max(range(len(cold)),
+                key=lambda i: rep.stats["per_device"][i]["cost"])
+    runs["cold"] = {"replica_t_wall_s": cold,
+                    "t_fanout_s": rep.stats["t_fanout_s"],
+                    "t_place_s": rep.stats["t_place_s"],
+                    "wall_s": wall, **stream_overlap(events),
+                    "allocator": {k: mem1[k] - mem0[k] for k in mem0},
+                    "reserved_bytes": mem1["reserved_bytes"]}
+    require(all(w <= SHARDED_COLD_MAX_S for i, w in enumerate(cold)
+                if i != heavy),
+            f"sharing batch, cold: a light replica took over "
+            f"{SHARDED_COLD_MAX_S} s: {runs['cold']}")
+    require(rep.stats["n_clusters"] == len(clusters),
+            f"sharing batch: {rep.stats['n_clusters']} clusters, balanced "
+            f"partition {len(clusters)}")
+    ref_batch = s1.run(share, planner="batch", clusters=clusters)
+    check_rows_equal(share, ref_batch, rep, "sharing batch, 4 replicas")
+    for key in ("n_clusters", "n_psi_nodes", "n_materialized", "n_shared"):
+        require(rep.stats[key] == ref_batch.stats[key],
+                f"sharing batch: {key} {rep.stats[key]} != "
+                f"{ref_batch.stats[key]}")
+    runs["batch"] = placement(check_per_device(rep, len(share),
+                                               "sharing batch"))
+    rep = s4.run(share, planner="basic")
+    check_rows_equal(share, s1.run(share, planner="basic"), rep,
+                     "sharing basic, 4 replicas")
+    ref = s1.run(share, planner="auto", clusters=clusters)
+    reset_launches()
+    rep = s4.run(share, planner="auto", clusters=clusters)
+    check_rows_equal(share, ref, rep, "sharing auto, 4 replicas")
+    require(rep.stats["n_clusters"] == ref.stats["n_clusters"]
+            and rep.stats["cluster_planners"]
+            == ref.stats["cluster_planners"],
+            "sharing auto: clusters or cluster planners differ")
+    # the router's RED rule on this run's clusters: a cluster routes RED
+    # iff its summed estimate clears red_min_cost
+    qs = [PathQuery.coerce(q) for q in share]
+    dists = (index.dist_s.cpu().numpy(), index.dist_t.cpu().numpy())
+    est = {e.qi: e for e in s4.engine.router.estimate(index, qs, dists)}
+    kept = [[qi for qi in cl if est[qi].route.value != "green"]
+            for cl in clusters]
+    costs = [sum(est[qi].cost for qi in cl) for cl in kept if cl]
+    red_min = s4.engine.router.cfg.red_min_cost
+    require(rep.stats["cluster_routes"]
+            == ["red" if c >= red_min else "yellow" for c in costs],
+            f"sharing auto: routes {rep.stats['cluster_routes']} for costs "
+            f"{costs} at red_min_cost {red_min}")
+    runs["auto"] = {"cluster_costs": costs, "red_min_cost": red_min,
+                    "cluster_routes": rep.stats["cluster_routes"],
+                    "routed_red": rep.stats["routed_red"],
+                    "identity_routes": ref.stats["cluster_routes"]}
+    if not rep.stats["routed_red"]:
+        # no cluster clears the default at these costs: the heaviest
+        # cluster's own cost as the threshold, where it must route RED
+        red_min = max(costs)
+        s_red = PathSession(g, EngineConfig(
+            balance_clusters=True, router=RouterConfig(red_min_cost=red_min)),
+            mesh=SHARDED_MESH, device="cuda")
+        rep = s_red.run(share, planner="auto", clusters=clusters)
+        check_rows_equal(share, ref, rep, "sharing auto, RED threshold")
+        require(rep.stats["routed_red"] > 0
+                and "red" in rep.stats["cluster_routes"],
+                f"no RED at red_min_cost {red_min}: {rep.stats}")
+        runs["auto_red"] = {"red_min_cost": red_min,
+                            "cluster_routes": rep.stats["cluster_routes"],
+                            "routed_red": rep.stats["routed_red"],
+                            "per_device": rep.stats.get("per_device")}
+        del s_red
+    runs["auto_launches"] = dict(LAUNCHES)
+
+    # warm walls, and one warm run under a card-only profiler
+    walls = {"4": [], "1": []}
+    for _ in range(3):
+        for key, fn in (("4", lambda: s4.run(share, planner="batch")),
+                        ("1", lambda: s1.run(share, planner="batch",
+                                             clusters=clusters))):
+            walls[key].append(fn().stats["t_wall_s"])
+    box = {}
+    events, wall = trace_device(torch, lambda: box.update(
+        rep=s4.run(share, planner="batch")))
+    rep = box["rep"]
+    check_rows_equal(share, ref_batch, rep, "profiled sharing batch")
+    level_streams = {st for name, st, *_ in events
+                     if "expand_level_kernel" in name}
+    require(len(level_streams) >= 2,
+            f"level_fused ran on {len(level_streams)} stream(s)")
+    ov = stream_overlap(events)
+    out["sharing"] = {
+        "queries": len(share), "n_clusters": len(clusters), **runs,
+        "warm_t_wall_s": {f"{k}_replicas": {"median": statistics.median(v),
+                                            "runs": v}
+                          for k, v in walls.items()},
+        "profile": {"wall_s": wall, "t_fanout_s": rep.stats["t_fanout_s"],
+                    "device_events": len(events),
+                    "level_fused_streams": len(level_streams),
+                    "streams": len({st for _, st, *_ in events}),
+                    **ov, "busy_share": ov["busy_ms"] / (wall * 1e3),
+                    "device_over_fanout":
+                        ov["device_ms"] / (rep.stats["t_fanout_s"] * 1e3),
+                    "replica_t_wall_s": [d["t_wall_s"] for d in
+                                         rep.stats["per_device"]]}}
+    del s1, s4, rep, box, events
+
+    # deltas: a plain and a four-replica engine, phase delta's far and
+    # near deltas on both
+    dqs = [q for q in queries if q[2] == 4]
+    far, near = delta_in
+    plain = PathSession(g, EngineConfig(cache_bytes=64 << 20), device="cuda")
+    four = PathSession(g, EngineConfig(cache_bytes=64 << 20),
+                       mesh=SHARDED_MESH, device="cuda")
+    check_rows_equal(dqs, plain.run(dqs), four.run(dqs), "delta cold")
+    steps = []
+    for step, delta in (("far", far), ("near", near)):
+        rp, r4 = plain.apply_delta(delta), four.apply_delta(delta)
+        epochs = r4.get("cache_epochs", [])
+        require(r4["n_touched"] == rp["n_touched"]
+                and len(epochs) == len(SHARDED_MESH)
+                and set(epochs) == {rp["cache_epoch"]},
+                f"delta {step}: {r4} against {rp}")
+        # cache_evicted / cache_kept count the primary's cache, which
+        # holds only replica 0's clusters: not compared
+        for key in ("cache_mode", "device_update", "n_added", "n_removed"):
+            require(r4.get(key) == rp.get(key), f"delta {step}: {key}")
+        eng = four.engine
+        for rep4 in eng.executor.replicas()[1:]:
+            require(torch.equal(rep4.dg.ell_idx, eng.dg.ell_idx)
+                    and torch.equal(rep4.dg.r_ell_idx, eng.dg.r_ell_idx),
+                    f"delta {step}: a replica's tables differ")
+        a, b = plain.run(dqs), four.run(dqs)
+        check_rows_equal(dqs, a, b, f"delta {step} rerun")
+        steps.append({"step": step, "plain": rp, "four": r4,
+                      "rerun_t_wall_s": [a.stats["t_wall_s"],
+                                         b.stats["t_wall_s"]],
+                      "rerun_cache_hits": [a.stats["n_cache_hits"],
+                                           b.stats["n_cache_hits"]]})
+    out["delta"] = {"queries": len(dqs), "steps": steps}
+    del plain, four
+
+    # serving: the traced streaming level on a four-replica engine
+    lv = level_1x
+    engine = PathSession(lv["g_start"], EngineConfig(
+        min_cap=64, cache_bytes=64 << 20), mesh=SHARDED_MESH,
+        device="cuda").engine
+    msnap = obsmetrics.registry().snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = stream_replay(engine, lv["events"], lv["policy"], lv["cost"])
+    srv = rep["session"].server
+    serve_launches = launched("sharded serving")
+    require(sorted(rep["results"]) == sorted(lv["outcomes"])
+            and all(stream_outcome(rep["results"][q]) == lv["outcomes"][q]
+                    for q in lv["outcomes"])
+            and rep["done_t"] == lv["done_t"],
+            "sharded serving: results or completion times differ")
+    require(batch_cuts(srv.batch_log) == lv["batches"],
+            "sharded serving: other batches")
+    require(srv.sched.steals == 0 and rep["admitted"] == [],
+            "sharded serving went through the stealing loop")
+    inline = 0
+    for b in srv.batch_log:
+        if b["n_clusters"] > 1:
+            require(b.get("n_devices") == len(SHARDED_MESH)
+                    and len(b["per_device"]) == len(SHARDED_MESH)
+                    and sum(d["n_clusters"] for d in b["per_device"])
+                    == b["n_clusters"],
+                    f"sharded serving: a batch without placement: {b}")
+        else:
+            inline += 1          # one cluster: the executor runs it inline
+            require("per_device" not in b, f"one cluster fanned out: {b}")
+    stats = stream_level_stats(np, rep, lv["events"], lv["quantum"],
+                               obsmetrics.registry().since(msnap))
+    one_p50 = lv["stats"]["batch_wall_p50_s"]
+    require(stats["batch_wall_p50_s"] <= SHARDED_SERVE_MAX_X * one_p50,
+            f"sharded serving: batch wall p50 {stats['batch_wall_p50_s']} "
+            f"s, over {SHARDED_SERVE_MAX_X}x one replica's {one_p50} s")
+    out["serving"] = {
+        "batches": len(srv.batch_log), "one_cluster_batches": inline,
+        "p50_x": stats["p50_x"], "p99_x": stats["p99_x"],
+        "batch_wall_p50_s": stats["batch_wall_p50_s"],
+        "single_device": {k: lv["stats"][k] for k in
+                          ("p50_x", "p99_x", "batch_wall_p50_s")},
+        "n_ok": stats["n_ok"], "n_nonempty": stats["n_nonempty"],
+        "steals": srv.sched.steals, "launches": serve_launches,
+        "exactly_once": True, "host_s": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -3035,17 +3444,20 @@ def main(argv=None) -> int:
     dev_info = phase_device(torch)
     phase_build()
     g, queries = phase_workload(args.n, args.queries)
-    session, main_rec, launches, main_report, main_index = phase_main(
-        torch, g, queries)
+    session, main_rec, launches, main_report, main_index, main_warm = \
+        phase_main(torch, g, queries)
     share_rec, join_rec, share_launches, share_queries, share_report = \
         phase_sharing(torch, g, session, args.sharing_queries)
-    plan_rec, plan_launches = phase_planners(
+    plan_rec, plan_launches, plan_reports = phase_planners(
         torch, g, session, queries, main_report, share_queries, share_report)
     phase_cache(g, share_queries, share_report)
-    w1_rec = phase_delta(torch, g, (
+    w1_rec, _, deltas = phase_delta(torch, g, (
         ("sharing", share_queries), ("main", queries),
         ("main, k = 4", [q for q in queries if q[2] == 4])))
-    phase_streaming(torch, g)
+    level_1x = phase_streaming(torch, g)
+    phase_sharded(torch, g, (queries, main_report, main_warm),
+                  (share_queries, plan_reports), deltas, level_1x)
+    del level_1x, plan_reports
     ops = phase_ops(torch, g, main_rec, join_rec)
     del g, session, main_report, share_report       # the graph state
     gc.collect()

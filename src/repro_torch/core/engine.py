@@ -1,5 +1,6 @@
 """BatchPathEngine: BasicEnum (Alg 1), BatchEnum (Alg 4), the "+" variants,
-the PathEnum baseline and cost-routed AUTO, on one device.
+the PathEnum baseline and cost-routed AUTO, on one device or fanned out
+over engine replicas.
 
 Counterpart of ``repro/core/engine.py``. The host planner (clustering +
 detection) emits per-cluster DirectionPlans; this module materializes HC-s
@@ -11,7 +12,10 @@ default) with overflow-retry (x4, up to ``hard_cap``).
 
 The engine runs on one device (``"cuda"`` unless the caller passes
 ``device="cpu"``), and each kernel takes the arm of that device: the CUDA
-kernels on the card, their plain versions on the CPU.
+kernels on the card, their plain versions on the CPU. With a mesh
+(``EngineConfig.mesh``, a device list, or ``n_devices``) its executor
+(:class:`~repro_torch.core.distributed.ShardedExecutor`) places the
+batch's clusters on engine replicas, each on its own CUDA stream.
 
 Incremental edge deltas (:meth:`BatchPathEngine.apply_delta`) patch the
 device tables and invalidate the cache hop-scoped, pricing the damage on
@@ -27,10 +31,9 @@ level's span fences its frontier when the tracer runs with
 ``fence=True``. ``EngineConfig.trace`` turns recording on.
 
 Not in this port yet, and refused with ``NotImplementedError`` instead of
-silently degrading: sharding (``mesh`` / ``n_devices > 1``), compile
-telemetry (``log_compiles``), the profiler bridge (``trace_annotations``),
-and the knob of the segment arm (``edge_chunk``) when set away from its
-default.
+silently degrading: compile telemetry (``log_compiles``), the profiler
+bridge (``trace_annotations``), and the knob of the segment arm
+(``edge_chunk``) when set away from its default.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from .clustering import cluster_queries
 from .delta import (AppliedDelta, GraphDelta, apply_delta as _merge_delta,
                     host_set_dist, pow2_ceil as _pow2, update_device_graph)
 from .detect import DirectionPlan, PlanNode, detect_common_queries
+from .distributed import ShardedExecutor, resolve_mesh
 from .enumerate import (count_ending_at, expand_level, extract_rows,
                         prune_table, select_ending_at)
 from .graph import DeviceGraph, Graph
@@ -71,7 +75,8 @@ Query = tuple[int, int, int]
 # backward enumeration when a forward level already answers exists-only
 Levels = Callable[[], list]
 
-_NEXT_SLICE = "the next slice of the PyTorch/CUDA port"
+# where each refused option's port is queued (ROADMAP.md)
+_QUEUED = "ROADMAP.md queue 1, item 3 (observability and analysis)"
 
 
 class EngineOverflow(RuntimeError):
@@ -99,9 +104,12 @@ class EngineConfig:
     delta_max_sources: int = 1024   # wider touched sets: full invalidation
     delta_backend: str = "host"     # "host" CSR walk, else the MS-BFS sweep
     log_compiles: bool = False      # compile telemetry (not ported)
-    mesh: Optional[object] = None   # sharding (not ported)
+    mesh: Optional[Sequence] = None  # devices of the cluster replicas
+    # (entry 0 the engine's own, repeats allowed); None + n_devices -> the
+    # first N local devices of the engine's type (1 = identity mesh)
     n_devices: Optional[int] = None
-    balance_clusters: bool = False  # only acts on sharded runs
+    balance_clusters: bool = False  # sharded runs stop cluster merging at
+    # n_replicas clusters so no replica idles on an over-merged batch
     trace: bool = False             # record stage spans into the process
     # tracer (Chrome-trace exportable); off = spans still time every stage
     trace_fence: bool = False       # synchronize fenced tensors' devices
@@ -124,18 +132,17 @@ class BatchResult:
 
 def _check_config(cfg: EngineConfig) -> None:
     """Refuse every option whose code is not ported yet."""
-    refused = {
-        "mesh (sharded execution)": cfg.mesh is not None,
-        "n_devices>1 (sharded execution)": (cfg.n_devices or 0) > 1,
-        "log_compiles=True (compile telemetry)": cfg.log_compiles,
-        "trace_annotations=True (the profiler bridge)":
-            cfg.trace_annotations,
-        "edge_chunk (the segment arm)": cfg.edge_chunk != 1 << 22,
-    }
-    for what, bad in refused.items():
+    refused = (
+        ("log_compiles=True (compile telemetry)", cfg.log_compiles, _QUEUED),
+        ("trace_annotations=True (the profiler bridge)",
+         cfg.trace_annotations, _QUEUED),
+        ("edge_chunk (the segment arm)", cfg.edge_chunk != 1 << 22,
+         "ROADMAP.md queue 1, 'the mesh-parallel index'"),
+    )
+    for what, bad, item in refused:
         if bad:
             raise NotImplementedError(f"EngineConfig {what} is not ported "
-                                      f"yet; it comes with {_NEXT_SLICE}")
+                                      f"yet; it comes with {item}")
 
 
 def _bucket(x: int, min_cap: int = 256) -> int:
@@ -158,6 +165,11 @@ class BatchPathEngine:
         self.kernel_arm = resolve_arm(self.device, self.cfg.kernel_backend)
         self.dg = DeviceGraph.build(graph, self.device)
         self._host_dists: Optional[tuple] = None   # (index, (dist_s, dist_t))
+        # plan -> place -> gather layer; identity on a single device (the
+        # executor IS the cluster-execution loop for every engine)
+        self.executor: Optional[ShardedExecutor] = ShardedExecutor(
+            self, resolve_mesh(self.cfg.mesh, self.cfg.n_devices,
+                               self.device))
         if cache is None and self.cfg.cache_bytes > 0:
             cache = SharedPathCache(self.cfg.cache_bytes)
         self.cache = cache
@@ -171,15 +183,26 @@ class BatchPathEngine:
 
     @contextlib.contextmanager
     def stage(self, name: str, **attrs):
-        """One stage: a span of the engine's tracer that ends in a device
-        synchronize, so asynchronous kernels are charged to the stage that
-        launched them."""
+        """One stage: a span of the engine's tracer that ends in a fence
+        (:meth:`_fence`), so asynchronous kernels are charged to the stage
+        that launched them."""
         with self.obs.span(name, **attrs) as sp:
             try:
                 yield sp
             finally:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                self._fence()
+
+    def _fence(self) -> None:
+        """Wait for this engine's launched work: the whole device, except
+        inside a cluster fan-out, where a replica waits for its own stream
+        only (a device-wide synchronize would charge every replica's
+        stage with the others' work)."""
+        if self.device.type != "cuda":
+            return
+        if self.executor is None or self.executor.in_fanout:
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            torch.cuda.synchronize(self.device)
 
     def set_graph(self, graph: Graph) -> None:
         """Swap the graph wholesale: rebuild the device views and drop
@@ -190,8 +213,11 @@ class BatchPathEngine:
         self.g = graph
         self.dg = DeviceGraph.build(graph, self.device)
         self._host_dists = None
-        if self.cache is not None:
-            self.cache.invalidate()
+        # replica caches invalidate BEFORE the replicas are dropped so a
+        # swap bumps every epoch in lockstep with the primary
+        for cache in self._all_caches():
+            cache.invalidate()
+        self.executor.reset()
 
     def apply_delta(self, delta: GraphDelta) -> dict:
         """Apply an incremental edge delta; returns an application report.
@@ -232,13 +258,21 @@ class BatchPathEngine:
                                            else "rebuild")
                 self.g = applied.graph
                 self._host_dists = None
+                # replica tables patch in lockstep; their caches were
+                # already invalidated above with the same distance sweep
+                self.executor.propagate_delta(applied)
         report["t_apply_s"] = sp.duration
         return report
 
     def _all_caches(self) -> list[SharedPathCache]:
-        """Every cache that an invalidation event reaches: the primary
-        cache only (the reference adds its sharded replicas' caches)."""
-        return [] if self.cache is None else [self.cache]
+        """Primary cache + every materialized replica's cache. All of
+        them receive each invalidation event (same dists, same order), so
+        their epochs advance in lockstep; replicas created later sync the
+        epoch at birth (see ``distributed.ShardedExecutor._clone``)."""
+        caches = [] if self.cache is None else [self.cache]
+        if self.executor is not None:
+            caches += self.executor.replica_caches()
+        return caches
 
     def _invalidate_for(self, applied: AppliedDelta) -> dict:
         """Cache invalidation for one merged delta (the cache must
@@ -471,16 +505,18 @@ class BatchPathEngine:
     def _run_clustered(self, queries, index: QueryIndex, plus: bool, stats,
                        clusters: Optional[list[list[int]]] = None, *,
                        subset: Optional[list[int]] = None,
-                       ests: Optional[dict] = None) -> dict:
+                       ests: Optional[dict] = None,
+                       routes: Optional[dict] = None) -> dict:
         """Cluster → (route) → execute; returns ``{qi: QueryResult}``.
 
-        The shared body of the batch planners and the AUTO YELLOW tier.
-        ``subset`` restricts clustering to those query indices (AUTO runs
-        it on the non-GREEN remainder; similarity rows are sliced, cluster
-        members stay *global* indices). With ``ests`` (qi →
-        :class:`~repro_torch.core.planner.CostEstimate`) the router picks
-        each cluster's planner (basic vs. batch) and tier (YELLOW: RED
-        needs a mesh, so no route is ever upgraded on one device).
+        The shared body of the batch planners and the AUTO YELLOW/RED
+        tier. ``subset`` restricts clustering to those query indices
+        (AUTO runs it on the non-GREEN remainder; similarity rows are
+        sliced, cluster members stay *global* indices). With ``ests``
+        (qi → :class:`~repro_torch.core.planner.CostEstimate`) the router
+        picks each cluster's planner (basic vs. batch) and tier -- RED
+        only on a mesh; ``routes`` entries are upgraded in place for RED
+        members.
         """
         qis = list(range(len(queries))) if subset is None else list(subset)
         with self.stage("cluster.queries",
@@ -493,7 +529,11 @@ class BatchPathEngine:
                         max(len(queries) * (len(queries) - 1), 1))
                 else:
                     mu = mu[np.ix_(qis, qis)]
-                local = cluster_queries(mu, self.cfg.gamma)
+                min_clusters = 1
+                if self.cfg.balance_clusters:
+                    min_clusters = self.executor.n_replicas
+                local = cluster_queries(mu, self.cfg.gamma,
+                                        min_clusters=min_clusters)
                 clusters = [[qis[i] for i in cl] for cl in local]
             else:
                 seen = [qi for cl in clusters for qi in cl]
@@ -517,21 +557,19 @@ class BatchPathEngine:
                                                     self.cache is not None)
                         for cl in clusters]
             stats["cluster_planners"] = list(planners)
-            stats["cluster_routes"] = [
-                self.router.cluster_route(cl, ests, False).value
-                for cl in clusters]
-        # one device: the reference executor's inline cluster loop, with
-        # the router's per-cluster planner choice
-        results: dict = {}
-        for ci, cluster in enumerate(clusters):
-            work = self._cluster_basic if (
-                planners is not None and planners[ci] == "basic") \
-                else self._cluster_work
-            out, cstats = work(queries, index, plus, min_sb, cluster)
-            results.update(out)
-            for key, val in cstats.items():
-                stats[key] = stats.get(key, 0) + val
-        return results
+            croutes = [self.router.cluster_route(cl, ests,
+                                                 self.executor.sharded)
+                       for cl in clusters]
+            stats["cluster_routes"] = [r.value for r in croutes]
+            if routes is not None:
+                for cl, r in zip(clusters, croutes):
+                    if r is Route.RED:
+                        for qi in cl:
+                            routes[qi] = Route.RED
+        # plan -> place -> gather: the executor runs every cluster --
+        # inline on one device, fanned across the replicas on a mesh
+        return self.executor.run_clusters(queries, index, plus, min_sb,
+                                          clusters, stats, planners=planners)
 
     # ------------------------------------------------------------------
     # AUTO: cost-routed GREEN/YELLOW/RED tiers (core.planner)
@@ -575,7 +613,7 @@ class BatchPathEngine:
                 clusters = [cl for cl in clusters if cl]
             results.update(self._run_clustered(
                 queries, index, plus, stats, clusters,
-                subset=rest, ests={e.qi: e for e in ests}))
+                subset=rest, ests={e.qi: e for e in ests}, routes=routes))
 
         reg = obsmetrics.registry()
         for route in Route:
@@ -1011,9 +1049,12 @@ class BatchPathEngine:
         k = index.queries[qi][2]
         col = index.tgt_col[qi] if forward else index.src_col[qi]
         dist = index.dist_t if forward else index.dist_s
+        # the index lives on the primary's device; a replica on another
+        # card takes its slack over (on the same device .to is a no-op)
         return slack_from_dists(dist[:, int(col)][:, None],
                                 np.array([k], np.int32),
-                                np.array([0], np.int32), index.INF)
+                                np.array([0], np.int32),
+                                index.INF).to(self.device)
 
     def _node_slack(self, index: QueryIndex, consumers,
                     forward: bool) -> torch.Tensor:
@@ -1024,7 +1065,7 @@ class BatchPathEngine:
         dist = index.dist_t if forward else index.dist_s
         cols = dist[:, torch.as_tensor(col, dtype=torch.int64,
                                        device=dist.device)]
-        return slack_from_dists(cols, ks, offs, index.INF)
+        return slack_from_dists(cols, ks, offs, index.INF).to(self.device)
 
     def _dists_host(self, index: QueryIndex):
         """Host copies of the index distances, made once per index (the

@@ -1,7 +1,9 @@
 """Cost-routed adaptive planning: GREEN / YELLOW / RED query tiers.
 
-A copy of ``repro/core/planner.py`` (host code). The port has no sharded
-executor yet, so RED always degrades to YELLOW here.
+A copy of ``repro/core/planner.py`` (host code), but for the ball costs:
+the router reads them for the whole batch at once, counted on the index's
+device (:func:`repro_torch.core.distributed.query_ball_costs`, the same
+floats as the reference's per-query ``query_ball_cost``).
 
 One global ``Planner`` flag leaves time on the table for mixed batches:
 trivial queries (short hop budget, tiny frontier ball, exists-only) pay
@@ -10,7 +12,7 @@ their enumeration, while genuinely heavy clusters are exactly where that
 machinery — and sharded placement — earns its keep. This module routes
 each query by a cost estimate read straight off the index distance
 matrices (the same per-query term LPT placement already uses, see
-:func:`repro_torch.core.distributed.query_ball_cost`):
+:func:`repro_torch.core.distributed.query_ball_costs`):
 
   * **GREEN**  -- direct bidirectional sweep off the shared index; skips
                   similarity, clustering, detection and the cross-batch
@@ -23,7 +25,7 @@ matrices (the same per-query term LPT placement already uses, see
                   shared enumeration -> ⊕ assembly).
   * **RED**    -- heavy clusters on a sharded engine: cost-balanced LPT
                   placement across the per-device replicas of
-                  ``ShardedExecutor`` (not ported).
+                  ``ShardedExecutor``.
                   Without a mesh the tier degrades to YELLOW (there is
                   nothing to place on).
 
@@ -35,10 +37,11 @@ paying Ψ detection — decided from the same cost model, not a global
 may only change wall time, never results (the AUTO-vs-forced parity
 tests pin this).
 
-Estimation cost is one host pass over the already-memoized distance
-matrices (``BatchPathEngine._dists_host``) — no device transfer, no
-kernel launch; the ``route.estimate`` span and the
-``routed_green|yellow|red`` counters make it observable.
+Estimation reads the already-memoized host distances
+(``BatchPathEngine._dists_host``) for reachability and counts the balls
+with one reduction per hop budget on the index's device; the
+``route.estimate`` span and the ``routed_green|yellow|red`` counters make
+it observable.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ import dataclasses
 import enum
 from typing import Optional, Sequence
 
-from .distributed import query_ball_cost
+from .distributed import query_ball_costs
 from .query import Output, PathQuery
 
 __all__ = ["Route", "CostEstimate", "RouterConfig", "CostRouter",
@@ -106,15 +109,16 @@ class CostRouter:
                  dists: tuple) -> list[CostEstimate]:
         """One :class:`CostEstimate` per query.
 
-        ``dists`` is the engine's host-dist memo ``(dist_s, dist_t)`` —
-        required, never transferred here, so estimation costs one numpy
-        pass however often the serving loop calls it.
+        ``dists`` is the engine's host-dist memo ``(dist_s, dist_t)``,
+        read for each query's reachability; the ball costs are counted
+        on the index's device, and only the counts come back.
         """
         ds = dists[0]
         cfg = self.cfg
+        raws = query_ball_costs(index, range(len(queries)))
         ests = []
         for qi, q in enumerate(queries):
-            raw = query_ball_cost(index, qi, dists)
+            raw = raws[qi]
             reachable = int(ds[q.t, index.src_col[qi]]) <= q.k
             if not reachable or q.output is Output.EXISTS:
                 # the index build already decided these: nothing to route

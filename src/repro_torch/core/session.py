@@ -59,6 +59,11 @@ class PathSession:
     device : where the engine runs; ``None`` means ``"cuda"`` and raises
         when CUDA is absent -- pass ``"cpu"`` to run the plain kernel
         versions on the CPU.
+    mesh / n_devices : sharded execution (``EngineConfig.mesh`` /
+        ``n_devices`` overrides): ``mesh`` is a device list whose entry 0
+        is ``device`` (repeats allowed: ``["cuda:0"] * 4`` is four
+        replicas on one card); ``n_devices=N`` takes the first N local
+        devices of ``device``'s type. Ignored when wrapping an engine.
     kernel_backend : ``"torch"`` | ``"cuda"``, overriding
         ``EngineConfig.kernel_backend``; it must agree with the device.
     trace : record stage spans into the process-wide
@@ -81,6 +86,7 @@ class PathSession:
                  planner: Union[Planner, str] = Planner.BATCH,
                  cache: Optional[SharedPathCache] = None,
                  device: Union[torch.device, str, None] = None,
+                 mesh=None, n_devices: Optional[int] = None,
                  kernel_backend: Optional[str] = None,
                  trace: Optional[bool] = None,
                  n_groups: int = 2, policy=None,
@@ -90,6 +96,9 @@ class PathSession:
         if isinstance(graph, BatchPathEngine):
             self.engine = graph
         else:
+            if mesh is not None or n_devices is not None:
+                config = dataclasses.replace(config or EngineConfig(),
+                                             mesh=mesh, n_devices=n_devices)
             if kernel_backend is not None:
                 config = dataclasses.replace(config or EngineConfig(),
                                              kernel_backend=kernel_backend)

@@ -9,7 +9,7 @@ picks between them by the tensors' device (:mod:`.registry`). The kernels
 build with ``nvcc`` at first use (:mod:`.build`).
 """
 from .registry import (KERNELS, LAUNCHES, ROUTE_COUNTS,  # noqa: F401
-                       KernelArm, reset_launches, resolve_arm)
+                       KernelArm, count_launch, reset_launches, resolve_arm)
 
 __all__ = ["KernelArm", "resolve_arm", "KERNELS", "ROUTE_COUNTS",
-           "LAUNCHES", "reset_launches"]
+           "LAUNCHES", "count_launch", "reset_launches"]

@@ -5,7 +5,9 @@ compiles with ``nvcc`` alone (no PyTorch headers) into its own shared
 library under ``build/kernels/`` at the root of the checkout. The file name
 carries a hash of the sources, so an edited kernel is rebuilt and a stale
 library is never loaded. :func:`build` starts one ``nvcc`` per source, all
-at once; :func:`load` builds on first use.
+at once; :func:`load` builds on first use, under one lock, so threads that
+load a library together (the sharded executor's replicas) run one
+``nvcc`` and never share its temporary file.
 
 Every exported C function launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into a
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Iterable, Sequence
@@ -101,6 +104,9 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, dict]:
     return report
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def _cdll(name: str) -> ctypes.CDLL:
     build([name])
@@ -114,11 +120,12 @@ def load(name: str, signatures: dict[str, Sequence]) -> ctypes.CDLL:
     """The library of source ``name`` (built on first use) with the
     argument types of its exported functions declared; every function
     returns an ``int`` CUDA error code."""
-    lib = _cdll(name)
-    for fn, argtypes in signatures.items():
-        f = getattr(lib, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+    with _LOAD_LOCK:
+        lib = _cdll(name)
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
     return lib
 
 

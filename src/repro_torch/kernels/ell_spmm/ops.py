@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from .. import build
-from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
+from ..registry import (ArmLike, KernelArm, check_tensor, count_launch,
                         resolve_arm)
 
 __all__ = ["ell_aggregate", "ell_spmm_ref", "ell_spmm_cuda", "f1_route",
@@ -91,8 +91,7 @@ def ell_spmm_cuda(ell_idx: torch.Tensor, xs: torch.Tensor,
                              out.data_ptr(), V, D, F, OPS.index(op), int(f1),
                              stream)
     build.check(lib, rc, "ell_spmm")
-    LAUNCHES["ell_spmm"] += 1
-    LAUNCHES["ell_gather_f1"] += f1
+    count_launch("ell_spmm", *(("ell_gather_f1",) if f1 else ()))
     return out
 
 

@@ -41,7 +41,7 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..registry import LAUNCHES, ArmLike, KernelArm, resolve_arm
+from ..registry import ArmLike, KernelArm, count_launch, resolve_arm
 
 __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
            "flash_attention_cuda", "attention_route", "attention_plan",
@@ -270,8 +270,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         chunk, splits,
         part_o, part_ml, stream)
     build.check(lib, rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES[f"attn_{route}"] += 1
+    count_launch("flash_attention", f"attn_{route}")
     return out
 
 

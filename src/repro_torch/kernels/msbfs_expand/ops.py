@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from .. import build
-from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
+from ..registry import (ArmLike, KernelArm, check_tensor, count_launch,
                         resolve_arm)
 
 __all__ = ["pack_bits", "unpack_bits", "wrap_int32", "msbfs_step",
@@ -123,7 +123,7 @@ def msbfs_step_cuda(ell_idx: torch.Tensor, frontier: torch.Tensor,
                                visited.data_ptr(), dist.data_ptr(),
                                out.data_ptr(), V, D, W, hop, stream)
     build.check(lib, rc, "msbfs_step")
-    LAUNCHES["msbfs_step"] += 1
+    count_launch("msbfs_step")
     return out
 
 
@@ -179,7 +179,7 @@ def msbfs_expand_cuda(ell_idx: torch.Tensor,
     rc = lib.msbfs_expand_launch(ell_idx.data_ptr(), frontier.data_ptr(),
                                  out.data_ptr(), V, D, W, stream)
     build.check(lib, rc, "msbfs_expand")
-    LAUNCHES["msbfs_expand"] += 1
+    count_launch("msbfs_expand")
     return out
 
 

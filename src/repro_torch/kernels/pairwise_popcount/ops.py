@@ -24,7 +24,7 @@ import torch
 
 from .. import build
 from ..msbfs_expand.ops import pack_bits
-from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
+from ..registry import (ArmLike, KernelArm, check_tensor, count_launch,
                         resolve_arm)
 
 __all__ = ["intersections", "popcount32", "pairwise_popcount",
@@ -81,7 +81,7 @@ def pairwise_popcount_cuda(words: torch.Tensor) -> torch.Tensor:
     rc = lib.pairwise_popcount_launch(words.data_ptr(), out.data_ptr(), Q, W,
                                       stream)
     build.check(lib, rc, "pairwise_popcount")
-    LAUNCHES["pairwise_popcount"] += 1
+    count_launch("pairwise_popcount")
     return out
 
 
@@ -141,7 +141,7 @@ def gamma_pack_cuda(dist: torch.Tensor, col: torch.Tensor, ks: torch.Tensor,
                                ks.data_ptr(), out.data_ptr(), n, Su, Q,
                                stream)
     build.check(lib, rc, "gamma_pack")
-    LAUNCHES["gamma_pack"] += 1
+    count_launch("gamma_pack")
     return out
 
 

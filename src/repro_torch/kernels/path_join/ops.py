@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from .. import build
-from ..registry import (LAUNCHES, ArmLike, KernelArm, check_tensor,
+from ..registry import (ArmLike, KernelArm, check_tensor, count_launch,
                         resolve_arm)
 
 __all__ = ["path_member", "path_member_ref", "path_member_cuda",
@@ -109,7 +109,7 @@ def path_member_cuda(verts: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
                                 cand.data_ptr(), cand.stride(0),
                                 out.data_ptr(), N, L, D, stream)
     build.check(lib, rc, "path_member")
-    LAUNCHES["path_member"] += 1
+    count_launch("path_member")
     return out
 
 
@@ -133,7 +133,7 @@ def rowwise_overlap_cuda(a_verts: torch.Tensor,
                                     b_verts.data_ptr(), b_verts.stride(0),
                                     out.data_ptr(), N, LA, LB, stream)
     build.check(lib, rc, "rowwise_overlap")
-    LAUNCHES["rowwise_overlap"] += 1
+    count_launch("rowwise_overlap")
     return out
 
 
@@ -158,7 +158,7 @@ def path_overlap_cuda(a_verts: torch.Tensor,
                                  b_verts.data_ptr(), b_verts.stride(0),
                                  out.data_ptr(), NA, NB, LA, LB, stream)
     build.check(lib, rc, "path_overlap")
-    LAUNCHES["path_overlap"] += 1
+    count_launch("path_overlap")
     return out
 
 
@@ -237,8 +237,7 @@ def fused_level_cuda(verts: torch.Tensor, count: torch.Tensor,
         buf.numel() * 4, state_words, out_cap, nbrs.data_ptr(),
         splice_hit.data_ptr(), stream)
     build.check(lib, rc, "expand_level")
-    LAUNCHES["path_member"] += 1
-    LAUNCHES["level_fused"] += 1
+    count_launch("path_member", "level_fused")
     return (out, *packed_status(state), nbrs, splice_hit)
 
 
@@ -302,8 +301,7 @@ def fused_join_cuda(kind: str, a_verts: torch.Tensor, b_verts: torch.Tensor,
         a_len, b_len, width, out_cap, buf.data_ptr(), buf.numel() * 4,
         state_words, stream)
     build.check(lib, rc, f"{kind} join")
-    LAUNCHES["rowwise_overlap"] += 1
-    LAUNCHES["join_fused"] += 1
+    count_launch("rowwise_overlap", "join_fused")
     return (out, *packed_status(state))
 
 

@@ -17,18 +17,22 @@ instead of silently running the plain path.
 
 ``LAUNCHES`` counts the CUDA launches of each kernel (plain integers),
 and, beside a wrapper's count, the launches of each route of a wrapper
-that picks among kernels by shape (``ROUTE_COUNTS``).
+that picks among kernels by shape (``ROUTE_COUNTS``). Wrappers add to it
+through :func:`count_launch`, under one lock: the sharded executor's
+replica threads launch concurrently, and a bare ``+= 1`` (read, add,
+store) could lose a count.
 """
 from __future__ import annotations
 
 import enum
+import threading
 from typing import Union
 
 import torch
 
 __all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
            "check_tensor", "KERNELS", "ROUTE_COUNTS", "LAUNCHES",
-           "reset_launches"]
+           "count_launch", "reset_launches"]
 
 # the hand-written kernels; each wrapper adds one to its LAUNCHES entry
 # where it launches its kernel, and nowhere else, so a run can show that
@@ -44,12 +48,21 @@ KERNELS = ("msbfs_step", "pairwise_popcount", "gamma_pack", "path_member",
 ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_mma", "attn_scalar",
                 "ell_gather_f1", "level_fused", "join_fused")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + ROUTE_COUNTS, 0)
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(*names: str) -> None:
+    """Add one launch to each of ``names``, atomically across threads."""
+    with _LAUNCHES_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
     """Set every kernel's and every route's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 class KernelArm(str, enum.Enum):

@@ -29,9 +29,12 @@ failures mid-batch are absorbed by the work-stealing scheduler's
 checkpointable queue: the failed group's in-flight cluster is requeued
 onto survivors (at-least-once; results land exactly once per query id).
 
-On one device the engine has no sharded executor (``ShardedExecutor`` is
-not ported), so every micro-batch takes the reference's scheduler loop:
-each cluster is one scheduler item and one ``engine.run``. The batch
+On one device every micro-batch takes the reference's scheduler loop:
+each cluster is one scheduler item and one ``engine.run``. On a sharded
+engine (``EngineConfig.mesh`` / ``n_devices``, ``--devices`` here) the
+executor's cost-balanced placement replaces that loop: one
+``engine.run`` over every cluster of the micro-batch, fanned across the
+replicas (``batch_log``'s ``per_device`` / ``n_devices``). The batch
 wall (``serve.batch``) and the assembly time (``serve.assemble``) are
 spans of the engine's tracer that end in a device synchronize, so they
 include the kernels. Only :class:`GroupFailure` is treated as a replica
@@ -551,10 +554,15 @@ class StreamingServer:
                 mu = similarity_matrix(index)
                 bias = warm_cluster_bias(self.engine, queries,
                                          self.warm_bias_eps)
-                # one device, one replica: the reference's min_clusters
-                # under its identity executor
+                # balance_clusters must act HERE, not just inside
+                # engine.run -- the engine keeps an explicitly passed
+                # clustering verbatim, so a similar-traffic micro-batch
+                # merged to one cluster would idle every replica but one
+                executor = self.engine.executor
+                min_clusters = executor.n_replicas \
+                    if self.engine.cfg.balance_clusters else 1
                 clusters = cluster_queries(mu, self.gamma, bias=bias,
-                                           min_clusters=1)
+                                           min_clusters=min_clusters)
             # scheduler items carry global qids so a requeued item from
             # any earlier micro-batch still resolves to the right queries
             # n_compiles / n_retraces stay 0: compile telemetry
@@ -564,57 +572,71 @@ class StreamingServer:
                    "n_cache_hits": 0, "n_cache_misses": 0,
                    "n_compiles": 0, "n_retraces": 0,
                    "routed_green": 0, "routed_yellow": 0, "routed_red": 0}
-            cids = self.sched.submit([[qids[li] for li in cl]
-                                      for cl in clusters])
-            open_cids = set(cids)
-            while open_cids:
-                progressed = False
-                for grp in range(self.n_groups):
-                    if grp in self.dead_groups:
-                        continue
-                    item = self.sched.next_for(grp)
-                    if item is None:
-                        continue
-                    progressed = True
-                    try:
-                        if self.fail_injector is not None:
-                            self.fail_injector(grp, item)
-                        sub = [self._query_of[qid]
-                               for qid in item.queries]
-                        # the item IS one cluster — pass it through so
-                        # the engine keeps our (cache-aware) grouping
-                        # instead of re-clustering
-                        r = self.engine.run(
-                            sub, planner=self.planner,
-                            clusters=[list(range(len(sub)))])
-                    except GroupFailure:
-                        # the group died mid-item: mark it dead and
-                        # requeue its in-flight cluster onto the
-                        # survivors (at-least-once — a result written
-                        # before the crash would simply be overwritten
-                        # by the re-run, idempotent by query id)
-                        self._fail_group(grp)
-                        continue
-                    for i, qid in enumerate(item.queries):
-                        # results may sit untaken indefinitely —
-                        # offload so the backlog holds compact host
-                        # rows, not padded device buffers (count/
-                        # exists results hold none)
-                        self.results[qid] = r[i].offload()
-                    for key in agg:
-                        agg[key] += r.stats.get(key, 0)
-                    self.sched.complete(item.cluster_id, True)
-                    open_cids.discard(item.cluster_id)
-                if not progressed:
-                    if open_cids and len(self.dead_groups) \
-                            >= self.n_groups:
-                        raise RuntimeError(
-                            f"all {self.n_groups} replica groups are "
-                            f"dead with {len(open_cids)} cluster(s) "
-                            f"unserved; revive_group() one first")
-                    if not any(cid in self.sched.in_flight
-                               for cid in open_cids):
-                        break   # nothing runnable (foreign in-flight)
+            per_device = None
+            if executor.sharded:
+                # sharded serving: the executor's greedy cost-balanced
+                # placement replaces the host work-stealing loop -- one
+                # run carries every (cache-aware) cluster, fanned across
+                # the replicas and gathered back
+                r = self.engine.run(queries, planner=self.planner,
+                                    clusters=clusters)
+                for i, qid in enumerate(qids):
+                    self.results[qid] = r[i].offload()
+                for key in agg:
+                    agg[key] += r.stats.get(key, 0)
+                per_device = r.stats.get("per_device")
+            else:
+                cids = self.sched.submit([[qids[li] for li in cl]
+                                          for cl in clusters])
+                open_cids = set(cids)
+                while open_cids:
+                    progressed = False
+                    for grp in range(self.n_groups):
+                        if grp in self.dead_groups:
+                            continue
+                        item = self.sched.next_for(grp)
+                        if item is None:
+                            continue
+                        progressed = True
+                        try:
+                            if self.fail_injector is not None:
+                                self.fail_injector(grp, item)
+                            sub = [self._query_of[qid]
+                                   for qid in item.queries]
+                            # the item IS one cluster — pass it through so
+                            # the engine keeps our (cache-aware) grouping
+                            # instead of re-clustering
+                            r = self.engine.run(
+                                sub, planner=self.planner,
+                                clusters=[list(range(len(sub)))])
+                        except GroupFailure:
+                            # the group died mid-item: mark it dead and
+                            # requeue its in-flight cluster onto the
+                            # survivors (at-least-once — a result written
+                            # before the crash would simply be overwritten
+                            # by the re-run, idempotent by query id)
+                            self._fail_group(grp)
+                            continue
+                        for i, qid in enumerate(item.queries):
+                            # results may sit untaken indefinitely —
+                            # offload so the backlog holds compact host
+                            # rows, not padded device buffers (count/
+                            # exists results hold none)
+                            self.results[qid] = r[i].offload()
+                        for key in agg:
+                            agg[key] += r.stats.get(key, 0)
+                        self.sched.complete(item.cluster_id, True)
+                        open_cids.discard(item.cluster_id)
+                    if not progressed:
+                        if open_cids and len(self.dead_groups) \
+                                >= self.n_groups:
+                            raise RuntimeError(
+                                f"all {self.n_groups} replica groups are "
+                                f"dead with {len(open_cids)} cluster(s) "
+                                f"unserved; revive_group() one first")
+                        if not any(cid in self.sched.in_flight
+                                   for cid in open_cids):
+                            break   # nothing runnable (foreign in-flight)
         wall = sb.duration
         # a virtual clock is charged the real execution wall here, so the
         # e2e readout below sees queueing + service on one timeline
@@ -673,6 +695,8 @@ class StreamingServer:
             # retraces paid inside apply_delta: none without compile
             # telemetry, as in the reference without log_compiles
             "delta_retraces": 0,
+            **({"per_device": per_device,
+                "n_devices": len(per_device)} if per_device else {}),
             **agg,
             **({"cache": self.engine.cache.info()}
                if self.engine.cache is not None else {}),
@@ -718,8 +742,8 @@ def main(argv=None) -> None:
                     help="cross-batch cache budget in MiB (0 disables)")
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard over the first N local devices (0 = plain "
-                         "single-device; more than 1 is not ported)")
+                    help="shard over the first N local devices of --device "
+                         "(0 = plain single-device)")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="record stage spans and export a Chrome-trace "
                          "JSON here at exit (open in chrome://tracing or "
@@ -730,10 +754,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be >= 1")
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 (sharded serving) is not ported yet; it comes "
-            "with ROADMAP.md queue 1, item 2 (ShardedExecutor)")
 
     g = generators.community(args.n, n_comm=max(4, args.n // 2500),
                              avg_deg=6.0, seed=0)

@@ -16,7 +16,9 @@ absolute / 1e-4 relative in float32 (the JAX kernel tests'); in bf16
 row. Each route of ``flash_attention`` (wgmma, split-K, mma, float32) and
 of ``ell_spmm`` (the F = 1 kernel or the general one) is taken by the
 shapes it is for. The reduced transformer on the card matches the CPU port
-in float32 (TF32 off) at 1e-4.
+in float32 (TF32 off) at 1e-4. Two and four engine replicas on streams of
+one card give one replica's results, and four threads that load a kernel
+library first run one build.
 """
 import numpy as np
 import pytest
@@ -902,3 +904,79 @@ def test_engine_on_card_runs_the_fused_passes_only(dev, monkeypatch):
         assert a.count == b.count
         if q.output.value == "paths":
             assert np.array_equal(a.paths, b.paths)
+
+
+@pytest.mark.parametrize("n_replicas", [2, 4])
+def test_replicas_on_one_card_match_one_replica(dev, n_replicas):
+    """Replicas on streams of one card give one replica's results; each
+    replica's fused levels run on its own stream."""
+    from repro_torch.core import EngineConfig, PathSession, generators
+    from repro_torch.kernels import reset_launches
+    g = generators.community(2400, n_comm=12, avg_deg=4.0, p_intra=1.0,
+                             seed=0)
+    qs = generators.random_queries(g, 24, k_range=(4, 5), seed=1)
+    one = PathSession(g, EngineConfig(min_cap=128), device="cuda")
+    many = PathSession(g, EngineConfig(min_cap=128), device="cuda",
+                       mesh=["cuda:0"] * n_replicas)
+    for planner in ("batch", "basic", "auto"):
+        want = one.run(qs, planner=planner)
+        reset_launches()
+        got = many.run(qs, planner=planner)
+        assert got.stats.get("n_clusters") == want.stats.get("n_clusters")
+        for a, b in zip(got, want):
+            assert np.array_equal(a.paths, b.paths)
+    got = many.run(qs, planner="batch")
+    assert len(got.stats["per_device"]) == n_replicas
+    assert sum(d["n_clusters"] for d in got.stats["per_device"]) == \
+        got.stats["n_clusters"] > 1
+    streams = {s.cuda_stream for s in many.engine.executor._streams[1:]}
+    assert len(streams) == n_replicas - 1 and \
+        torch.cuda.current_stream().cuda_stream not in streams
+    # a second engine's replicas take the same streams: blocks cached on
+    # them stay in use instead of stranding on streams no one takes again
+    again = PathSession(g, EngineConfig(min_cap=128), device="cuda",
+                        mesh=["cuda:0"] * n_replicas)
+    again.run(qs, planner="batch")
+    assert {s.cuda_stream for s in again.engine.executor._streams[1:]} \
+        == streams
+
+
+def test_first_kernel_load_from_four_threads(dev, tmp_path, monkeypatch):
+    """Four threads load a library that is not built yet: one ``nvcc``,
+    one library, no temporary file left, and each thread's launch
+    counted."""
+    import threading
+
+    from repro_torch.kernels import reset_launches
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    build._cdll.cache_clear()
+    ell = torch.randint(0, 1001, (1000, 8), dtype=torch.int32, device=dev)
+    xs = torch.rand((1001, 1), device=dev)            # (V+1, F): a pad row
+    want = ell_spmm_ref(ell, xs, "sum")
+    barrier = threading.Barrier(4)
+    outs, errs = [None] * 4, []
+
+    def work(i):
+        try:
+            barrier.wait()
+            outs[i] = ell_spmm_cuda(ell, xs, "sum")
+            torch.cuda.current_stream(dev).synchronize()
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errs.append(e)
+
+    reset_launches()
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)                       # one nvcc at most
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        build._cdll.cache_clear()
+    assert not errs, errs
+    assert all(torch.equal(o, want) for o in outs)
+    assert [p.name for p in tmp_path.iterdir()] == \
+        [build.library_path("ell_spmm").name]
+    assert LAUNCHES["ell_spmm"] == 4

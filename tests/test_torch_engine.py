@@ -11,7 +11,8 @@ compaction order), so rows are compared as arrays, not only as sets.
 
 Also here: the porting hazards of the path buffers and joins (argsort
 stability, the compaction dump row, count dtypes), each against the JAX
-function on the same inputs, and the refusal of every unported option.
+function on the same inputs, the refusal of every unported option and of
+every malformed mesh.
 The default configuration and the other planners are held against the
 JAX engine in ``test_torch_planners.py``.
 """
@@ -180,8 +181,6 @@ def test_empty_batch_and_precomputed_clusters(workload):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [
-    dict(plan_caps=False, mesh=object()),
-    dict(plan_caps=False, n_devices=2),
     dict(plan_caps=False, log_compiles=True),
     dict(plan_caps=False, edge_chunk=1 << 20),
     dict(plan_caps=False, trace_annotations=True),
@@ -189,6 +188,25 @@ def test_empty_batch_and_precomputed_clusters(workload):
 def test_unported_options_raise(workload, cfg):
     with pytest.raises(NotImplementedError, match="not ported"):
         BatchPathEngine(workload["g"], EngineConfig(**cfg), device=CPU)
+
+
+# a mesh is a device list of the engine's type, entry 0 its own device;
+# n_devices counts local devices (the CPU is one)
+@pytest.mark.parametrize("cfg,error,match", [
+    (dict(mesh=object()), TypeError, "sequence of torch devices"),
+    (dict(n_devices=2), ValueError, "only 1 local cpu devices"),
+    (dict(mesh="cpu"), TypeError, "sequence of torch devices"),
+    (dict(mesh=[object()]), TypeError, "not a torch device"),
+    (dict(mesh=[]), ValueError, "empty"),
+    (dict(mesh=["cpu", "nodevice"]), ValueError, "nodevice"),
+    (dict(mesh=["cuda:0"]), ValueError, "not a cpu device"),
+    (dict(n_devices=-1), ValueError, "negative"),
+    (dict(n_devices="2"), TypeError, "must be an int"),
+])
+def test_bad_meshes_raise(workload, cfg, error, match):
+    with pytest.raises(error, match=match):
+        BatchPathEngine(workload["g"], EngineConfig(plan_caps=False, **cfg),
+                        device=CPU)
 
 
 @pytest.mark.parametrize("cfg", [

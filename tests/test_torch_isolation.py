@@ -110,7 +110,8 @@ def test_serve_cli_needs_cuda_unless_asked_for_cpu():
     out = subprocess.run(args + ["--devices", "2", "--device", "cpu"],
                          env=env, capture_output=True, text=True,
                          timeout=300)
-    assert out.returncode != 0 and "queue 1, item 2" in out.stderr
+    assert out.returncode != 0 and "ValueError: n_devices=2 but only 1 " \
+        "local cpu devices are visible" in out.stderr
     out = subprocess.run(args + ["--device", "cpu"], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
