@@ -209,8 +209,9 @@ Phases, each printing one JSON line (``"phase": ...``):
                batch; for ``msbfs_step`` also the W = 1 sweep of phase
                ``delta``; for ``ell_spmm`` also two synthetic shapes on
                the graph's ELL table with random float32 features, F = 128
-               sum and F = 8 max; for ``path_overlap`` also the splice
-               join of phase ``ops``), held against its plain PyTorch
+               sum and F = 8 max; for ``path_overlap`` also the half
+               rows of phase ``ops``'s splice and keyed joins), held
+               against its plain PyTorch
                version on the card (exact equality: the outputs are
                integers, or float32 sums taken in the same order;
                ``path_member`` and ``rowwise_overlap`` on the prefixes,
@@ -249,7 +250,8 @@ Phases, each printing one JSON line (``"phase": ...``):
                equal to their plain compositions on every output, timed
                alone, as 50 calls in one CUDA graph and beside the plain
                composition, bound by bytes. ``msbfs_step``,
-               ``gamma_pack`` and ``pairwise_popcount`` are
+               ``gamma_pack``, ``pairwise_popcount``, ``msbfs_expand``
+               and ``path_overlap`` (on each of its three inputs) are
                also timed as 50 calls in one CUDA graph (``device_ms``;
                each ``msbfs_step`` call restores visited from a saved copy
                first, and the copies' own graph time is subtracted), and
@@ -259,7 +261,13 @@ Phases, each printing one JSON line (``"phase": ...``):
                products of the unpacked Γ, each required equal to the
                kernel: float32 (TF32 off), bf16 with float32 output
                (reduced-precision reduction off) and ``torch._int_mm`` on
-               int8; ``library_ms`` is the fastest.
+               int8; ``library_ms`` is the fastest. ``path_overlap``'s
+               operations are those of its kernel's formulation
+               (``overlap_work``): the int8 tensor-core multiply-adds of
+               each A tile's count product, and two ALU operations per
+               (p, q) pair on tiles whose dictionary overflows;
+               ``alu_bound_ms`` keeps the count of a compare per pair of
+               every output for comparison.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -293,6 +301,8 @@ INT_PER_CLK_SM = 64
 F32_OPS_PER_S = 67e12
 # published H100 SXM dense bf16 tensor-core rate, operations/s
 BF16_OPS_PER_S = 989e12
+# published H100 SXM dense int8 tensor-core rate, operations/s
+INT8_OPS_PER_S = 1979e12
 
 KERNEL_ROWS = {
     "msbfs_step": ("src/repro_torch/csrc/msbfs_step.cu",
@@ -2448,7 +2458,8 @@ def phase_ops(torch, g, main_rec, join_rec) -> dict:
                                 "b_col": b_col, "valid": int(n_keyed)}}
     emit(out)
     return {"launches": out["launches"], "a4k": a4k, "b4k": b4k,
-            "splice": (sp["a"][:, :p_col + 1], sp["b"][:, :c_col + 1])}
+            "splice": (sp["a"][:, :p_col + 1], sp["b"][:, :c_col + 1]),
+            "keyed": (ky["a"][:, :a_col + 1], ky["b"][:, :b_col + 1])}
 
 
 def decode_teacher_forced(torch, model, prompt, steps: int, cache) -> tuple:
@@ -2998,6 +3009,33 @@ def flash_attention_row(torch, lm) -> dict:
             **shapes}
 
 
+def overlap_work(torch, a_v, b_v) -> dict:
+    """The work ``path_overlap``'s kernel does on these rows
+    (``csrc/path_join.cu``): per tile of 32 A rows, the distinct
+    non-negative ids (its dictionary, K rounded up to 32 columns) give
+    2 * rows * NB * K tensor-core operations; a tile with more than 256
+    ids, or every tile where a row is longer than 127, compares instead
+    (2 * rows * NB * LA * LB ALU operations)."""
+    NA, LA = a_v.shape
+    NB, LB = b_v.shape
+    tiles = -(-NA // 32)
+    x = torch.full((tiles * 32, LA), -1, dtype=torch.int32, device=a_v.device)
+    x[:NA] = a_v
+    x = torch.where(x < 0, -1, x).view(tiles, 32 * LA).sort(dim=1).values
+    distinct = ((x[:, 1:] != x[:, :-1]) & (x[:, 1:] >= 0)).sum(dim=1) \
+        + (x[:, 0] >= 0)
+    rows = torch.full((tiles,), 32, dtype=torch.int64, device=a_v.device)
+    rows[-1] = NA - 32 * (tiles - 1)
+    dict_ok = distinct <= 256
+    if LA > 127 or LB > 127:
+        dict_ok = torch.zeros_like(dict_ok)
+    cols = (distinct + 31) // 32 * 32
+    return {"dict_tiles": int(dict_ok.sum()),
+            "compare_tiles": int((~dict_ok).sum()),
+            "mma_ops": 2 * NB * int((rows * cols)[dict_ok].sum()),
+            "compare_ops": 2 * NB * LA * LB * int(rows[~dict_ok].sum())}
+
+
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                   share_launches, plan_rec, plan_launches, ops,
                   w1_rec, lm, main_index) -> list[dict]:
@@ -3390,31 +3428,58 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         cuda_ms(torch, mops.msbfs_expand_ref, lambda: (ell, fr)),
         nbytes=V * D * 4 + (V + 1) * W * 4 * 2,
         t_ops_ms=V * W * D / int_rate * 1e3,
+        device_ms=graph_ms(torch, lambda: mops.msbfs_expand_cuda(ell, fr)),
+        device_ms_launches=ATTN_GRAPH_LAUNCHES,
+        live_entries=int((ell != V).sum()),
         launches_from="phase ops (msbfs_hop_packed)")
 
-    # -- path_overlap: 4096 x 4096 rows of 6, then the splice join's
-    # half rows; a compare and an add per (p, q) pair of each output
+    # -- path_overlap: 4096 x 4096 rows of 6, then the splice and keyed
+    # joins' half rows, each against its plain version exactly
     def path_overlap(a_v, b_v):
         NA, LA = a_v.shape
         NB, LB = b_v.shape
         err = max_abs_err(torch, [(jops.path_overlap_cuda(a_v, b_v),
                                    jops.path_overlap_ref(a_v, b_v))])
-        return ({"NA": NA, "NB": NB, "LA": LA, "LB": LB}, err,
-                cuda_ms(torch, jops.path_overlap_cuda, lambda: (a_v, b_v)),
-                cuda_ms(torch, jops.path_overlap_ref, lambda: (a_v, b_v)),
-                (NA * LA + NB * LB + NA * NB) * 4,
-                2 * NA * NB * LA * LB / int_rate * 1e3)
+        require(err == 0, f"path_overlap disagrees with its plain version "
+                          f"at {(NA, NB, LA, LB)}")
+        work = overlap_work(torch, a_v, b_v)
+        t_alu = 2 * NA * NB * LA * LB / int_rate * 1e3
+        t_ops = (work["mma_ops"] / INT8_OPS_PER_S
+                 + work["compare_ops"] / int_rate) * 1e3
+        return {"shape": {"NA": NA, "NB": NB, "LA": LA, "LB": LB},
+                "max_abs_err": err,
+                "ms": cuda_ms(torch, jops.path_overlap_cuda,
+                              lambda: (a_v, b_v)),
+                "device_ms": graph_ms(
+                    torch, lambda: jops.path_overlap_cuda(a_v, b_v)),
+                "plain_ms": cuda_ms(torch, jops.path_overlap_ref,
+                                    lambda: (a_v, b_v)),
+                "nbytes": (NA * LA + NB * LB + NA * NB) * 4,
+                "t_ops_ms": t_ops, "alu_bound_ms": t_alu, **work,
+                "nonzero": int(torch.count_nonzero(
+                    jops.path_overlap_cuda(a_v, b_v)))}
 
-    shape2, err2, ms2, plain2, nbytes2, t_ops2 = path_overlap(*ops["splice"])
-    require(err2 == 0, "path_overlap disagrees with its plain version on "
-                       "the splice join")
-    shape, err, ms, plain_ms, nbytes, t_ops = path_overlap(ops["a4k"],
-                                                           ops["b4k"])
-    row("path_overlap", shape, err, ms, plain_ms, nbytes=nbytes,
-        t_ops_ms=t_ops, launches_from="phase ops (path_overlap, "
-                                      "splice_join_valid, keyed_join_valid)",
-        splice_join={"shape": shape2, "max_abs_err": err2, "ms": ms2,
-                     "plain_ms": plain2, **bound(nbytes2, t_ops2)})
+    joins = {}
+    for kind in ("splice", "keyed"):
+        m = path_overlap(*ops[kind])
+        joins[f"{kind}_join"] = dict(
+            {k: v for k, v in m.items() if k not in ("nbytes", "t_ops_ms")},
+            **bound(m["nbytes"], m["t_ops_ms"]))
+    m = path_overlap(ops["a4k"], ops["b4k"])
+    row("path_overlap", m["shape"], m["max_abs_err"], m["ms"], m["plain_ms"],
+        nbytes=m["nbytes"], t_ops_ms=m["t_ops_ms"],
+        device_ms=m["device_ms"], device_ms_launches=ATTN_GRAPH_LAUNCHES,
+        alu_bound_ms=m["alu_bound_ms"],
+        ops_counted="int8 tensor-core multiply-adds of the count product "
+                    "(2 per A row x B row x dictionary column, columns "
+                    "rounded up to 32 a tile) at INT8_OPS_PER_S, plus 2 "
+                    "per (p, q) pair of overflowed tiles at the ALU rate; "
+                    "alu_bound_ms: 2 per (p, q) pair of every output at "
+                    "INT_PER_CLK_SM",
+        **{k: m[k] for k in ("mma_ops", "compare_ops", "dict_tiles",
+                             "compare_tiles", "nonzero")},
+        launches_from="phase ops (path_overlap, splice_join_valid, "
+                      "keyed_join_valid)", **joins)
 
     r = flash_attention_row(torch, lm)
     emit({"phase": "kernel", **r})

@@ -51,17 +51,27 @@
 //
 //   next[v, w] = OR_d fr[ell[v, d], w]      for d with ell[v, d] != V
 //
-// with one thread per (v, w) word and none of the visited / dist traffic.
-// The pad entries are skipped rather than gathered, so row V of the input
-// frontier may hold anything (the JAX wrapper zeroes a copy of it; this
-// kernel never reads it and never writes the caller's tensor). Bound: bytes
-// -- the (V, D) ELL read, the frontier gathers and the (V+1, W) output, at
-// one OR per gathered word.
+// It is msbfs_step_kernel with the visited and dist parts compiled out
+// (STEP = false): the same staged rows, N words a thread, pads skipped,
+// the ELL rows streamed evict-first so that the (V+1, W) frontier stays in
+// L2, and the gathered words written as they are. Row V of the input
+// frontier is never read (pads are skipped), so it may hold anything; the
+// caller's tensor is never written; the first W threads zero row V of the
+// output. Bound: bytes -- the (V, D) ELL read (134 MB of 201 at V = 2^20,
+// D = 32, W = 8), the (V+1, W) frontier read once and the output written
+// once. Other designs (a thread per word, the port's first kernel; each
+// block's ELL slab streamed into shared memory by 1-D bulk asynchronous
+// copies, double-buffered; every entry gathered; gathers marked L2
+// evict-last) live in msbfs_step_designs.cu, and
+// probes/ops_kernel_designs.py times them against this one (PERF.md).
 #include "common.cuh"
 
 #define STEP_THREADS 256
 #define STEP_D 32   // ELL entries of a row staged per pass
 #define FULL_MASK 0xffffffffu
+// blocks an SM holds for msbfs_expand: registers capped at 40 a thread
+// (44 uncapped held 5, and the gathers' latency wants the warps)
+#define EXPAND_BLOCKS 6
 
 // Streaming accesses (read or written once per level) are marked
 // evict-first, so that the frontier rows, gathered once per out-edge, stay
@@ -169,9 +179,10 @@ __device__ __forceinline__ void stamp_warp(int8_t* seg,
 
 // A thread takes N consecutive words of a vertex (G = W / N threads a
 // vertex). dynamic shared memory: STEP_WARPS x rows_per_warp(G) x
-// ROW_STRIDE words.
-template <int N, bool VEC>
-__global__ void __launch_bounds__(STEP_THREADS)
+// ROW_STRIDE words. STEP = false is msbfs_expand: no visited words (every
+// thread gathers), the gathered words go to out as they are, no stamp.
+template <int N, bool VEC, bool STEP>
+__global__ void __launch_bounds__(STEP_THREADS, STEP ? 1 : EXPAND_BLOCKS)
 msbfs_step_kernel(const int32_t* __restrict__ ell,
                   const uint32_t* __restrict__ fr,
                   uint32_t* __restrict__ vis, int8_t* __restrict__ dist,
@@ -194,14 +205,17 @@ msbfs_step_kernel(const int32_t* __restrict__ ell,
   const int nrows = static_cast<int>(last / G - v_lo + 1);
   const long long v = active ? i / G : v_lo;
   const long long word = v * W + (i - v * G) * N;   // the first of N words
-  Words<N> seen;
+  Words<N> seen{};
+  bool need = active;
+  if constexpr (STEP) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) seen.w[k] = FULL_MASK;
-  if (active) seen = ld_words<N>(vis + word, true);
-  // a word reached from every source cannot gain a bit: no gathers
-  bool need = false;
+    for (int k = 0; k < N; ++k) seen.w[k] = FULL_MASK;
+    if (active) seen = ld_words<N>(vis + word, true);
+    // a word reached from every source cannot gain a bit: no gathers
+    need = false;
 #pragma unroll
-  for (int k = 0; k < N; ++k) need = need || seen.w[k] != FULL_MASK;
+    for (int k = 0; k < N; ++k) need = need || seen.w[k] != FULL_MASK;
+  }
   const int32_t* row = rows + (v - v_lo) * ROW_STRIDE;
   Words<N> acc;
 #pragma unroll
@@ -225,6 +239,10 @@ msbfs_step_kernel(const int32_t* __restrict__ ell,
       }
     }
   }
+  if constexpr (!STEP) {
+    if (active) st_words<N>(out + word, acc);
+    return;
+  }
   Words<N> fresh, now;
   bool any = false;
 #pragma unroll
@@ -245,20 +263,18 @@ msbfs_step_kernel(const int32_t* __restrict__ ell,
   stamp_warp<N>(dist + i0 * N * 32, fresh_s, lane, hop);
 }
 
-template <int N, typename Run>
+template <int N, bool STEP, typename Run>
 void launch_step(bool vec, Run run) {
-  if (vec) run(msbfs_step_kernel<N, true>);
-  else run(msbfs_step_kernel<N, false>);
+  if (vec) run(msbfs_step_kernel<N, true, STEP>);
+  else run(msbfs_step_kernel<N, false, STEP>);
 }
 
-// ell (V, D) int32; fr (V+1, W) words; vis (V, W) words, updated in place;
-// dist (V, W*32) int8, updated in place; out (V+1, W) words.
-REPRO_EXPORT int msbfs_step_launch(const void* ell, const void* fr, void* vis,
-                                   void* dist, void* out, int V, int D, int W,
-                                   int hop, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // words a thread: 4 (or 2) where the rows of fr, vis and out allow
-  // 16-byte (8-byte) accesses
+// Launch msbfs_step_kernel<N, VEC, STEP>: N = 4 (or 2) words a thread
+// where W and the rows of fr, vis and out allow 16-byte (8-byte)
+// accesses, VEC where the ELL rows take 16-byte loads.
+template <bool STEP>
+int launch_level(const void* ell, const void* fr, void* vis, void* dist,
+                 void* out, int V, int D, int W, int hop, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(fr) |
                           reinterpret_cast<uintptr_t>(vis) |
                           reinterpret_cast<uintptr_t>(out);
@@ -270,35 +286,23 @@ REPRO_EXPORT int msbfs_step_launch(const void* ell, const void* fr, void* vis,
   const int smem = STEP_WARPS * (rows > 32 * N ? rows : 32 * N) * 4;
   const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(ell) % 16 == 0;
   auto run = [&](auto kernel) {
-    kernel<<<blocks, STEP_THREADS, smem, s>>>(
+    kernel<<<blocks, STEP_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(ell), static_cast<const uint32_t*>(fr),
         static_cast<uint32_t*>(vis), static_cast<int8_t*>(dist),
         static_cast<uint32_t*>(out), V, D, W, static_cast<int8_t>(hop));
   };
-  if (N == 4) launch_step<4>(vec, run);
-  else if (N == 2) launch_step<2>(vec, run);
-  else launch_step<1>(vec, run);
+  if (N == 4) launch_step<4, STEP>(vec, run);
+  else if (N == 2) launch_step<2, STEP>(vec, run);
+  else launch_step<1, STEP>(vec, run);
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void msbfs_expand_kernel(const int32_t* __restrict__ ell,
-                                    const uint32_t* __restrict__ fr,
-                                    uint32_t* __restrict__ out, int V, int D,
-                                    int W) {
-  const long long total = static_cast<long long>(V) * W;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i < W) out[total + i] = 0u;  // sentinel row V of the output
-  if (i >= total) return;
-  const int v = static_cast<int>(i / W);
-  const int w = static_cast<int>(i - static_cast<long long>(v) * W);
-  const int32_t* row = ell + static_cast<long long>(v) * D;
-  uint32_t acc = 0u;
-  for (int d = 0; d < D; ++d) {
-    const int u = __ldg(row + d);
-    if (u != V) acc |= __ldg(fr + static_cast<long long>(u) * W + w);
-  }
-  out[i] = acc;
+// ell (V, D) int32; fr (V+1, W) words; vis (V, W) words, updated in place;
+// dist (V, W*32) int8, updated in place; out (V+1, W) words.
+REPRO_EXPORT int msbfs_step_launch(const void* ell, const void* fr, void* vis,
+                                   void* dist, void* out, int V, int D, int W,
+                                   int hop, void* stream) {
+  return launch_level<true>(ell, fr, vis, dist, out, V, D, W, hop, stream);
 }
 
 // ell (V, D) int32, pad = V; fr (V+1, W) words (row V never read);
@@ -306,11 +310,6 @@ __global__ void msbfs_expand_kernel(const int32_t* __restrict__ ell,
 REPRO_EXPORT int msbfs_expand_launch(const void* ell, const void* fr,
                                      void* out, int V, int D, int W,
                                      void* stream) {
-  const int threads = 256;
-  const long long work = static_cast<long long>(V) * W;
-  msbfs_expand_kernel<<<blocks_for(work > W ? work : W, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ell), static_cast<const uint32_t*>(fr),
-      static_cast<uint32_t*>(out), V, D, W);
-  return static_cast<int>(cudaGetLastError());
+  return launch_level<false>(ell, fr, nullptr, nullptr, out, V, D, W, 0,
+                             stream);
 }

@@ -30,16 +30,34 @@
 //   out[i, j] = #{(p, q) : A[i, p] == B[j, q], A[i, p] >= 0}
 //                                          (NA, LA) x (NB, LB) -> (NA, NB)
 //
-// Bound on the H100: operations at the ops API's widths (NA = NB = 4096,
-// LA = LB = 6: 36 compare-and-adds per output against 4 bytes written).
-// Design: one block per 32 x 64 output tile (256 threads). Column chunks
-// of up to 32 of the tile's A rows and B rows are staged in shared memory,
-// B transposed so that a warp reads 32 consecutive words; each thread
-// keeps 8 A values in registers against one B value per step and owns the
-// 8 outputs of one column j, so a warp writes 32 consecutive int32 of a
-// row. The chunk loop takes any LA and LB. A's negative entries are staged
-// as -2 and B's as -1, so a pad never matches and the inner loop needs no
-// ">= 0" test.
+// counting repeats (a row [5, 5] against [5] counts 2); any negative entry
+// is a pad. As an integer product: for a tile of A rows, number the
+// distinct non-negative ids it holds (its dictionary, k = 0 .. K-1); then
+// out[i, j] = sum_k cntA[i, k] * cntB[j, k], where cntA[i, k] counts id k
+// in A row i and cntB[j, k] in B row j (ids outside the dictionary match
+// nothing in the tile). Design: a block takes 32 A rows and builds their
+// dictionary in shared memory (a 1024-slot hash table filled by atomicCAS,
+// new keys numbered by an atomic counter, at most 256 ids), then the int8
+// count rows cntA (32 x K); for each tile of 256 B rows, a thread looks
+// its row's ids up (eight loads and eight first probes in flight, the
+// next tile's first ids loaded a tile ahead) and counts them into cntB
+// (256 x K), the tensor cores form the product (mma.sync m16n8k32 s8 x
+// s8 -> s32, K rounded up to 32; a warp owns a 32 x 32 output block), and
+// the 32 x 256 int32 tile goes out through shared memory in 16-byte
+// stores, a warp writing 512 contiguous bytes. Count rows are K + 16
+// bytes apart, so the fragment loads of 8 rows hit 32 distinct banks.
+// The grid is one wave: B tiles are split over blocks only as far as the
+// A tiles leave the card's block slots free, so a dictionary serves as
+// many B tiles as it can. A tile whose dictionary overflows (more than
+// 256 distinct ids: large LA with few repeats), and every tile when a row
+// is longer than 127 (an int8 count could overflow), takes the compare
+// loop instead: 32 x 64 output chunks, columns of A and B staged in
+// shared memory 32 at a time, an ISETP and an IADD per (p, q) pair, pads
+// staged as -2 (A) and -1 (B).
+// Bound on the H100: the output bytes (67 MB at NA = NB = 4096, 0.020
+// ms); the formulation's operations are 2 * 32 * 256 * K per tile pair at
+// the int8 tensor-core rate, the dictionary and the count rows a handful
+// of shared-memory operations per input id and per count byte.
 //
 // Inputs are row slices of wider path matrices, so every kernel here takes
 // row strides and only the last dimension must be contiguous; outputs are
@@ -94,6 +112,8 @@
 // splice_hit and the survivors; a join reads the half rows of its pairs
 // and writes the valid ones. At the main path's sizes (a few hundred rows)
 // both are far under a microsecond of traffic: what they save is launches.
+#include <atomic>
+
 #include "common.cuh"
 
 __global__ void path_member_kernel(const int32_t* __restrict__ verts,
@@ -135,69 +155,325 @@ __global__ void rowwise_overlap_kernel(const int32_t* __restrict__ a,
 }
 
 namespace {
-constexpr int kTileJ = 64;              // B rows (output columns) per block
-constexpr int kTileY = 4;               // thread rows per block
-constexpr int kRowsI = 8;               // A rows (outputs) per thread
-constexpr int kTileI = kTileY * kRowsI; // A rows per block
-constexpr int kChunk = 32;              // columns of A and B staged at once
+// path_overlap: a block takes kOvA rows of A against kOvB rows of B at a
+// time, a warp the 32 x 32 output block of its 32 B rows
+constexpr int kOvThreads = 256;
+constexpr int kOvBlocks = 3;           // an SM holds three (registers)
+constexpr int kOvA = 32;               // two m16 MMA row tiles
+constexpr int kOvB = kOvThreads;       // a B row per thread
+constexpr int kDictMax = 256;          // distinct ids a dictionary holds
+constexpr int kHashSlots = 4 * kDictMax;  // slots of {key, index}
+constexpr int kMaxCount = 127;         // int8 counts
+// the compare loop of an overflowed tile: 32 x 64 output chunks, columns
+// of A and B staged 32 at a time
+constexpr int kCmpJ = 64;
+constexpr int kCmpChunk = 32;
+constexpr int kCmpSmem = (kOvA * kCmpChunk + kCmpChunk * kCmpJ) * 4;
+// the output tile staged in shared memory: rows 264 words apart, so the
+// accumulators' 8-byte writes (4 rows a half warp) hit distinct banks
+constexpr int kOutStride = kOvB + 8;
+constexpr int kOutSmem = kOvA * kOutStride * 4;
+// the most dynamic shared memory a launch asks for (kcap = kDictMax)
+constexpr int kMaxOvSmem =
+    kHashSlots * 8 + (kOvA + kOvB) * (kDictMax + 16);
+static_assert(kOvB * (kDictMax + 16) >= kOutSmem, "");
+constexpr int kMaxDevices = 64;
 }  // namespace
 
-__global__ void __launch_bounds__(kTileJ * kTileY)
-path_overlap_kernel(const int32_t* __restrict__ a, long long astride,
-                    const int32_t* __restrict__ b, long long bstride,
-                    int32_t* __restrict__ out, int NA, int NB, int LA,
-                    int LB) {
-  __shared__ int32_t as[kTileI][kChunk];
-  __shared__ int32_t bs[kChunk][kTileJ];
-  const int tx = threadIdx.x % kTileJ;
-  const int ty = threadIdx.x / kTileJ;
-  const int j0 = blockIdx.x * kTileJ;
-  const int tiles_i = (NA + kTileI - 1) / kTileI;
-  for (int ti = blockIdx.y; ti < tiles_i; ti += gridDim.y) {
-    const int i0 = ti * kTileI;
-    int cnt[kRowsI];
+__device__ __forceinline__ int dict_slot(int x) {
+  return static_cast<int>((static_cast<uint32_t>(x) * 2654435761u) >>
+                          (32 - 10)) & (kHashSlots - 1);
+}
+
+// The dictionary index of id x >= 0, or -1, probing from slot `from`. The
+// table holds at most kDictMax keys in kHashSlots slots, so an empty slot
+// ends every probe. A slot is {key, index}, key -1 when empty: one load
+// reads both.
+__device__ __forceinline__ int dict_find(const int2* table, int x,
+                                         int from) {
+  for (int s = from;; s = (s + 1) & (kHashSlots - 1)) {
+    const int2 e = table[s];
+    if (e.x == x) return e.y;
+    if (e.x == -1) return -1;
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Up to kIdRun ids of a row from column q0 on, loaded together (-1 past
+// the row's end), so that their latencies overlap.
+constexpr int kIdRun = 8;
+__device__ __forceinline__ void load_ids(int (&ids)[kIdRun],
+                                         const int32_t* __restrict__ row,
+                                         int q0, int L) {
 #pragma unroll
-    for (int r = 0; r < kRowsI; ++r) cnt[r] = 0;
-    for (int p0 = 0; p0 < LA; p0 += kChunk) {
-      const int pc = min(kChunk, LA - p0);
-      for (int q0 = 0; q0 < LB; q0 += kChunk) {
-        const int qc = min(kChunk, LB - q0);
+  for (int u = 0; u < kIdRun; ++u)
+    ids[u] = q0 + u < L ? __ldg(row + q0 + u) : -1;
+}
+
+// Add one to counts[k] for every id of `ids` found in the dictionary: the
+// first probes of all ids are read together, and only an id whose first
+// slot holds another key probes further.
+__device__ __forceinline__ void count_ids(const int (&ids)[kIdRun],
+                                          const int2* table,
+                                          unsigned char* counts) {
+  int slot[kIdRun];
+  int2 first[kIdRun];
+#pragma unroll
+  for (int u = 0; u < kIdRun; ++u) {
+    slot[u] = dict_slot(ids[u]);
+    first[u] = ids[u] < 0 ? make_int2(-1, 0) : table[slot[u]];
+  }
+#pragma unroll
+  for (int u = 0; u < kIdRun; ++u) {
+    if (first[u].x == -1) continue;  // a pad, or an empty first slot
+    const int k = first[u].x == ids[u]
+                      ? first[u].y
+                      : dict_find(table, ids[u],
+                                  (slot[u] + 1) & (kHashSlots - 1));
+    // a shared-memory add into the count's word (counts stay below 128,
+    // so no carry crosses a byte): the adds of a run need not wait for
+    // each other
+    if (k >= 0)
+      atomicAdd(reinterpret_cast<unsigned*>(counts + (k & ~3)),
+                1u << (8 * (k & 3)));
+  }
+}
+
+// The compare loop over the 32 x kOvB output tile at (i0, j0), in chunks
+// of 32 x 64: A's negative entries staged as -2 and B's as -1, so a pad
+// never matches; each thread holds 8 A values against one B value a step
+// and owns 8 outputs of one column. smem: kCmpSmem bytes.
+__device__ void compare_tile(const int32_t* __restrict__ a, long long astride,
+                             const int32_t* __restrict__ b, long long bstride,
+                             int32_t* __restrict__ out, int NA, int NB,
+                             int LA, int LB, int i0, int j0, int32_t* smem) {
+  int32_t (*as)[kCmpChunk] = reinterpret_cast<int32_t (*)[kCmpChunk]>(smem);
+  int32_t (*bs)[kCmpJ] =
+      reinterpret_cast<int32_t (*)[kCmpJ]>(smem + kOvA * kCmpChunk);
+  constexpr int kRows = kOvA * kCmpJ / kOvThreads;   // outputs a thread
+  const int tx = threadIdx.x % kCmpJ, ty = threadIdx.x / kCmpJ;
+  for (int jc = j0; jc < j0 + kOvB && jc < NB; jc += kCmpJ) {
+    int cnt[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) cnt[r] = 0;
+    for (int p0 = 0; p0 < LA; p0 += kCmpChunk) {
+      const int pc = min(kCmpChunk, LA - p0);
+      for (int q0 = 0; q0 < LB; q0 += kCmpChunk) {
+        const int qc = min(kCmpChunk, LB - q0);
         __syncthreads();  // the previous chunk is no longer read
-        for (int e = threadIdx.x; e < kTileI * kChunk; e += blockDim.x) {
-          const int il = e / kChunk, pp = e % kChunk;
-          const int i = i0 + il;
+        for (int e = threadIdx.x; e < kOvA * kCmpChunk; e += kOvThreads) {
+          const int il = e / kCmpChunk, pp = e % kCmpChunk;
           int x = -2;
-          if (i < NA && pp < pc) x = __ldg(a + i * astride + p0 + pp);
+          if (i0 + il < NA && pp < pc)
+            x = __ldg(a + (i0 + il) * astride + p0 + pp);
           as[il][pp] = x < 0 ? -2 : x;
         }
-        for (int e = threadIdx.x; e < kChunk * kTileJ; e += blockDim.x) {
-          const int qq = e / kTileJ, jl = e % kTileJ;
-          const int j = j0 + jl;
+        for (int e = threadIdx.x; e < kCmpChunk * kCmpJ; e += kOvThreads) {
+          const int qq = e / kCmpJ, jl = e % kCmpJ;
           int y = -1;
-          if (j < NB && qq < qc) y = __ldg(b + j * bstride + q0 + qq);
+          if (jc + jl < NB && qq < qc)
+            y = __ldg(b + (jc + jl) * bstride + q0 + qq);
           bs[qq][jl] = y < 0 ? -1 : y;
         }
         __syncthreads();
         for (int pp = 0; pp < pc; ++pp) {
-          int x[kRowsI];
+          int x[kRows];
 #pragma unroll
-          for (int r = 0; r < kRowsI; ++r) x[r] = as[ty + kTileY * r][pp];
+          for (int r = 0; r < kRows; ++r) x[r] = as[ty + 4 * r][pp];
           for (int qq = 0; qq < qc; ++qq) {
             const int y = bs[qq][tx];
 #pragma unroll
-            for (int r = 0; r < kRowsI; ++r) cnt[r] += (x[r] == y);
+            for (int r = 0; r < kRows; ++r) cnt[r] += (x[r] == y);
           }
         }
       }
     }
-    const int j = j0 + tx;
-    if (j < NB) {
+    if (jc + tx < NB) {
 #pragma unroll
-      for (int r = 0; r < kRowsI; ++r) {
-        const int i = i0 + ty + kTileY * r;
-        if (i < NA) out[static_cast<long long>(i) * NB + j] = cnt[r];
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + ty + 4 * r;
+        if (i < NA) out[static_cast<long long>(i) * NB + jc + tx] = cnt[r];
       }
     }
+  }
+  __syncthreads();  // the staged chunks are read before smem is reused
+}
+
+// grid (tiles of kOvA A rows, up to 65,535 B tiles, each block looping
+// over the B tiles of its column). kcap: dictionary columns (a multiple
+// of 32, at most kDictMax; 0 = every tile takes the compare loop). smem:
+// the hash table ({key, index} slots), then the count rows, cntA (kOvA) and
+// cntB (kOvB), kcap + 16 bytes apart; cntB's space also holds the output
+// tile, or the compare loop's chunks.
+__global__ void __launch_bounds__(kOvThreads, kOvBlocks)
+path_overlap_kernel(const int32_t* __restrict__ a, long long astride,
+                    const int32_t* __restrict__ b, long long bstride,
+                    int32_t* __restrict__ out, int NA, int NB, int LA,
+                    int LB, int kcap) {
+  extern __shared__ __align__(16) unsigned char ov_smem[];
+  __shared__ int s_nk, s_over;
+  int2* table = reinterpret_cast<int2*>(ov_smem);
+  unsigned char* cnt_a = ov_smem + kHashSlots * 8;
+  const int stride = kcap + 16;    // bytes: 8 rows at one column, 8 banks
+  unsigned char* cnt_b = cnt_a + kOvA * stride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = blockIdx.x * kOvA;
+  const int na = min(kOvA, NA - i0);
+  const int tiles_j = (NB + kOvB - 1) / kOvB;
+
+  // 1. the dictionary of the tile's non-negative A ids: a hash table
+  // filled by atomicCAS, each new key numbered by an atomic counter
+  bool over = kcap == 0;
+  if (!over) {
+    for (int e = tid; e < kHashSlots; e += kOvThreads)
+      table[e] = make_int2(-1, 0);
+    if (tid == 0) s_nk = s_over = 0;
+    __syncthreads();
+    for (int e = tid; e < na * LA; e += kOvThreads) {
+      const int r = e / LA, p = e - r * LA;
+      const int x = __ldg(a + (i0 + r) * astride + p);
+      if (x < 0) continue;
+      int s = dict_slot(x), n = 0;
+      for (; n < kHashSlots; ++n, s = (s + 1) & (kHashSlots - 1)) {
+        int* key = reinterpret_cast<int*>(table + s);
+        const int old = atomicCAS(key, -1, x);
+        if (old == -1) {
+          const int k = atomicAdd(&s_nk, 1);
+          if (k < kcap) key[1] = k;
+          else s_over = 1;
+          break;
+        }
+        if (old == x) break;
+      }
+      if (n == kHashSlots) s_over = 1;   // the table is full
+    }
+    __syncthreads();
+    over = s_over != 0;
+  }
+  // 2. cntA[i, k]: how often dictionary id k occurs in A row i
+  const int kp = over ? 0 : (s_nk + 31) & ~31;
+  if (!over) {
+    for (int e = tid; e < kOvA * (kp / 16); e += kOvThreads) {
+      const int r = e / (kp / 16), c = e - r * (kp / 16);
+      *reinterpret_cast<uint4*>(cnt_a + r * stride + 16 * c) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+    if (tid < na) {
+      const int32_t* row = a + (i0 + tid) * astride;
+      for (int p0 = 0; p0 < LA; p0 += kIdRun) {
+        int ids[kIdRun];
+        load_ids(ids, row, p0, LA);
+        count_ids(ids, table, cnt_a + tid * stride);
+      }
+    }
+  }
+  // the first kIdRun ids of this thread's B row in the block's next B
+  // tile, loaded a tile ahead
+  int next[kIdRun];
+  auto prefetch = [&](int jt) {
+    const int j = jt * kOvB + tid;
+    const int32_t* row = b + static_cast<long long>(j) * bstride;
+    load_ids(next, row, 0, jt < tiles_j && j < NB ? LB : 0);
+  };
+  if (!over) prefetch(blockIdx.y);
+  for (int jt = blockIdx.y; jt < tiles_j; jt += gridDim.y) {
+    const int j0 = jt * kOvB;
+    if (over) {
+      compare_tile(a, astride, b, bstride, out, NA, NB, LA, LB, i0, j0,
+                   reinterpret_cast<int32_t*>(cnt_b));
+      continue;
+    }
+    // 3. cntB[j, k]: how often dictionary id k occurs in B row j (ids
+    // outside the dictionary match no A entry of the tile)
+    int ids[kIdRun];
+#pragma unroll
+    for (int u = 0; u < kIdRun; ++u) ids[u] = next[u];
+    prefetch(jt + gridDim.y);
+    unsigned char* mine = cnt_b + tid * stride;
+    for (int c = 0; c < kp; c += 16)
+      *reinterpret_cast<uint4*>(mine + c) = make_uint4(0u, 0u, 0u, 0u);
+    count_ids(ids, table, mine);
+    if (LB > kIdRun && j0 + tid < NB) {
+      const int32_t* row = b + static_cast<long long>(j0 + tid) * bstride;
+      for (int q0 = kIdRun; q0 < LB; q0 += kIdRun) {
+        load_ids(ids, row, q0, LB);
+        count_ids(ids, table, mine);
+      }
+    }
+    __syncthreads();
+    // 4. out[i, j] = sum_k cntA[i, k] * cntB[j, k] on the tensor cores:
+    // warp w takes B rows 32w .. 32w + 31, two m16 tiles by four n8 tiles
+    const int g = lane >> 2, t4 = (lane & 3) * 4;
+    int32_t acc[2][4][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[m][n][r] = 0;
+    for (int k0 = 0; k0 < kp; k0 += 32) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned char* p = cnt_a + (16 * m + g) * stride + k0 + t4;
+        af[m][0] = *reinterpret_cast<const uint32_t*>(p);
+        af[m][1] = *reinterpret_cast<const uint32_t*>(p + 8 * stride);
+        af[m][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        af[m][3] = *reinterpret_cast<const uint32_t*>(p + 8 * stride + 16);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const unsigned char* p =
+            cnt_b + (32 * warp + 8 * n + g) * stride + k0 + t4;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) mma_s8(acc[m][n], af[m], b0, b1);
+      }
+    }
+    // 5. the output tile through shared memory (cntB's space, once every
+    // warp has read it): accumulator r of an MMA tile is row g (r < 2) or
+    // g + 8, column 2 (lane % 4) + r % 2; then rows of 1 KB go out in
+    // 16-byte stores, a warp writing 512 contiguous bytes
+    __syncthreads();
+    int32_t* tile = reinterpret_cast<int32_t*>(cnt_b);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<int2*>(
+              tile + (16 * m + g + 8 * h) * kOutStride + 32 * warp + 8 * n +
+              (lane & 3) * 2) = make_int2(acc[m][n][2 * h],
+                                          acc[m][n][2 * h + 1]);
+    __syncthreads();
+    const int cols = min(kOvB, NB - j0);
+    const bool vec = NB % 4 == 0;    // 16-byte aligned output rows
+    for (int e = tid; e < kOvA * (kOvB / 4); e += kOvThreads) {
+      const int r = e / (kOvB / 4), c = 4 * (e % (kOvB / 4));
+      if (i0 + r >= NA || c >= cols) continue;
+      const int4 v = *reinterpret_cast<const int4*>(tile + r * kOutStride + c);
+      int32_t* o = out + static_cast<long long>(i0 + r) * NB + j0 + c;
+      if (vec && c + 3 < cols) {
+        __stcs(reinterpret_cast<int4*>(o), v);
+      } else {
+        o[0] = v.x;
+        if (c + 1 < cols) o[1] = v.y;
+        if (c + 2 < cols) o[2] = v.z;
+        if (c + 3 < cols) o[3] = v.w;
+      }
+    }
+    __syncthreads();   // the tile is read before the next B tile's cntB
   }
 }
 
@@ -236,16 +512,57 @@ REPRO_EXPORT int path_overlap_launch(const void* a, long long astride,
                                      const void* b, long long bstride,
                                      void* out, int NA, int NB, int LA,
                                      int LB, void* stream) {
-  const long long tiles_i = (static_cast<long long>(NA) + kTileI - 1) /
-                            kTileI;
-  const dim3 grid(blocks_for(NB, kTileJ),
-                  static_cast<unsigned int>(tiles_i < 65535 ? tiles_i
-                                                            : 65535));
-  path_overlap_kernel<<<grid, kTileJ * kTileY, 0,
+  // dictionary columns: every distinct id of a tile, up to kDictMax; a
+  // row longer than kMaxCount could hold an id more often than int8
+  // counts, so then every tile takes the compare loop
+  const long long ids = static_cast<long long>(kOvA) * LA;  // per tile
+  const int kcap = LA > kMaxCount || LB > kMaxCount ? 0
+                   : ids < kDictMax ? static_cast<int>((ids + 31) & ~31LL)
+                                    : kDictMax;
+  // the hash table, cntA, then cntB's space, which also takes the output
+  // tile and the compare loop's chunks
+  const int tiles = kOutSmem > kCmpSmem ? kOutSmem : kCmpSmem;
+  const int region = kOvB * (kcap + 16) > tiles ? kOvB * (kcap + 16) : tiles;
+  const int smem = kHashSlots * 8 + kOvA * (kcap + 16) + region;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  // per device, once: the shared memory allowance, and the blocks the
+  // card holds at once for each dictionary width
+  static std::atomic<int> allowed[kMaxDevices];
+  static std::atomic<int> resident[kMaxDevices][kDictMax / 32 + 1];
+  if (!allowed[dev].load()) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        path_overlap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxOvSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed[dev].store(1);
+  }
+  int slots = resident[dev][kcap / 32].load();
+  if (!slots) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, path_overlap_kernel, kOvThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 132);
+    resident[dev][kcap / 32].store(slots);
+  }
+  // one wave: B tiles are split over blocks only as far as the A tiles
+  // leave the card's block slots free, so a dictionary serves as many B
+  // tiles as it can
+  const long long tiles_i = (static_cast<long long>(NA) + kOvA - 1) / kOvA;
+  const long long tiles_j = (static_cast<long long>(NB) + kOvB - 1) / kOvB;
+  long long split = slots / tiles_i;
+  split = split < tiles_j ? split : tiles_j;
+  split = split < 65535 ? split : 65535;
+  const dim3 grid(static_cast<unsigned int>(tiles_i),
+                  static_cast<unsigned int>(split > 1 ? split : 1));
+  path_overlap_kernel<<<grid, kOvThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a), astride,
       static_cast<const int32_t*>(b), bstride, static_cast<int32_t*>(out),
-      NA, NB, LA, LB);
+      NA, NB, LA, LB, kcap);
   return static_cast<int>(cudaGetLastError());
 }
 

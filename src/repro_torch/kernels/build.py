@@ -35,8 +35,11 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("msbfs_step", "pairwise_popcount", "path_join", "ell_spmm",
            "flash_attention")
-# throughput probes that chip_smoke.py times for peak rates; not kernels
-PROBES = ("peak_probe",)
+# not kernels of any path: the throughput probes that chip_smoke.py times
+# for peak rates, and the other designs of kernels that probes/*.py time
+# against the port's (built with the kernels, so that every source is
+# compiled on each run)
+PROBES = ("peak_probe", "msbfs_step_designs", "path_join_designs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -105,6 +108,10 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, dict]:
 
 
 _LOAD_LOCK = threading.Lock()
+# id(library) -> (library, the signature sets declared on it): a wrapper
+# loads its library on every launch, and declaring argument types again
+# costs about 12 us of host time for five functions
+_DECLARED: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,12 +127,19 @@ def load(name: str, signatures: dict[str, Sequence]) -> ctypes.CDLL:
     """The library of source ``name`` (built on first use) with the
     argument types of its exported functions declared; every function
     returns an ``int`` CUDA error code."""
+    key = tuple(signatures)
     with _LOAD_LOCK:
         lib = _cdll(name)
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
+        held, declared = _DECLARED.get(id(lib), (None, set()))
+        if held is not lib:
+            declared = set()
+            _DECLARED[id(lib)] = (lib, declared)
+        if key not in declared:
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            declared.add(key)
     return lib
 
 

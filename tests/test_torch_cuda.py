@@ -222,6 +222,104 @@ def test_path_overlap_matches_plain(dev, NA, NB, LA, LB):
                                op(a.cpu(), LA - 1, b.cpu(), LB - 1))
 
 
+@pytest.mark.parametrize("V,D,W,ell_off,fr_off", [
+    (1 << 16, 32, 8, 1, 0),       # ELL rows without 16-byte loads
+    (1 << 16, 32, 8, 0, 1),       # frontier 4-byte aligned: a word a thread
+    (1 << 16, 32, 8, 0, 2),       # 8-byte aligned: two words a thread
+    (5000, 40, 6, 0, 0),          # D past one 32-entry pass, W = 6
+    (3000, 70, 12, 3, 2), (777, 33, 33, 0, 0), (500, 7, 64, 2, 0)])
+def test_msbfs_expand_misaligned_matches_plain(dev, V, D, W, ell_off,
+                                               fr_off):
+    """Tensors that start past a 16-byte boundary (views into a larger
+    buffer) and widths that are not a multiple of 4."""
+    r = np.random.default_rng(V + D + W + ell_off + fr_off)
+    ell_buf = torch.empty(ell_off + V * D, dtype=torch.int32, device=dev)
+    ell = ell_buf[ell_off:].view(V, D)
+    ell.copy_(torch.from_numpy(_ell(r, V, D, 0.5)))
+    fr_buf = torch.empty(fr_off + (V + 1) * W, dtype=torch.int32, device=dev)
+    fr = fr_buf[fr_off:].view(V + 1, W)
+    fr.copy_(torch.from_numpy(r.integers(-2**31, 2**31, size=(V + 1, W),
+                                         dtype=np.int64).astype(np.int32)))
+    got = msbfs_expand_cuda(ell, fr)
+    want = msbfs_expand_ref(ell, fr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not got[V].any()
+
+
+def _overlap_edge(case):
+    """(A, B) numpy int32 rows at one edge of path_overlap's dictionary
+    design (32-row A tiles, at most 256 distinct ids, int8 counts)."""
+    r = np.random.default_rng(len(case) * 7)
+    big = 2**31 - 1
+    if case == "ids_near_int32_max":      # and pads other than -1 in A
+        A = r.integers(big - 60, big + 1, (97, 6)).astype(np.int32)
+        B = r.integers(big - 60, big + 1, (300, 5)).astype(np.int32)
+        A[r.random(A.shape) < 0.3] = -5
+        A[:, 0] = -big - 1
+        B[r.random(B.shape) < 0.2] = -1
+    elif case == "repeats":               # [5, 5] against [5] counts 2
+        A = r.integers(0, 6, (64, 8)).astype(np.int32)
+        B = r.integers(-3, 6, (513, 7)).astype(np.int32)
+        A[0], B[0] = 5, 5
+    elif case == "dictionary_overflow":   # tile 0: 32 x 9 distinct ids
+        A = r.permutation(10**7)[:100 * 9].reshape(100, 9).astype(np.int32)
+        A[32:] = r.integers(0, 50, (68, 9))
+        B = A[r.integers(0, 100, 700)][:, ::-1].copy()
+    elif case == "long_rows":             # LA 121 against LB 40
+        A = r.integers(-1, 200, (70, 121)).astype(np.int32)
+        A[64:] = r.integers(-1, 3, (6, 121))
+        B = r.integers(-1, 200, (260, 40)).astype(np.int32)
+    elif case == "long_b_rows":           # LA 40 against LB 121
+        A = r.integers(-1, 100, (33, 40)).astype(np.int32)
+        B = r.integers(-1, 100, (255, 121)).astype(np.int32)
+    elif case == "rows_past_127":         # every tile compares
+        A = np.full((40, 130), 9, np.int32)
+        A[1::2, ::3] = 4
+        B = r.integers(3, 11, (37, 3)).astype(np.int32)
+    elif case == "odd_widths":            # NB odd: no paired stores
+        A = r.integers(-1, 40, (1, 3)).astype(np.int32)
+        B = r.integers(-1, 40, (257, 1)).astype(np.int32)
+    elif case == "all_pads":              # an empty dictionary
+        A = np.full((35, 4), -1, np.int32)
+        B = r.integers(-1, 9, (40, 4)).astype(np.int32)
+    else:
+        raise ValueError(case)
+    return A, B
+
+
+@pytest.mark.parametrize("case", ["ids_near_int32_max", "repeats",
+                                  "dictionary_overflow", "long_rows",
+                                  "long_b_rows", "rows_past_127",
+                                  "odd_widths", "all_pads"])
+def test_path_overlap_design_edges_match_plain(dev, case):
+    A, B = _overlap_edge(case)
+    NA, LA = A.shape
+    NB, LB = B.shape
+    # strided row slices of wider matrices
+    a = torch.full((NA, LA + 2), 7, dtype=torch.int32, device=dev)[:, :LA]
+    b = torch.full((NB, LB + 1), 7, dtype=torch.int32, device=dev)[:, 1:]
+    a.copy_(torch.from_numpy(A))
+    b.copy_(torch.from_numpy(B))
+    got = path_overlap_cuda(a, b)
+    want = path_overlap_ref(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if case == "repeats":
+        assert int(got[0, 0]) == 8 * 7
+
+
+def test_path_overlap_more_b_tiles_than_one_grid_row(dev):
+    """NB past 65,535 tiles of 256: a block walks several B tiles."""
+    r = np.random.default_rng(11)
+    a = torch.from_numpy(r.integers(-1, 9, (3, 2)).astype(np.int32)).to(dev)
+    b = torch.from_numpy(r.integers(-1, 9, (17_000_000, 1))
+                         .astype(np.int32)).to(dev)
+    got = path_overlap_cuda(a, b)
+    want = path_overlap_ref(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_delta_patches_card_tables_like_a_fresh_build(dev):
     from repro_torch.core import (DeviceGraph, GraphDelta, apply_delta,
                                   generators, host_set_dist,

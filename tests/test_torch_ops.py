@@ -7,7 +7,11 @@ their Pallas kernels under the interpreter, on the same inputs made with
 numpy from fixed seeds. The tolerance is exact equality: every output is
 an integer or a boolean. Also: the hop never writes the caller's tensor,
 the validity sums equal the port's own join counts on engine half rows,
-and an explicit ``"cuda"`` arm on CPU tensors raises.
+and an explicit ``"cuda"`` arm on CPU tensors raises. The card's
+``path_overlap`` formulation (a dictionary of each 32-row A tile's ids, an
+int8 count product over it, the compare loop where a dictionary
+overflows), emulated in numpy, is held to the plain version and to the
+JAX op at its edges.
 """
 import pytest
 
@@ -160,6 +164,101 @@ def test_path_overlap_takes_row_slices_without_copies():
         np.asarray(j_jops.path_overlap(jnp.asarray(A.numpy()[:, :4]),
                                        jnp.asarray(B.numpy()[:, :6]),
                                        backend="interpret")))
+
+
+# ----------------------------------------------------------------------
+# path_overlap's formulation on the card (csrc/path_join.cu): a dictionary
+# of each 32-row A tile's ids and an int8 count product over it
+# ----------------------------------------------------------------------
+
+TILE_A, DICT_MAX, COUNT_MAX = 32, 256, 127
+
+
+def _dictionary_overlap(A, B):
+    """Plain emulation of the card's path_overlap: for each tile of 32 A
+    rows, the dictionary of its distinct non-negative ids (sorted here; the
+    card numbers them in hash order, and the product does not depend on the
+    order), int8 count rows ``cnt_a`` (32, K) and ``cnt_b`` (NB, K) with K
+    rounded up to 32, and ``cnt_a @ cnt_b.T`` in int32. A tile with more
+    than 256 distinct ids, and every tile when a row is longer than 127,
+    takes the compare loop. Returns (out, tiles that compared)."""
+    NA, LA = A.shape
+    NB, LB = B.shape
+    out = np.zeros((NA, NB), np.int32)
+    compared = 0
+    for i0 in range(0, NA, TILE_A):
+        tile = A[i0:i0 + TILE_A]
+        ids = np.unique(tile[tile >= 0])
+        if LA > COUNT_MAX or LB > COUNT_MAX or ids.size > DICT_MAX:
+            compared += 1
+            eq = (tile[:, None, :, None] == B[None, :, None, :]) \
+                & (tile >= 0)[:, None, :, None]
+            out[i0:i0 + TILE_A] = eq.sum(axis=(2, 3))
+            continue
+        K = -(-ids.size // 32) * 32
+        cnt_a = np.zeros((tile.shape[0], K), np.int8)
+        r, p = np.nonzero(tile >= 0)
+        np.add.at(cnt_a, (r, np.searchsorted(ids, tile[r, p])), 1)
+        cnt_b = np.zeros((NB, K), np.int8)
+        if ids.size:
+            pos = np.minimum(np.searchsorted(ids, B), ids.size - 1)
+            j, q = np.nonzero((ids[pos] == B) & (B >= 0))
+            np.add.at(cnt_b, (j, pos[j, q]), 1)
+        out[i0:i0 + TILE_A] = cnt_a.astype(np.int32) \
+            @ cnt_b.astype(np.int32).T
+    return out, compared
+
+
+def _overlap_case(case):
+    """(A, B, tiles expected to compare) of one edge of the formulation."""
+    r = np.random.default_rng(len(case))
+    big = 2**31 - 1
+    if case == "ids_near_int32_max":
+        A = r.integers(big - 40, big + 1, (45, 6)).astype(np.int32)
+        B = r.integers(big - 40, big + 1, (70, 5)).astype(np.int32)
+        A[r.random(A.shape) < 0.3] = -7          # pads other than -1
+        A[:, 0] = -big - 1
+        B[r.random(B.shape) < 0.2] = -1
+        return A, B, 0
+    if case == "repeats":                         # [5, 5] against [5] is 2
+        A = r.integers(0, 6, (64, 8)).astype(np.int32)
+        B = r.integers(-2, 6, (33, 7)).astype(np.int32)
+        A[0] = 5
+        B[0] = 5
+        return A, B, 0
+    if case == "dictionary_overflow":             # 32 x 9 distinct ids
+        A = r.permutation(10**6)[:40 * 9].reshape(40, 9).astype(np.int32)
+        B = A[r.integers(0, 40, 50)][:, ::-1].copy()
+        B[:, 3] = A[5, 2]
+        return A, B, 1
+    if case == "long_rows":       # LA 121, LB 40; the first tile overflows
+        A = r.integers(-1, 300, (33, 121)).astype(np.int32)
+        B = r.integers(-1, 300, (257, 40)).astype(np.int32)
+        return A, B, 1
+    if case == "rows_past_127":                   # int8 counts could wrap
+        A = np.full((3, 130), 9, np.int32)
+        B = np.full((4, 2), 9, np.int32)
+        B[1] = -1
+        return A, B, 1
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["ids_near_int32_max", "repeats",
+                                  "dictionary_overflow", "long_rows",
+                                  "rows_past_127"])
+def test_dictionary_formulation_matches_plain_and_jax(case):
+    A, B, want_compared = _overlap_case(case)
+    got, compared = _dictionary_overlap(A, B)
+    assert compared == want_compared
+    plain = jops.path_overlap_ref(torch.from_numpy(A), torch.from_numpy(B))
+    np.testing.assert_array_equal(got, plain.numpy())
+    want = j_jops.path_overlap(jnp.asarray(A), jnp.asarray(B),
+                               backend="interpret")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if case == "repeats":
+        assert got[0, 0] == 8 * 7
+    if case == "rows_past_127":
+        assert got[0, 0] == 260 and got[0, 1] == 0
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's transformer serving path against the JAX package's, on the CPU.
 
-granite-8b and qwen2.5-14b ``REDUCED`` (qwen: QKV bias, hd 12, 5:1
-heads). The JAX parameter tree (``init_lm_params``, seed 0) is carried into
-the port with ``params_from_jax``; the same numpy tokens go through both.
+granite-8b, qwen1.5-110b and qwen2.5-14b ``REDUCED`` (both qwen: QKV
+bias; qwen1.5 hd 16, 2:1 heads; qwen2.5 hd 12, 5:1 heads). The JAX
+parameter tree (``init_lm_params``, seed 0) is carried into the port with
+``params_from_jax``; the same numpy tokens go through both.
 ``lm_forward`` and ``prefill`` are held against both JAX attention arms
 (``jnp`` and the Pallas kernel in interpret mode), ``decode_step`` against
 the ``jnp`` arm only: the JAX package's Pallas arm drops ``q_offset`` and
@@ -28,7 +29,7 @@ from repro_torch.config import RunOptions  # noqa: E402
 from repro_torch.data.lm_data import TokenStream  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-ARCHS = ["granite-8b", "qwen2.5-14b"]
+ARCHS = ["granite-8b", "qwen1.5-110b", "qwen2.5-14b"]
 LM_ARCHS = ["granite-8b", "qwen1.5-110b", "qwen2.5-14b",
             "moonshot-v1-16b-a3b", "olmoe-1b-7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
