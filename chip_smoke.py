@@ -6,15 +6,17 @@
                                              # a quicker, smaller run
 
 Phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
-and BASIC); phases 6 and 7 the engine's default configuration
-(``EngineConfig()``: walk-count capacity planning on ``ell_spmm``) under
-every planner, and the cross-batch cache; phase 8 incremental graph
-deltas under both ``delta_backend`` values; phase 9 streaming serving
+and BASIC); phase 6 the observability layer (stage spans annotated under
+``torch.profiler``, compile telemetry, the launch audit); phases 7 and 8
+the engine's default configuration (``EngineConfig()``: walk-count
+capacity planning on ``ell_spmm``) under every planner, and the
+cross-batch cache; phase 9 incremental graph deltas under both
+``delta_backend`` values; phase 10 streaming serving
 (``PathSession.submit`` / ``pump`` / ``results`` over the
 ``StreamingServer``, driven by exp11's open-loop arrival streams); phase
-10 sharded execution (four engine replicas on the card, each on its own
-CUDA stream); phase 11 the kernel ops API (``msbfs_hop_packed``,
-``path_overlap`` and the join-validity matrices); phase 12 the
+11 sharded execution (four engine replicas on the card, each on its own
+CUDA stream); phase 12 the kernel ops API (``msbfs_hop_packed``,
+``path_overlap`` and the join-validity matrices); phase 13 the
 transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
 kernel).
@@ -59,7 +61,27 @@ Phases, each printing one JSON line (``"phase": ...``):
                readback of count and overflow: at most 3 launches each
                (the keyed join's pair-setup ops apart, listed by name)
                and one copy to the host.
-6. planners -- ``PathSession(g, EngineConfig(), device="cuda")``, the
+6. obs      -- the observability layer on the card. One warm sharing
+               BATCH run with ``EngineConfig(trace=True,
+               trace_annotations=True, log_compiles=True)`` under
+               ``torchprof.profile_run`` (CPU and CUDA activity; Chrome
+               trace under ``build/obs/``): each stage span's host wall
+               beside the device time of the kernels launched inside it
+               (each device event charged through its CUDA runtime call to
+               the annotations open on the launching thread) and its busy
+               share; at most 5% of the device time may fall outside every
+               stage. One warm main-batch run with the Python stacks on
+               (``with_stack=True``): the host functions that take most of
+               ``t_detect`` (self and total time inside ``detect.cluster``).
+               Then a fresh process (``--obs-child``) holds the compile
+               log to ``tests/test_recompile.py``'s contract: its cold run
+               compiles exactly the kernel libraries it loads, two warm
+               runs and three in-bucket deltas (``delta_backend="msbfs"``)
+               none; and it runs ``repro_torch.analysis``'s launch audit of
+               the CUDA arm, whose launch and sync counts must be within
+               the committed ``LAUNCH_BUDGETS.json``. Every failed check
+               is listed in the phase line and fails the run.
+7. planners -- ``PathSession(g, EngineConfig(), device="cuda")``, the
                default configuration, runs the sharing batch under
                ``batch``, ``batch+``, ``basic+``, ``pathenum`` and
                ``auto``, each with its own launch counts (``ell_spmm``
@@ -73,11 +95,11 @@ Phases, each printing one JSON line (``"phase": ...``):
                path sets equal to phase 4's), and a last wrapped
                ``batch`` run keeps the inputs of the heaviest
                ``ell_spmm`` call.
-7. cache    -- ``EngineConfig(cache_bytes=256 << 20)``: the sharing batch
+8. cache    -- ``EngineConfig(cache_bytes=256 << 20)``: the sharing batch
                twice (the second must materialize nothing, hit, and give
                identical rows), then ``update_graph(g)`` and a run that
                must materialize again.
-8. delta    -- ``EngineConfig(cache_bytes=256 << 20)`` with
+9. delta    -- ``EngineConfig(cache_bytes=256 << 20)`` with
                ``delta_backend="host"`` and ``"msbfs"``, two sessions side
                by side on one batch: the sharing batch, else (when its hop
                balls leave fewer than 8 x 128 vertices outside them) the
@@ -97,7 +119,7 @@ Phases, each printing one JSON line (``"phase": ...``):
                session's on the new graph, and a few queries the oracle's.
                ``t_apply_s`` is printed beside an ``update_graph`` of the
                same graph.
-9. streaming -- exp11's open-loop serving (``benchmarks/exp11_open_loop.py``)
+10. streaming -- exp11's open-loop serving (``benchmarks/exp11_open_loop.py``)
                on the same graph: ``EngineConfig(min_cap=64,
                cache_bytes=64 << 20)`` (capacity planning on), planner
                ``batch``, two replica groups. Admission: micro-batches of
@@ -129,14 +151,14 @@ Phases, each printing one JSON line (``"phase": ...``):
                three groups, group 0 dies on its second item): results
                exactly once, one failover, the cache kept, a revived
                group serves.
-10. sharded -- ``mesh=["cuda:0"] * 4``: four engine replicas on the card,
+11. sharded -- ``mesh=["cuda:0"] * 4``: four engine replicas on the card,
                replica 0 on the caller's stream, the others each on its
                own. The main batch (``plan_caps=False``, 239 clusters)
                under ``batch``: rows in the same order, counts and
                clusters equal to phase 4's run, ``per_device`` with 4
                entries adding up to the run. ``n_devices=1`` is the
                identity: the sharing batch under ``batch`` and ``auto``
-               equal to phase 6's runs, with no ``per_device``. The
+               equal to phase 7's runs, with no ``per_device``. The
                sharing batch forms one cluster, which no mesh splits, so
                the four-replica engine runs it with ``balance_clusters``
                (4 clusters); its first, cold run goes under a card-only
@@ -156,17 +178,17 @@ Phases, each printing one JSON line (``"phase": ...``):
                device time over the fan-out's wall, the most streams
                with a kernel in flight at once). Deltas: a plain and a
                four-replica engine (64 MB caches) on the main batch's
-               k = 4 queries, phase 8's far and near deltas applied to
+               k = 4 queries, phase 9's far and near deltas applied to
                both: equal ``n_touched``, 4 equal cache epochs, replica
                tables equal to the primary's, rows equal after each.
-               Serving: phase 9's traced 1.0x level replayed from its
+               Serving: phase 10's traced 1.0x level replayed from its
                start graph over a four-replica engine: the same qids
                resolve exactly once to the same outcomes at the same
                model times, the same batch cuts, no steals, every
                micro-batch of more than one cluster placed on the 4
                replicas (``per_device``, ``n_devices``), and a batch wall
-               p50 within ``SHARDED_SERVE_MAX_X`` of phase 9's.
-11. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
+               p50 within ``SHARDED_SERVE_MAX_X`` of phase 10's.
+12. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
                on the frontier of the heaviest ``msbfs_step`` call of the
                main batch, ``path_overlap`` on 4096 x 4096 rows of 6
                vertex ids with -1 pads, ``splice_join_valid`` on the
@@ -174,7 +196,7 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``keyed_join_valid`` on its heaviest keyed join with
                NA*NB <= 2**26, whose valid-pair sums must equal the joins'
                counts.
-12. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
+13. lm      -- the graph state freed first. granite-8b ``CONFIG`` (36
                layers, d_model 4096, 32 q-heads, 8 kv-heads, hd 128,
                d_ff 14336, vocab 49152: 8.25 G parameters) in bf16, drawn
                on the card from a seeded ``torch.Generator`` with the JAX
@@ -198,10 +220,10 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``decode_step``, each prefill and forward on the wgmma
                route and each decode step on the split-K route (check (a)
                on the float32 route).
-13. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+14. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-14. kernels -- first a card-only ``torch.profiler`` window over one
+15. kernels -- first a card-only ``torch.profiler`` window over one
                ``similarity_matrix`` call of the main batch (device time
                by kernel name against the call's host wall). Then each
                kernel again on the inputs of its heaviest call in the
@@ -277,10 +299,12 @@ non-zero at once. It imports nothing of JAX and nothing of ``repro``.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -337,16 +361,16 @@ FUSED = {"level_fused": "path_member", "join_fused": "rowwise_overlap"}
 # keyed join's pair setup apart)
 FUSED_LAUNCH_BUDGET = 3
 # the kernels of the first slice's path (plan_caps=False), which phases 4
-# and 5 drive; ell_spmm runs only where capacities are planned (phase 6)
+# and 5 drive; ell_spmm runs only where capacities are planned (phase 7)
 FIRST_SLICE = ("msbfs_step", "pairwise_popcount", "gamma_pack",
                "path_member", "rowwise_overlap")
 # the similarity stage's launches per batch: one of each per direction
 SIMILARITY_LAUNCHES = 2
-# the planners phase 6 drives with the default configuration
+# the planners phase 7 drives with the default configuration
 PLANNERS = ("batch", "batch+", "basic+", "pathenum", "auto")
-# the kernels of the ops API, which phase 11 drives
+# the kernels of the ops API, which phase 12 drives
 OPS_KERNELS = ("msbfs_expand", "path_overlap")
-# phase 8: the far delta's deletions and insertions (exp10's background
+# phase 9: the far delta's deletions and insertions (exp10's background
 # churn), and the pool it needs beyond every hop ball (exp10's "strict")
 FAR_EDGES = 128
 FAR_POOL = 8 * FAR_EDGES
@@ -391,7 +415,7 @@ SHARDED_COLD_MAX_S = 1.0
 # server's on the same stream (1.6-2.0x on an H100: the replica threads'
 # host work contends for the interpreter)
 SHARDED_SERVE_MAX_X = 3.0
-# phase 12: the published configuration served, prefill_32k cut in
+# phase 13: the published configuration served, prefill_32k cut in
 # sequence (32768 -> 2048) and batch (32 -> 4), the decode cache's
 # teacher-forced and greedy steps, and check (a)'s depth
 LM_ARCH = "granite-8b"
@@ -1215,6 +1239,397 @@ class RetryCounter:
 
     def as_dict(self) -> dict:
         return {"node_runs": self.calls, "retries": self.retries}
+
+
+# ----------------------------------------------------------------------
+# phase obs: the profiler bridge, compile telemetry and the launch audit
+# ----------------------------------------------------------------------
+
+# where phase obs writes its Chrome trace (git ignores build/)
+OBS_DIR = os.path.join(ROOT, "build", "obs")
+# the engine's stage spans whose host wall and device time are printed
+OBS_STAGES = ("engine.run", "index.build", "cluster.queries",
+              "detect.cluster", "enumerate.cluster", "enumerate.node",
+              "msbfs.level", "join.splice", "join.keyed", "cache.get",
+              "cache.put", "assemble.query", "transfer.paths",
+              "route.estimate", "route.green", "executor.place",
+              "replica.run")
+# the host functions of t_detect printed, by self time and by total time
+OBS_TOP = 12
+# the compile window: a fresh process (nothing loaded yet) on a graph of
+# OBS_WINDOW_N vertices, OBS_WINDOW_QUERIES overlapping queries, two warm
+# runs and OBS_DELTAS in-bucket deltas of OBS_DELTA_EDGES deletions and as
+# many insertions each; the same process then runs the launch audit (its
+# short profiler windows come back incomplete more often in a process that
+# has run long ones, as this phase's)
+OBS_WINDOW_N = 1 << 16
+OBS_WINDOW_QUERIES = 16
+OBS_DELTAS = 3
+OBS_DELTA_EDGES = 4
+OBS_WINDOW_TIMEOUT_S = 300
+
+
+# the Chrome trace's categories of device events and of the host's CUDA
+# runtime and driver calls
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_API_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def stage_device_times(doc: dict, names) -> dict:
+    """Device time of the kernels launched inside each stage span, from
+    the Chrome trace of one profiler window with CPU and CUDA activity
+    whose spans were annotated (``record_function``).
+
+    A device event is charged to the CUDA runtime call that launched it
+    (the host event with its correlation id: ``ctypes`` launches included,
+    which no PyTorch op encloses), and that call's thread and start time
+    place it in the annotations open on that thread: ``device_ms`` counts
+    it in every stage span around the launch (each name once),
+    ``self_device_ms`` only in the innermost. A replica thread's kernels
+    thus land under that replica's spans. A device event whose call is
+    not in the window falls back to the device timeline's annotation
+    ranges (``placed_on_device``)."""
+    names = set(names)
+    calls, ann, dev_ann, dev = {}, {}, [], []
+    for e in doc["traceEvents"]:
+        cat = e.get("cat")
+        if cat in _DEVICE_CATS:
+            dev.append(e)
+        elif cat in _API_CATS:
+            calls[e["args"].get("correlation")] = (e["tid"], e["ts"])
+        elif e.get("name") in names:
+            span = (e["ts"], e["ts"] + e["dur"], e["name"])
+            if cat == "user_annotation":
+                ann.setdefault(e["tid"], []).append(span)
+            elif cat == "gpu_user_annotation":
+                dev_ann.append(span)
+    per = {}
+    total = unplaced = on_device = 0.0
+    for e in dev:
+        dur = e["dur"]
+        total += dur
+        where = calls.get(e["args"].get("correlation"))
+        if where is not None:
+            inside = [a for a in ann.get(where[0], ())
+                      if a[0] <= where[1] <= a[1]]
+        else:
+            inside = [a for a in dev_ann
+                      if a[0] <= e["ts"] and e["ts"] + dur <= a[1]]
+            on_device += dur if inside else 0.0
+        if not inside:
+            unplaced += dur
+            continue
+        for name in {a[2] for a in inside}:
+            row = per.setdefault(name, {"device_us": 0.0, "self_us": 0.0,
+                                        "events": 0})
+            row["device_us"] += dur
+            row["events"] += 1
+        per[max(inside)[2]]["self_us"] += dur
+    return {"per": per, "device_us": total, "unplaced_us": unplaced,
+            "placed_on_device_us": on_device, "device_events": len(dev),
+            "api_calls": len(calls)}
+
+
+_ADDRESS = re.compile(r" at 0x[0-9a-f]+")
+
+
+def host_functions(doc: dict, window: str, top: int) -> dict:
+    """The Python functions of a ``with_stack`` profile's Chrome trace
+    inside the ``window`` annotations: self time (own time, callees
+    excluded) and total time per function, the ``top`` of each, in ms."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in doc["traceEvents"]
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") == window)
+    py = [e for e in doc["traceEvents"]
+          if e.get("cat") == "python_function"]
+    child_us = {}
+    for e in py:
+        pid = e["args"].get("Python parent id")
+        child_us[pid] = child_us.get(pid, 0.0) + e["dur"]
+    starts = [lo for lo, _ in spans]
+
+    def inside(e) -> bool:
+        i = bisect.bisect_right(starts, e["ts"])
+        return i > 0 and e["ts"] <= spans[i - 1][1]
+
+    self_us, total_us, calls = {}, {}, {}
+    for e in py:
+        if not inside(e):
+            continue
+        name = _ADDRESS.sub("", e["name"])     # one row per bound method
+        self_us[name] = self_us.get(name, 0.0) + e["dur"] \
+            - child_us.get(e["args"].get("Python id"), 0.0)
+        total_us[name] = total_us.get(name, 0.0) + e["dur"]
+        calls[name] = calls.get(name, 0) + 1
+    window_us = sum(hi - lo for lo, hi in spans)
+
+    def best(d):
+        return [{"function": k, "ms": v / 1e3,
+                 "share": v / max(window_us, 1e-9), "calls": calls[k]}
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:top]]
+    return {"windows": len(spans), "window_ms": window_us / 1e3,
+            "python_events": len(py), "by_self": best(self_us),
+            "by_total": best(total_us)}
+
+
+def telemetry(stats: dict) -> dict:
+    return {k: stats[k] for k in ("n_compiles", "n_retraces",
+                                  "compiled_kernels")}
+
+
+def window_delta(g, dg, rng):
+    """OBS_DELTA_EDGES deletions of edges and as many absent insertions
+    between vertices with room in their ELL rows: an in-bucket delta."""
+    import numpy as np
+    from repro_torch.core import GraphDelta
+    keys = edge_keys(g)
+    room = np.flatnonzero((g.out_degree() < dg.ell_cap - OBS_DELTA_EDGES)
+                          & (g.in_degree() < dg.r_ell_cap - OBS_DELTA_EDGES))
+    gone = rng.choice(keys.size, size=OBS_DELTA_EDGES, replace=False)
+    remove = list(zip((keys[gone] // g.n).tolist(),
+                      (keys[gone] % g.n).tolist()))
+    return GraphDelta.from_pairs(
+        add=absent_pairs(g, room, OBS_DELTA_EDGES, rng, keys), remove=remove)
+
+
+def obs_child(trace: str) -> dict:
+    """What phase obs runs in a fresh process (``--obs-child TRACE``),
+    beside the main batch's profile in its parent: the device time per
+    stage of the sharing run's Chrome trace ``trace``, the compile window,
+    then the launch audit of the CUDA arm against the committed
+    budgets."""
+    from repro_torch.analysis import launch_audit
+    t0 = time.perf_counter()
+    with open(trace) as f:
+        out = {"stages": stage_device_times(json.load(f), OBS_STAGES)}
+    out["stages"]["seconds"] = time.perf_counter() - t0
+    out["compile_window"] = compile_window()
+    t0 = time.perf_counter()
+    audit = launch_audit.run_audit(arm="cuda")
+    out["audit"] = {"ok": audit.ok, "seconds": time.perf_counter() - t0,
+                    "violations": [f.render() for f in audit.violations],
+                    "measured": audit.meta["measured"],
+                    "launched": audit.meta.get("launched")}
+    return out
+
+
+def compile_window() -> dict:
+    """The counterpart of ``tests/test_recompile.py`` in a fresh process
+    (``--obs-child``): the cold run must compile exactly the kernel
+    libraries it loaded, two warm runs and OBS_DELTAS in-bucket deltas
+    (``delta_backend="msbfs"``, each followed by a run) none."""
+    import numpy as np
+    from repro_torch.core import EngineConfig, PathSession, generators
+    from repro_torch.kernels import build
+    before = set(build.ready())
+    g = generators.community(n=OBS_WINDOW_N,
+                             n_comm=max(OBS_WINDOW_N // 2500, 1),
+                             avg_deg=8.0, p_intra=0.9, seed=0)
+    queries = generators.similar_queries(g, OBS_WINDOW_QUERIES,
+                                         similarity=0.8, k_range=(4, 5),
+                                         seed=3)
+    session = PathSession(g, EngineConfig(log_compiles=True,
+                                          cache_bytes=64 << 20,
+                                          delta_backend="msbfs"),
+                          device="cuda")
+    cold = session.run(queries, planner="batch")
+    loaded = sorted(set(build.ready()) - before)
+    out = {"loaded_before": sorted(before), "loaded": loaded,
+           "cold": telemetry(cold.stats), "warm": [], "deltas": []}
+    for _ in range(2):
+        out["warm"].append(telemetry(session.run(queries,
+                                                 planner="batch").stats))
+    rng = np.random.default_rng(4)
+    for _ in range(OBS_DELTAS):
+        eng = session.engine
+        rep = session.apply_delta(window_delta(eng.g, eng.dg, rng))
+        after = session.run(queries, planner="batch")
+        out["deltas"].append({
+            "apply": telemetry(rep), "device_update": rep["device_update"],
+            "cache_mode": rep["cache_mode"], "run": telemetry(after.stats)})
+    return out
+
+
+def check_compile_window(w: dict) -> list:
+    """What the compile window must show (failures as strings)."""
+    bad = []
+    cold = w["cold"]
+    if w["loaded_before"]:
+        bad.append(f"the window's process had libraries before its "
+                   f"first run: {w['loaded_before']}")
+    if cold["n_compiles"] != len(w["loaded"]) or \
+            sorted(cold["compiled_kernels"]) != w["loaded"] or \
+            cold["n_retraces"]:
+        bad.append(f"cold window: {cold} against the libraries loaded "
+                   f"{w['loaded']}")
+    if not w["loaded"]:
+        bad.append("the cold run loaded no kernel library")
+    warm = w["warm"] + [d[k] for d in w["deltas"] for k in ("apply", "run")]
+    if any(t["n_compiles"] or t["n_retraces"] for t in warm):
+        bad.append(f"a warm window compiled: {warm}")
+    if any(d["device_update"] != "incremental" for d in w["deltas"]):
+        bad.append(f"a delta left its bucket: {w['deltas']}")
+    return bad
+
+
+def host_profile(main_session, main_queries, tracer) -> tuple:
+    """One warm main-batch run with the host's Python stacks on
+    (``with_stack=True``; its ``detect.cluster`` spans annotated): the
+    host functions inside ``detect.cluster`` and the run's report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace as obstrace
+    obstrace.enable(annotate=True)          # the main session's tracer
+    try:
+        with profile(activities=[ProfilerActivity.CPU],
+                     with_stack=True) as prof:
+            main = main_session.run(main_queries, planner="batch")
+    finally:
+        tracer.configure(enabled=False, fence=False, annotator=None)
+        tracer.reset()
+    t0 = time.perf_counter()
+    path = os.path.join(OBS_DIR, "main_with_stack.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    detect = host_functions(doc, "detect.cluster", OBS_TOP)
+    detect["trace_mb"] = os.path.getsize(path) / 2 ** 20
+    detect["parse_s"] = time.perf_counter() - t0
+    return detect, main
+
+
+def phase_obs(torch, g, main_session, main_queries, share_queries,
+              main_warm) -> dict:
+    """Phase obs: device time per stage of a warm sharing BATCH run under
+    ``torchprof.profile_run`` (spans annotated), the host functions of the
+    main batch's ``t_detect`` under a ``with_stack`` profile, the compile
+    log (cold, warm, in-bucket deltas; a fresh process) and the launch
+    audit of the CUDA arm against the committed budgets. Every failed
+    check is listed in the phase line, and then fails the run."""
+    from repro_torch.core import EngineConfig, PathSession
+    from repro_torch.kernels import build
+    from repro_torch.obs import torchprof
+    from repro_torch.obs import trace as obstrace
+
+    failed = []
+
+    def check(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    out = {"phase": "obs"}
+    walls = out["walls_s"] = {}
+    # 1. device time per stage
+    session = PathSession(g, EngineConfig(trace=True, trace_annotations=True,
+                                          log_compiles=True),
+                          device="cuda")
+    tracer = obstrace.tracer()
+    walls["session"] = time.perf_counter() - t_phase
+    cold = session.run(share_queries, planner="batch")
+    walls["sharing_cold"] = time.perf_counter() - t_phase
+    check(cold.stats["n_retraces"] == 0,
+          f"the sharing batch's cold run retraced: {telemetry(cold.stats)}")
+    tracer.reset()
+    with torchprof.profile_run(OBS_DIR, device="cuda") as prof:
+        rep = session.run(share_queries, planner="batch")
+    walls["sharing_profiled"] = time.perf_counter() - t_phase
+    check([r.count for r in rep] == [r.count for r in cold],
+          "the profiled sharing run differs from its cold run")
+    check(rep.stats["n_compiles"] == 0 and rep.stats["n_retraces"] == 0,
+          f"the warm sharing run compiled: {telemetry(rep.stats)}")
+    host = {}
+    for sp in tracer.spans():
+        row = host.setdefault(sp.name, [0, 0.0])
+        row[0] += 1
+        row[1] += sp.duration
+    del prof
+    # the fresh process: it reads the sharing run's trace, then runs the
+    # compile window and the launch audit, while this one profiles the
+    # main batch's host (whose kernels are few: the card stays free)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--obs-child",
+         os.path.join(OBS_DIR, f"torchprof_{os.getpid()}.trace.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        detect, main = host_profile(main_session, main_queries, tracer)
+    finally:
+        try:
+            child_out, child_err = child.communicate(
+                timeout=OBS_WINDOW_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child_out, child_err = child.communicate()
+    walls["main_functions"] = time.perf_counter() - t_phase
+    lines = child_out.strip().splitlines()
+    check(child.returncode == 0 and lines,
+          f"phase obs's fresh process failed ({child.returncode}): "
+          f"{child_err[-2000:]}")
+    got = json.loads(lines[-1]) if child.returncode == 0 and lines else {}
+    walls["child"] = time.perf_counter() - t_phase
+    dev = got.get("stages", {"per": {}, "device_us": 0.0,
+                             "unplaced_us": 0.0, "placed_on_device_us": 0.0,
+                             "device_events": 0, "api_calls": 0})
+    stages = {}
+    for name in OBS_STAGES:
+        if name not in host:
+            continue
+        n, wall = host[name]
+        d = dev["per"].get(name, {"device_us": 0.0, "self_us": 0.0,
+                                   "events": 0})
+        stages[name] = {"spans": n, "host_ms": wall * 1e3,
+                        "device_ms": d["device_us"] / 1e3,
+                        "self_device_ms": d["self_us"] / 1e3,
+                        "device_events": d["events"],
+                        "busy_share": d["device_us"] / 1e6 / max(wall, 1e-12)}
+    wall = host["engine.run"][1]
+    out["sharing"] = {
+        "t_wall_s": rep.stats["t_wall_s"],
+        "stats": {k: rep.stats[k] for k in STAT_KEYS},
+        "device_ms": dev["device_us"] / 1e3,
+        "busy_share": dev["device_us"] / 1e6 / wall,
+        "unplaced_ms": dev["unplaced_us"] / 1e3,
+        "placed_on_device_ms": dev["placed_on_device_us"] / 1e3,
+        "device_events": dev["device_events"],
+        "api_calls": dev["api_calls"], "read_s": dev.get("seconds"),
+        "stages": stages, "trace_dir": os.path.relpath(OBS_DIR, ROOT)}
+    check(set(OBS_STAGES[:5]) <= set(stages),
+          f"stage spans missing from the trace: {sorted(stages)}")
+    check(dev["device_events"] > 0, "no device event in the profile")
+    check(dev["unplaced_us"] <= 0.05 * dev["device_us"],
+          f"{dev['unplaced_us'] / 1e3:.3f} of "
+          f"{dev['device_us'] / 1e3:.3f} device ms outside every stage")
+    for name in ("index.build", "cluster.queries", "enumerate.cluster"):
+        check(stages.get(name, {}).get("device_ms", 0) > 0,
+              f"no device time under {name}")
+    # 2. where t_detect goes (profiled above, beside the fresh process)
+    out["t_detect"] = {"profiled_t_detect_s": main.stats["t_detect"],
+                       "profiled_t_wall_s": main.stats["t_wall_s"],
+                       "warm_t_detect_s": main_warm[-1]["t_detect"],
+                       "warm_t_wall_s": main_warm[-1]["t_wall_s"],
+                       **detect}
+    check(detect["windows"] == main.stats["n_clusters"],
+          f"{detect['windows']} detect.cluster windows for "
+          f"{main.stats['n_clusters']} clusters")
+    check(detect["python_events"] > 0 and detect["by_self"],
+          "the with_stack profile holds no Python function inside "
+          "detect.cluster")
+    # 3. the compile log and 4. the launch audit (the fresh process)
+    if got:
+        for what in check_compile_window(got["compile_window"]):
+            check(False, what)
+        check(got["audit"]["ok"],
+              f"launch audit: {got['audit']['violations']}")
+        out.update(compile_window=got["compile_window"], audit=got["audit"],
+                   child_seconds=time.perf_counter() - t_child)
+    out["compile_log_here"] = {"libraries_ready": sorted(build.ready())}
+    out["failed"] = failed
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(not failed, f"phase obs: {failed}")
+    return out
 
 
 def phase_planners(torch, g, main_session, main_queries, main_report,
@@ -3495,6 +3910,8 @@ def main(argv=None) -> int:
                     help="queries in the batch (default 256)")
     ap.add_argument("--sharing-queries", type=int, default=64,
                     help="queries in the sharing batch (default 64)")
+    # phase obs runs its compile window and audit in a fresh process
+    ap.add_argument("--obs-child", metavar="TRACE", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3504,6 +3921,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.obs_child:
+        emit(obs_child(args.obs_child))
+        return 0
 
     t_start = time.perf_counter()
     dev_info = phase_device(torch)
@@ -3513,6 +3933,7 @@ def main(argv=None) -> int:
         phase_main(torch, g, queries)
     share_rec, join_rec, share_launches, share_queries, share_report = \
         phase_sharing(torch, g, session, args.sharing_queries)
+    phase_obs(torch, g, session, queries, share_queries, main_warm)
     plan_rec, plan_launches, plan_reports = phase_planners(
         torch, g, session, queries, main_report, share_queries, share_report)
     phase_cache(g, share_queries, share_report)

@@ -10,7 +10,8 @@ from .engine import BatchPathEngine, EngineConfig, EngineOverflow, BatchResult
 from .planner import CostEstimate, CostRouter, Route, RouterConfig
 from .session import PathSession
 from .index import build_index, QueryIndex
-from . import distributed, generators, oracle, planner
+from .compilelog import CompileLog
+from . import compilelog, distributed, generators, oracle, planner
 
 __all__ = ["Graph", "DeviceGraph", "BatchPathEngine", "EngineConfig",
            "EngineOverflow", "BatchResult", "SharedPathCache",
@@ -19,5 +20,5 @@ __all__ = ["Graph", "DeviceGraph", "BatchPathEngine", "EngineConfig",
            "PathQuery", "QueryResult", "BatchReport", "Planner", "Output",
            "QueryLike", "ResultStatus", "PathSession",
            "CostEstimate", "CostRouter", "Route", "RouterConfig",
-           "build_index", "QueryIndex", "distributed", "generators",
-           "oracle", "planner"]
+           "build_index", "QueryIndex", "CompileLog", "compilelog",
+           "distributed", "generators", "oracle", "planner"]

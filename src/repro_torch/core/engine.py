@@ -28,12 +28,18 @@ end in a device synchronize, so each stat measures completed work. The
 finer spans (a node, a level, a join, a cache access) add no
 synchronize: each level and join already reads its count back, and a
 level's span fences its frontier when the tracer runs with
-``fence=True``. ``EngineConfig.trace`` turns recording on.
+``fence=True``. ``EngineConfig.trace`` turns recording on, and
+``trace_annotations`` also enters a ``torch.profiler.record_function`` of
+the span's name for each span's lifetime, so a profiler window
+(``repro_torch.obs.torchprof``) shows every stage on its timeline and
+can charge each device kernel to the stage that launched it.
+``EngineConfig.log_compiles`` writes each run's and each delta's compile
+window (``n_compiles``, ``n_retraces``, ``compiled_kernels``;
+``repro_torch.core.compilelog``) into its report.
 
 Not in this port yet, and refused with ``NotImplementedError`` instead of
-silently degrading: compile telemetry (``log_compiles``), the profiler
-bridge (``trace_annotations``), and the knob of the segment arm
-(``edge_chunk``) when set away from its default.
+silently degrading: the knob of the segment arm (``edge_chunk``) when
+set away from its default.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import compilelog
 from .cache import SharedPathCache
 from .clustering import cluster_queries
 from .delta import (AppliedDelta, GraphDelta, apply_delta as _merge_delta,
@@ -75,9 +82,6 @@ Query = tuple[int, int, int]
 # backward enumeration when a forward level already answers exists-only
 Levels = Callable[[], list]
 
-# where each refused option's port is queued (ROADMAP.md)
-_QUEUED = "ROADMAP.md queue 1, item 3 (observability and analysis)"
-
 
 class EngineOverflow(RuntimeError):
     """A query exceeded hard capacity limits (the paper's OT analogue)."""
@@ -103,7 +107,8 @@ class EngineConfig:
     cache_bytes: int = 0            # >0: cross-batch SharedPathCache budget
     delta_max_sources: int = 1024   # wider touched sets: full invalidation
     delta_backend: str = "host"     # "host" CSR walk, else the MS-BFS sweep
-    log_compiles: bool = False      # compile telemetry (not ported)
+    log_compiles: bool = False      # compile telemetry: per-library compile
+    # and retrace counts in each run/apply_delta report (core/compilelog)
     mesh: Optional[Sequence] = None  # devices of the cluster replicas
     # (entry 0 the engine's own, repeats allowed); None + n_devices -> the
     # first N local devices of the engine's type (1 = identity mesh)
@@ -113,7 +118,8 @@ class EngineConfig:
     trace: bool = False             # record stage spans into the process
     # tracer (Chrome-trace exportable); off = spans still time every stage
     trace_fence: bool = False       # synchronize fenced tensors' devices
-    trace_annotations: bool = False  # profiler bridge (not ported)
+    trace_annotations: bool = False  # wrap spans in torch.profiler
+    # record_function (obs/torchprof), so profiles show the stages
     router: Optional[RouterConfig] = None  # Planner.AUTO routing thresholds
     # and output-kind weights (None = planner.RouterConfig defaults)
 
@@ -132,17 +138,10 @@ class BatchResult:
 
 def _check_config(cfg: EngineConfig) -> None:
     """Refuse every option whose code is not ported yet."""
-    refused = (
-        ("log_compiles=True (compile telemetry)", cfg.log_compiles, _QUEUED),
-        ("trace_annotations=True (the profiler bridge)",
-         cfg.trace_annotations, _QUEUED),
-        ("edge_chunk (the segment arm)", cfg.edge_chunk != 1 << 22,
-         "ROADMAP.md queue 1, 'the mesh-parallel index'"),
-    )
-    for what, bad, item in refused:
-        if bad:
-            raise NotImplementedError(f"EngineConfig {what} is not ported "
-                                      f"yet; it comes with {item}")
+    if cfg.edge_chunk != 1 << 22:
+        raise NotImplementedError(
+            "EngineConfig edge_chunk (the segment arm) is not ported yet; "
+            "it comes with ROADMAP.md queue 1, 'the mesh-parallel index'")
 
 
 def _bucket(x: int, min_cap: int = 256) -> int:
@@ -175,11 +174,18 @@ class BatchPathEngine:
         self.cache = cache
         # Planner.AUTO tier routing + per-cluster planner choice
         self.router = CostRouter(self.cfg.router)
+        # process-wide recorder (the library cache is process-global);
+        # None when telemetry is off -- every run()/apply_delta() report
+        # then carries n_compiles / n_retraces / compiled_kernels
+        self.compile_log = compilelog.enable() if self.cfg.log_compiles \
+            else None
         # stage spans: the recorder is process-wide -- any engine with
         # cfg.trace turns recording on; the handle is always present
         # because every t_* stat is a span's duration (recorded or not)
-        self.obs = obstrace.enable(fence=self.cfg.trace_fence) \
-            if self.cfg.trace else obstrace.tracer()
+        self.obs = obstrace.enable(
+            fence=self.cfg.trace_fence,
+            annotate=self.cfg.trace_annotations) if self.cfg.trace \
+            else obstrace.tracer()
 
     @contextlib.contextmanager
     def stage(self, name: str, **attrs):
@@ -235,10 +241,18 @@ class BatchPathEngine:
         memo, which the next batch's index rebuilds anyway.
 
         ``t_apply_s`` ends in a device synchronize, so it measures
-        completed work. (The reference splits this method into
-        ``apply_delta`` and ``_apply_delta_impl`` for its compile
-        telemetry, which is not ported.)
+        completed work. With ``EngineConfig.log_compiles`` the report
+        carries the window's ``n_compiles`` / ``n_retraces`` (0 once the
+        delta path's libraries are loaded: no delta selects another).
         """
+        if self.compile_log is None:
+            return self._apply_delta_impl(delta)
+        snap = self.compile_log.snapshot()
+        report = self._apply_delta_impl(delta)
+        self.compile_log.annotate(report, snap)
+        return report
+
+    def _apply_delta_impl(self, delta: GraphDelta) -> dict:
         with self.stage("engine.apply_delta") as sp:
             applied = _merge_delta(self.g, delta)
             sp.set(n_added=int(applied.added_src.size),
@@ -356,9 +370,21 @@ class BatchPathEngine:
         clusters : optional precomputed partition of query indices (batch
         planners and AUTO only).
 
-        (The reference splits this into ``run`` and ``_run_impl`` for its
-        compile telemetry, which is not ported.)
+        With ``EngineConfig.log_compiles`` the report stats carry this
+        run's compile-telemetry window: ``n_compiles`` (kernel libraries
+        made ready), ``n_retraces`` (libraries that were already ready --
+        zero on a warm path) and ``compiled_kernels``.
         """
+        if self.compile_log is None:
+            return self._run_impl(queries, planner, clusters)
+        snap = self.compile_log.snapshot()
+        report = self._run_impl(queries, planner, clusters)
+        self.compile_log.annotate(report.stats, snap)
+        return report
+
+    def _run_impl(self, queries: Sequence[QueryLike],
+                  planner: Planner | str,
+                  clusters: Optional[list[list[int]]]) -> BatchReport:
         qs = tuple(PathQuery.coerce(q).check_bounds(self.g.n)
                    for q in queries)
         planner = Planner.coerce(planner)

@@ -11,8 +11,13 @@ load a library together (the sharded executor's replicas) run one
 
 Every exported C function launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into a
-``RuntimeError``. Nothing here runs at import time, so the CPU tests import
-every kernel module on a machine without ``nvcc``.
+``RuntimeError``. Nothing here runs at import time, so the CPU tests
+import every kernel module on a machine without ``nvcc``.
+
+This is the port's compile layer: a library made ready in this process
+(compiled by :func:`build`, or loaded from disk on first use) calls every
+hook added with :func:`add_compile_hook` with its source name, once per
+library file. ``repro_torch.core.compilelog`` counts those calls.
 """
 from __future__ import annotations
 
@@ -25,11 +30,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Iterable, Sequence
+from typing import Callable, Iterable, Sequence
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "PROBES", "NVCC_FLAGS",
            "TOOLKIT_NVCC", "nvcc_path", "library_path", "build", "load",
-           "check"]
+           "check", "add_compile_hook", "remove_compile_hook", "ready"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -43,6 +48,45 @@ PROBES = ("peak_probe", "msbfs_step_designs", "path_join_designs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+
+# source name -> the library file made ready in this process, and the
+# callables told of each new one (core/compilelog.py installs one)
+_READY: dict[str, Path] = {}
+_HOOKS: list[Callable[[str], None]] = []
+_READY_LOCK = threading.Lock()
+
+
+def add_compile_hook(hook: Callable[[str], None]) -> None:
+    """Call ``hook(name)`` whenever a library is made ready from now on."""
+    with _READY_LOCK:
+        if hook not in _HOOKS:
+            _HOOKS.append(hook)
+
+
+def remove_compile_hook(hook: Callable[[str], None]) -> None:
+    with _READY_LOCK:
+        if hook in _HOOKS:
+            _HOOKS.remove(hook)
+
+
+def ready() -> dict[str, Path]:
+    """The libraries made ready in this process: source name -> file."""
+    with _READY_LOCK:
+        return dict(_READY)
+
+
+def _made_ready(name: str, path: Path) -> None:
+    """Record that ``path`` (the library of source ``name``) is ready; a
+    file already recorded for that name (built, then loaded) is not a
+    second compile, a new file of the same name (an edited source) is."""
+    with _READY_LOCK:
+        if _READY.get(name) == path:
+            return
+        _READY[name] = path
+        hooks = list(_HOOKS)
+    for hook in hooks:
+        hook(name)
 
 
 def nvcc_path() -> str:
@@ -102,6 +146,7 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, dict]:
             continue
         os.replace(tmp, library_path(name))   # atomic: no half-written .so
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        _made_ready(name, library_path(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report
@@ -117,9 +162,11 @@ _DECLARED: dict = {}
 @functools.lru_cache(maxsize=None)
 def _cdll(name: str) -> ctypes.CDLL:
     build([name])
-    lib = ctypes.CDLL(str(library_path(name)))
+    path = library_path(name)
+    lib = ctypes.CDLL(str(path))
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
+    _made_ready(name, path)
     return lib
 
 

@@ -215,6 +215,7 @@ def fused_level_cuda(verts: torch.Tensor, count: torch.Tensor,
     cap, L = verts.shape
     D = ell_idx.shape[1]
     n = prune_tbl.shape[0] - 1
+    # repro-lint: waive[RPL005] a 2-byte alignment test of a pointer, not shape math
     if prune_tbl.shape[1] != 2 or prune_tbl.data_ptr() % 2:
         raise ValueError(f"prune_tbl: expected a 2-byte aligned (n+1, 2) "
                          f"table, got {tuple(prune_tbl.shape)}")

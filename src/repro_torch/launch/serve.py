@@ -565,9 +565,10 @@ class StreamingServer:
                                            min_clusters=min_clusters)
             # scheduler items carry global qids so a requeued item from
             # any earlier micro-batch still resolves to the right queries
-            # n_compiles / n_retraces stay 0: compile telemetry
-            # (EngineConfig.log_compiles) is not ported, as in the
-            # reference without it
+            # n_compiles / n_retraces stay 0 unless the engine runs with
+            # EngineConfig.log_compiles -- then each batch_log entry shows
+            # whether this micro-batch loaded a kernel library (a cold
+            # start) or found every one ready (retraces == 0)
             agg = {"n_psi_nodes": 0, "n_materialized": 0,
                    "n_cache_hits": 0, "n_cache_misses": 0,
                    "n_compiles": 0, "n_retraces": 0,
@@ -692,9 +693,9 @@ class StreamingServer:
             "delta_cache_kept": next((d["cache_kept"] for d in
                                       reversed(deltas) if "cache_kept" in d),
                                      0),
-            # retraces paid inside apply_delta: none without compile
-            # telemetry, as in the reference without log_compiles
-            "delta_retraces": 0,
+            # retraces paid inside apply_delta itself (0 without
+            # EngineConfig.log_compiles, and on any warm delta path)
+            "delta_retraces": sum(d.get("n_retraces", 0) for d in deltas),
             **({"per_device": per_device,
                 "n_devices": len(per_device)} if per_device else {}),
             **agg,
@@ -748,6 +749,10 @@ def main(argv=None) -> None:
                     help="record stage spans and export a Chrome-trace "
                          "JSON here at exit (open in chrome://tracing or "
                          "ui.perfetto.dev)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture a torch.profiler trace of the serving "
+                         "rounds (stage spans annotated) into this "
+                         "directory as Chrome-trace JSON")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default cuda; cpu runs "
                          "the kernels' plain versions)")
@@ -760,16 +765,19 @@ def main(argv=None) -> None:
     engine = BatchPathEngine(g, EngineConfig(
         min_cap=128, cache_bytes=args.cache_mb << 20,
         n_devices=args.devices or None,
-        trace=args.trace is not None), device=args.device)
+        trace=args.trace is not None or args.profile is not None,
+        trace_annotations=args.profile is not None), device=args.device)
     queries = generators.similar_queries(g, args.queries, args.similarity,
                                          (args.k_min, args.k_max), seed=1)
     srv = StreamingServer(engine, n_groups=args.groups,
                           policy=AdmissionPolicy(max_batch=args.max_batch,
                                                  max_delay_s=0.0))
+    from ..obs import torchprof
     qids_by_round = []
-    for _ in range(args.rounds):
-        qids_by_round.append([srv.submit(q) for q in queries])
-        srv.drain()
+    with torchprof.profile_run(args.profile, device=engine.device):
+        for _ in range(args.rounds):
+            qids_by_round.append([srv.submit(q) for q in queries])
+            srv.drain()
     for bi, b in enumerate(srv.batch_log):
         cache = b.get("cache", {})
         print(f"batch {bi}: {b['n_queries']} queries, "
@@ -795,6 +803,9 @@ def main(argv=None) -> None:
                                    f"brute-force oracle")
     print(f"validated {args.validate} queries against the oracle "
           f"(all {args.rounds} rounds): OK")
+    if args.profile:
+        print(f"profile: torch.profiler Chrome trace of the serving rounds "
+              f"in {args.profile} (stage spans annotated)")
     if args.trace:
         doc = engine.obs.export(args.trace)
         n_spans = sum(1 for e in doc["traceEvents"] if e.get("ph") == "X")

@@ -10,12 +10,17 @@
   counters, ``routed_*``, ``engine_batch_wall_s``, ``query_latency_s``
   and the streaming server's ``serve_*``).
 
+* :mod:`repro_torch.obs.torchprof` -- the ``torch.profiler`` bridge
+  (``jaxprof`` in the reference): span annotations on the device
+  timeline (``EngineConfig.trace_annotations``), whole-run capture
+  (``serve --profile DIR``) and device-memory sampling.
+
 ``python -m repro_torch.obs summarize <trace.json>`` aggregates a saved
-trace. The profiler bridge (``jaxprof`` in the reference) is not ported.
+trace.
 """
-from . import metrics, trace  # noqa: F401
+from . import metrics, torchprof, trace  # noqa: F401
 from .metrics import registry  # noqa: F401
 from .trace import Span, Tracer, disable, enable, span, tracer  # noqa: F401
 
-__all__ = ["trace", "metrics", "registry", "Span", "Tracer",
+__all__ = ["trace", "metrics", "torchprof", "registry", "Span", "Tracer",
            "enable", "disable", "span", "tracer"]

@@ -3,8 +3,9 @@
 
 A copy of ``repro/obs/trace.py`` with two differences: a fenced span
 synchronizes the CUDA device of each fenced tensor (CPU tensors need no
-fence), and ``enable(annotate=True)`` raises, since the profiler bridge
-(``jaxprof`` in the reference) is not ported.
+fence), and ``enable(annotate=True)`` installs the ``torch.profiler``
+bridge (``repro_torch.obs.torchprof``) where the reference installs
+``jaxprof``'s.
 
 The engine's batch-sharing claims are per-stage claims — detection,
 clustering, cache hits, per-level MS-BFS, joins, assembly each get
@@ -35,6 +36,13 @@ Design points:
   traced or not, so their ``t_*`` stats measure completed work.) torch is
   imported only on the first fenced exit, keeping this module importable
   with no third-party dependency.
+* **Profiler annotations.** A tracer's ``annotator`` (``name -> context
+  manager``), when set and the tracer enabled, is entered for each span's
+  lifetime: ``torchprof.attach`` / ``enable(annotate=True)`` install
+  ``torch.profiler.record_function``, so every span is also a named range
+  of a profiler window, and the kernels launched inside it are correlated
+  to it on the device timeline. Without an annotator a span costs what it
+  did before (one attribute read more).
 * **Chrome-trace export.** :meth:`Tracer.export` writes the standard
   ``traceEvents`` JSON that chrome://tracing and https://ui.perfetto.dev
   open directly; :func:`summarize` / :func:`coverage` aggregate a saved
@@ -51,12 +59,13 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 __all__ = ["Span", "Tracer", "tracer", "enable", "disable", "span",
            "summarize", "coverage", "load"]
 
 _DEFAULT_CAPACITY = 1 << 16
+_KEEP = object()          # configure() sentinel: leave annotator as-is
 
 
 class Span:
@@ -68,7 +77,7 @@ class Span:
     """
 
     __slots__ = ("name", "attrs", "t0", "t1", "tid", "depth",
-                 "_tracer", "_fence")
+                 "_tracer", "_fence", "_ann")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self.name = name
@@ -79,6 +88,7 @@ class Span:
         self.tid = 0
         self.depth = 0
         self._fence: Any = None
+        self._ann = None
 
     # -- context manager ----------------------------------------------
     def __enter__(self) -> "Span":
@@ -87,6 +97,10 @@ class Span:
         self.depth = len(stack)
         self.tid = threading.get_ident()
         stack.append(self)
+        ann = tr.annotator
+        if ann is not None and tr.enabled:
+            self._ann = ann(self.name)
+            self._ann.__enter__()
         self.t0 = time.perf_counter()
         return self
 
@@ -95,6 +109,9 @@ class Span:
         if self._fence is not None and tr.fence:
             tr._block(self._fence)
         self.t1 = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
+            self._ann = None
         stack = tr._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -134,9 +151,14 @@ class Tracer:
 
     def __init__(self, enabled: bool = False,
                  capacity: int = _DEFAULT_CAPACITY,
-                 fence: bool = False):
+                 fence: bool = False,
+                 annotator: Optional[Callable[[str], Any]] = None):
         self.enabled = enabled
         self.fence = fence
+        # annotator: name -> context manager entered for the span's
+        # lifetime (torchprof.attach installs torch.profiler's
+        # record_function so host spans also appear on the device timeline)
+        self.annotator = annotator
         self._buf: deque = deque(maxlen=int(capacity))
         self._local = threading.local()
         self.t_origin = time.perf_counter()
@@ -165,13 +187,16 @@ class Tracer:
     # -- lifecycle -----------------------------------------------------
     def configure(self, *, enabled: Optional[bool] = None,
                   fence: Optional[bool] = None,
-                  capacity: Optional[int] = None) -> "Tracer":
+                  capacity: Optional[int] = None,
+                  annotator=_KEEP) -> "Tracer":
         if enabled is not None:
             self.enabled = enabled
         if fence is not None:
             self.fence = fence
         if capacity is not None and capacity != self._buf.maxlen:
             self._buf = deque(self._buf, maxlen=int(capacity))
+        if annotator is not _KEEP:
+            self.annotator = annotator
         return self
 
     def reset(self) -> "Tracer":
@@ -321,19 +346,21 @@ def enable(*, fence: bool = False, annotate: bool = False,
 
     fence : synchronize the CUDA devices of fenced tensors at span exit
         (attribute device work to the launching span; costs overlap).
-    annotate : would put each span on the device timeline of a profiler
-        trace; the profiler bridge is not ported, so True raises
-        ``NotImplementedError`` (ROADMAP.md queue 1, item 3:
-        observability).
+    annotate : wrap each span in a ``torch.profiler.record_function`` so
+        spans show up on the timeline of a ``torch.profiler`` window (and
+        its device kernels are correlated to them); False removes the
+        annotator.
     Idempotent; repeated calls reconfigure the same singleton.
     """
+    ann = _TRACER.annotator
     if annotate:
-        raise NotImplementedError(
-            "trace annotations (the profiler bridge, jaxprof in the "
-            "reference) are not ported yet; they come with ROADMAP.md "
-            "queue 1, item 3 (observability)")
+        from . import torchprof
+        ann = torchprof.annotation_factory()
+    elif annotate is False:
+        ann = None
     _TRACER.enabled = True
     _TRACER.fence = bool(fence)
+    _TRACER.annotator = ann
     if capacity is not None:
         _TRACER.configure(capacity=capacity)
     return _TRACER

@@ -12,7 +12,8 @@ compaction order), so rows are compared as arrays, not only as sets.
 Also here: the porting hazards of the path buffers and joins (argsort
 stability, the compaction dump row, count dtypes), each against the JAX
 function on the same inputs, the refusal of every unported option and of
-every malformed mesh.
+every malformed mesh, and the options ported since (compile telemetry,
+span annotations) running.
 The default configuration and the other planners are held against the
 JAX engine in ``test_torch_planners.py``.
 """
@@ -177,17 +178,51 @@ def test_empty_batch_and_precomputed_clusters(workload):
 
 
 # ----------------------------------------------------------------------
-# unported options raise, never degrade
+# unported options raise, never degrade; the ported ones run
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg", [
-    dict(plan_caps=False, log_compiles=True),
     dict(plan_caps=False, edge_chunk=1 << 20),
-    dict(plan_caps=False, trace_annotations=True),
 ])
 def test_unported_options_raise(workload, cfg):
     with pytest.raises(NotImplementedError, match="not ported"):
         BatchPathEngine(workload["g"], EngineConfig(**cfg), device=CPU)
+
+
+def test_log_compiles_reports_telemetry(workload):
+    # the JAX engine's fields; on the CPU nothing is built or loaded
+    eng = BatchPathEngine(workload["g"],
+                          EngineConfig(plan_caps=False, log_compiles=True),
+                          device=CPU)
+    assert eng.compile_log is not None
+    base, _ = workload["runs"]["batch"]
+    for _ in range(2):
+        rep = eng.run(workload["queries"])
+        assert (rep.stats["n_compiles"], rep.stats["n_retraces"],
+                rep.stats["compiled_kernels"]) == (0, 0, {})
+        _same_answers(workload["queries"], rep, base)
+
+
+def test_trace_annotations_run_under_record_function(workload):
+    from repro_torch.obs import trace as obstrace
+    eng = BatchPathEngine(workload["g"],
+                          EngineConfig(plan_caps=False, trace=True,
+                                       trace_annotations=True), device=CPU)
+    try:
+        assert eng.obs.annotator is torch.profiler.record_function
+        rep = eng.run(workload["queries"])
+    finally:
+        obstrace.tracer().configure(enabled=False, annotator=None)
+        obstrace.tracer().reset()
+    base, _ = workload["runs"]["batch"]
+    _same_answers(workload["queries"], rep, base)
+
+
+def _same_answers(queries, got, want):
+    for q, a, b in zip(queries, got, want):
+        assert a.exists == b.exists, q
+        if q.output.value != "exists":
+            assert a.count == b.count, q
 
 
 # a mesh is a device list of the engine's type, entry 0 its own device;

@@ -3,8 +3,12 @@ scheduler (``repro_torch.ft.scheduler``) against the JAX package's.
 
 The tracer's unit cases of ``tests/test_obs.py`` (nesting, the ring
 buffer, timing while disabled, the Chrome export, ``summarize`` /
-``coverage`` and the CLI) run on the port's module; the engine's spans
-are held to the reference's names: one ``trace=True`` batch (each
+``coverage`` and the CLI) run on the port's module, and its annotator
+(entered for a span's lifetime, as the reference's) and the
+``torch.profiler`` bridge (``obs/torchprof.py``) beside them; the
+engine's spans are held to the reference's names, and with
+``trace_annotations`` so are the ``record_function`` ranges a CPU
+profiler sees: one ``trace=True`` batch (each
 planner, and one streaming micro-batch) gives the same ``stage_names``
 in both packages. The scheduler is driven through the same calls in both
 packages (assignment, steals, requeue on ``fail_group``), and a snapshot
@@ -53,6 +57,7 @@ def _clean_tracers():
     for mod in (obstrace, j_trace):
         mod.disable()
         mod.tracer().reset()
+        mod.tracer().annotator = None
 
 
 # ----------------------------------------------------------------------
@@ -194,10 +199,86 @@ def test_singleton_enable_disable():
     assert len(tr) == n
 
 
-def test_enable_annotate_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        obstrace.enable(annotate=True)
-    assert not obstrace.tracer().enabled
+def test_enable_annotate_installs_record_function():
+    tr = obstrace.enable(annotate=True)
+    assert tr.enabled and tr.annotator is torch.profiler.record_function
+    obstrace.enable(fence=True)                # annotate=False removes it
+    assert tr.annotator is None and tr.fence
+    obstrace.enable(annotate=True)
+    obstrace.disable()
+    with tr.span("untraced"):                  # disabled: not entered
+        pass
+    tr.configure(annotator=None)
+
+
+class _Recorder:
+    """A fake annotator: logs the names entered and exited."""
+
+    def __init__(self):
+        self.log = []
+
+    def __call__(self, name):
+        rec = self
+
+        class Ctx:
+            def __enter__(self):
+                rec.log.append(("enter", name))
+
+            def __exit__(self, *exc):
+                rec.log.append(("exit", name, exc[0] is not None))
+        return Ctx()
+
+
+def test_annotator_lifetime_equals_reference():
+    logs = []
+    for mod in (obstrace, j_trace):
+        ann = _Recorder()
+        tr = mod.Tracer(enabled=True, annotator=ann)
+        with tr.span("outer"):
+            with tr.span("inner"):
+                pass
+        with pytest.raises(ValueError):
+            with tr.span("boom"):
+                raise ValueError("x")
+        tr.configure(enabled=False)
+        with tr.span("off"):
+            pass
+        tr.configure(enabled=True, annotator=None)
+        with tr.span("detached"):
+            pass
+        tr.configure(annotator=ann)
+        tr.configure(fence=False)              # keeps the annotator
+        with tr.span("kept"):
+            pass
+        logs.append(ann.log)
+    assert logs[0] == logs[1]
+    assert logs[0][:4] == [("enter", "outer"), ("enter", "inner"),
+                           ("exit", "inner", False), ("exit", "outer", False)]
+
+
+def test_torchprof_api(tmp_path):
+    from repro_torch.obs import torchprof
+    assert torchprof.available()
+    assert torchprof.annotation_factory() is torch.profiler.record_function
+    tr = obstrace.Tracer(enabled=True)
+    assert torchprof.attach(tr).annotator is torch.profiler.record_function
+    assert torchprof.detach(tr).annotator is None
+    # no CUDA device here: the memory functions report that, nothing else
+    assert torchprof.sample_device_memory() is None
+    assert torchprof.save_memory_profile(tmp_path / "m.pickle") is False
+    assert torchprof.stop_trace() is None      # nothing running
+    with torchprof.profile_run(None) as prof:
+        assert prof is None
+    with torchprof.profile_run(tmp_path / "prof", device=CPU) as prof:
+        with pytest.raises(RuntimeError, match="already running"):
+            torchprof.start_trace(tmp_path / "other")
+        with torchprof.annotation("stage.x"):
+            torch.ones(4).sum()
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "stage.x" in names
+    (trace,) = (tmp_path / "prof").glob("torchprof_*.trace.json")
+    doc = json.loads(trace.read_text())
+    assert any(e.get("name") == "stage.x" for e in doc["traceEvents"])
 
 
 def test_fence_synchronizes_only_cuda_tensors():
@@ -272,6 +353,45 @@ def test_traced_batch_has_the_reference_stage_names(tmp_path, planner):
     assert names == j_trace.stage_names(j_eng.obs.to_chrome())
     assert "engine.run" in names
     assert obstrace.coverage(doc, root="engine.run") >= 0.9
+
+
+def test_serve_cli_profile_writes_an_annotated_trace(tmp_path, capsys):
+    out = tmp_path / "prof"
+    serve.main(["--n", "400", "--queries", "4", "--k-min", "3", "--k-max",
+                "3", "--validate", "1", "--device", "cpu",
+                "--profile", str(out)])
+    assert "profile:" in capsys.readouterr().out
+    (path,) = out.glob("torchprof_*.trace.json")
+    names = {e.get("name") for e in json.loads(path.read_text())
+             ["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"serve.batch", "engine.run", "index.build"} <= names
+
+
+@pytest.mark.parametrize("planner", ["batch", "basic"])
+def test_annotated_batch_names_equal_span_and_reference_names(planner):
+    from torch.profiler import ProfilerActivity, profile
+    eng, j_eng = _engines(trace=True, trace_annotations=True)
+    for e in (eng, j_eng):
+        e.run(QS, planner=planner)      # cold, then one traced warm run
+        e.obs.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep = eng.run(QS, planner=planner)
+        for r in rep:
+            r.paths
+    j_rep = j_eng.run(QS, planner=planner)
+    for r in j_rep:
+        r.paths
+    for a, b in zip(rep, j_rep):
+        assert oracle.path_set(a.paths) == oracle.path_set(b.paths)
+        assert a.count == b.count
+    annotated = {e.name() for e in prof.profiler.kineto_results.events()
+                 if e.is_user_annotation()}
+    spans = {s.name for s in eng.obs.spans()}
+    assert annotated == spans == j_trace.stage_names(j_eng.obs.to_chrome())
+    # every span was one record_function range
+    n_ranges = sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation())
+    assert n_ranges == len(eng.obs.spans())
 
 
 def test_traced_streaming_batch_has_the_reference_stage_names():
