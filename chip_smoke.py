@@ -19,9 +19,12 @@ CUDA stream); phase 12 the kernel ops API (``msbfs_hop_packed``,
 ``path_overlap`` and the join-validity matrices); phase 13 the
 transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
-kernel).
+kernel); phase 14 the MoE FFN on that path (olmoe-1b-7b); phase 15 LM
+training (loss, gradients through the ``flash_attention_bwd`` kernel,
+AdamW, checkpoints and the fault-tolerant driver).
 
-Phases, each printing one JSON line (``"phase": ...``):
+Phases, each printing one JSON line (``"phase": ...``, with
+``t_elapsed_s``, the seconds since the script started):
 
 1. device   -- the card's name and power limit (``nvidia-smi``), torch/CUDA.
 2. build    -- compile the CUDA kernels (and the peak-rate probes) from
@@ -220,10 +223,71 @@ Phases, each printing one JSON line (``"phase": ...``):
                ``decode_step``, each prefill and forward on the wgmma
                route and each decode step on the split-K route (check (a)
                on the float32 route).
-14. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+14. moe     -- olmoe-1b-7b ``CONFIG`` (arXiv:2409.02060: 16 layers,
+               d_model 2048, 64 experts top-8 of d_ff 1024, vocab 50304:
+               6.9 G parameters) at full width and depth in bf16, random
+               from seed 0, served as phase ``lm`` serves granite-8b:
+               prefill 4 x 2048 twice (the first, cold, reports each MoE
+               layer's share of dropped assignments at the default 16
+               dispatch groups), 512 teacher-forced and 32 greedy decode
+               steps into a 544-slot cache. Checks: each greedy step's
+               MoE layers equal ``moe_ffn_dense_ref`` on their input
+               (a decode group holds one token, so nothing is dropped) at
+               a row relative L2 error of at most 3e-2, on the tokens
+               whose top-8 experts are the same under the layer's bf16
+               router logits and the oracle's float32 ones (the others,
+               near ties, are counted: at most 20%); the teacher-forced
+               decode logits against ``lm_forward`` + unembed over the
+               same 512 tokens (one token a dispatch group, as at
+               decode): in bf16 at full depth a median relative L2 of at
+               most 5e-2, at most 15% of positions above it and at least
+               90% of positions with the same argmax token (the max
+               reported: a near tie flips an expert where the two paths'
+               hidden states differ in the last bit), and in float32 at
+               full width and 4 layers at
+               atol = rtol = 2e-3 (phase ``lm``'s check (a)); every logit
+               finite; ``flash_attention`` launched once per layer per
+               call, on wgmma for prefill and forward and split-K for
+               decode (the float32 check on its float32 route).
+15. train   -- LM training on the card. granite-8b ``CONFIG`` at full
+               width cut to 4 of its 36 layers, ``train_4k`` cut to 2 x
+               4096 tokens (about 130 GB of float32 masters, gradients
+               and AdamW moments for the whole model; 20 GB for the cut),
+               ``remat=True``, float32 masters cast to bf16 at use:
+               three AdamW steps of the train step itself (step wall,
+               tokens/s, peak memory), then a ``TrainDriver`` run that
+               checkpoints after two steps and crashes at the third
+               (``FailureInjector``), and a resume from that checkpoint
+               whose step equals the uninterrupted run's (loss and grad
+               norm, exactly). Then
+               olmoe-1b-7b at full width, 2 of its 16 layers, for two
+               steps (the MoE backward). Checks: (a) at the step's
+               attention shape (Hq 32, Hkv 8, hd 128, causal, S 4096,
+               bf16) and at a float32 shape (1 x 1024), the forward's
+               lse-writing instance (the one training runs) gives the
+               serving instance's output bit for bit, the plain version's
+               output at the kernels row's tolerance and its lse at 1e-3
+               (bf16) / 1e-4 (float32); the attention backward kernel's
+               dQ, dK and dV against ``flash_attention_bwd_ref`` fed the
+               plain lse (bf16: within 2e-2 of each gradient's largest
+               magnitude and 2e-2 relative L2 in every row; float32:
+               1e-4);
+               (b) every loss and grad norm finite, and the loss of a
+               repeated batch falls over two more steps on it (the
+               schedule continued); (c) per layer and step, two
+               ``flash_attention`` launches on wgmma (forward and remat
+               recompute) and one ``flash_attention_bwd`` on its
+               tensor-core route (``bwd_mma``); (d) one granite-8b layer
+               at full width in float32 (TF32 off, remat, 1 x 4096
+               tokens): the loss, the gradient norm and every parameter's
+               gradient through the kernels (forward twice on the float32
+               route, backward once) against autograd through
+               ``flash_attention_ref``, the rest of the model the same,
+               at 1e-4 relative (each gradient: of its largest magnitude).
+16. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-15. kernels -- first a card-only ``torch.profiler`` window over one
+17. kernels -- first a card-only ``torch.profiler`` window over one
                ``similarity_matrix`` call of the main batch (device time
                by kernel name against the call's host wall). Then each
                kernel again on the inputs of its heaviest call in the
@@ -289,7 +353,11 @@ Phases, each printing one JSON line (``"phase": ...``):
                each A tile's count product, and two ALU operations per
                (p, q) pair on tiles whose dictionary overflows;
                ``alu_bound_ms`` keeps the count of a compare per pair of
-               every output for comparison.
+               every output for comparison. ``flash_attention_bwd`` (no
+               TPU counterpart) at the training step's shape, beside its
+               plain version, the backward of
+               ``scaled_dot_product_attention`` and a bound of 10 hd
+               operations per visible pair at the bf16 peak.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -459,7 +527,13 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# the script's start, for each phase line's ``t_elapsed_s``
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -952,11 +1026,15 @@ def device_kind(name: str) -> str:
 TRACE_TRIES = 3
 
 
-def trace_device(torch, fn, setup=None) -> tuple[list, float]:
+def trace_device(torch, fn, setup=None,
+                 expect=()) -> tuple[list, float]:
     """``fn()`` under ``torch.profiler`` tracing the card only: each device
     event as (name, stream, start ns, end ns), and the host wall
     (synchronized at both ends), in seconds. A window with no device
-    event is run again, at most ``TRACE_TRIES`` times in all;
+    event, or without an event whose name holds each string of
+    ``expect`` (in a process that ran long windows before, the profiler
+    can drop some of a short window's events), is run again, at most
+    ``TRACE_TRIES`` times in all;
     ``setup()``, where given, runs before each try, outside the window. The launch counts are set to 0
     after it, so on return they are those of the window whose events
     come back."""
@@ -977,7 +1055,8 @@ def trace_device(torch, fn, setup=None) -> tuple[list, float]:
                    e.end_ns())
                   for e in prof.profiler.kineto_results.events()
                   if e.device_type() == torch.autograd.DeviceType.CUDA]
-        if events:
+        if events and all(any(want in ev[0] for ev in events)
+                          for want in expect):
             break
     return events, wall
 
@@ -1100,7 +1179,8 @@ def profile_similarity(torch, index) -> dict:
         torch.cuda.synchronize()
         for _ in range(SIMILARITY_CALLS):
             similarity_matrix(index)
-    events, wall = trace_device(torch, calls)
+    events, wall = trace_device(
+        torch, calls, expect=("gamma_pack_kernel", "pairwise_popcount_kernel"))
     require(LAUNCHES["gamma_pack"] == LAUNCHES["pairwise_popcount"]
             == SIMILARITY_LAUNCHES * SIMILARITY_CALLS,
             f"similarity_matrix, profiled: {LAUNCHES}")
@@ -3083,6 +3163,712 @@ def phase_lm(torch) -> dict:
             "routes": routes}
 
 
+# phase moe: olmoe-1b-7b (arXiv:2409.02060) at full width and depth in
+# bf16, served as phase lm serves granite-8b (prefill_32k cut to 4 x 2048;
+# 512 teacher-forced + 32 greedy decode steps into a 544-slot cache)
+MOE_ARCH = "olmoe-1b-7b"
+# each greedy step's MoE layers against moe_ffn_dense_ref: the relative L2
+# error of a token's output row, bf16 expert products and combine against
+# float32 (about 2**-8 of a value each)
+MOE_DENSE_REL_L2 = 3e-2
+# tokens whose top-k experts differ between the layer's bf16 router
+# logits and the oracle's float32 ones are not compared, only counted
+# (near ties among 64 probabilities flip under bf16 rounding); at most
+# this share of them
+MOE_ROUTING_FLIP_MAX = 0.2
+# decode against the teacher-forced forward: in float32 at full width and
+# MOE_CHECK_LAYERS layers at phase lm's LM_F32_TOL (router ties cannot
+# flip there); in bf16 at full depth a near tie flips an expert wherever
+# the two paths' hidden states differ in the last bit, so the relative L2
+# error's median is bounded by LM_BF16_REL_L2, the share of positions
+# above it by MOE_BF16_ABOVE_MAX, the share of positions whose argmax
+# token agrees from below by MOE_BF16_ARGMAX_MIN, and its max reported
+# (on the H100: 7.3% above, 95.1% agreeing, max 0.092)
+MOE_CHECK_LAYERS = 4
+MOE_BF16_ABOVE_MAX = 0.15
+MOE_BF16_ARGMAX_MIN = 0.9
+
+
+class MoeRecorder:
+    """Wraps ``transformer.moe_ffn``: with ``check`` on, each call's output
+    is held to ``moe_ffn_dense_ref`` on its input (tokens routed alike
+    under both); with ``drops`` on, each call's dropped share is kept."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe, transformer
+        self.torch, self.moe, self.tm = torch, moe, transformer
+        self.fn = transformer.moe_ffn
+        self.check = self.drops = False
+        self.calls = self.compared = self.flipped = 0
+        self.max_rel = 0.0
+        self.dropped = []
+
+    def __call__(self, h, lp, cfg, groups=16):
+        out, aux = self.fn(h, lp, cfg, groups=groups)
+        self.calls += 1
+        if self.drops:
+            self.dropped.append(self.moe.dropped_share(h, lp, cfg, groups))
+        if self.check:
+            self.compare(h, lp, cfg, out)
+        return out, aux
+
+    def compare(self, h, lp, cfg, out):
+        torch, moe = self.torch, self.moe
+        D, k = cfg.d_model, cfg.moe.top_k
+        x = h.reshape(-1, D)
+        want = moe.moe_ffn_dense_ref(h, lp, cfg).reshape(-1, D).float()
+        got = out.reshape(-1, D).float()
+        _, ids_w = moe.top_k(torch.softmax(
+            (x @ lp["router"].to(x.dtype)).float(), -1), k)
+        _, ids_f = moe.top_k(torch.softmax(x.float() @ lp["router"].float(),
+                                           -1), k)
+        same = (ids_w.sort(-1).values == ids_f.sort(-1).values).all(-1)
+        rel = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        self.compared += int(same.sum())
+        self.flipped += int((~same).sum())
+        if bool(same.any()):
+            self.max_rel = max(self.max_rel, float(rel[same].max()))
+
+    def __enter__(self):
+        self.tm.moe_ffn = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.moe_ffn = self.fn
+
+
+def phase_moe(torch) -> dict:
+    """Phase 14: olmoe-1b-7b served on the card at full width and depth."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import LM
+
+    cfg = get(MOE_ARCH).CONFIG
+    B = LM_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+               device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "moe", "arch": cfg.name, "dtype": str(model.dtype),
+           "config": dataclasses.asdict(cfg),
+           "reduced": {"seq_len": [32768, LM_PROMPT],
+                       "global_batch": [32, LM_BATCH]},
+           "params": model.param_count(), "param_bytes": model.param_bytes(),
+           "moe_groups": model.opts.moe_groups,
+           "t_init_s": time.perf_counter() - t0}
+    tokens, _ = TokenStream(cfg.vocab, B, LM_PROMPT, seed=0).batch_at(0)
+    prompt = torch.from_numpy(tokens).to("cuda", torch.long)
+    rec = MoeRecorder(torch)
+    calls = dict.fromkeys(("prefill", "decode_step", "lm_forward"), 0)
+    with rec:
+        reset_launches()
+        t_prefill = []
+        for i in range(2):               # cold, then warm
+            rec.drops = i == 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = model.prefill(prompt)
+            torch.cuda.synchronize()
+            t_prefill.append(time.perf_counter() - t0)
+            calls["prefill"] += 1
+            require(last.shape == (B, 1, cfg.vocab)
+                    and bool(torch.isfinite(last).all()),
+                    "moe prefill logits: wrong shape or not finite")
+        rec.drops = False
+        G, Tg, C = moe.capacity(B * LM_PROMPT, cfg, model.opts.moe_groups)
+        cache = model.init_cache(B, LM_TEACHER + LM_GREEDY)
+        got, cache, t_teacher = decode_teacher_forced(torch, model, prompt,
+                                                      LM_TEACHER, cache)
+        calls["decode_step"] += LM_TEACHER
+        tok = got[:, -1].argmax(-1, keepdim=True)
+        rec.check = True
+        t_greedy = []
+        for _ in range(LM_GREEDY):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, cache = model.decode_step(tok, cache)
+            torch.cuda.synchronize()
+            t_greedy.append(time.perf_counter() - t0)  # with the oracle
+            calls["decode_step"] += 1
+            require(bool(torch.isfinite(step).all()),
+                    "moe greedy decode logits not finite")
+            tok = step[:, 0].argmax(-1, keepdim=True)
+        rec.check = False
+        # the teacher-forced forward with one token a group, as a decode
+        # step's groups are: nothing dropped on either side
+        model.opts = dataclasses.replace(model.opts,
+                                         moe_groups=B * LM_TEACHER)
+        ref = teacher_logits(model, prompt[:, :LM_TEACHER])
+        calls["lm_forward"] += 1
+        torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    expected = cfg.n_layers * sum(calls.values())
+    require(launches == expected,
+            f"moe: flash_attention launched {launches} times, expected "
+            f"{cfg.n_layers} layers x {calls} = {expected}")
+    routes = attn_counts(LAUNCHES, fops)
+    want_routes = dict.fromkeys(fops.ROUTES, 0)
+    want_routes["wgmma"] = cfg.n_layers * (calls["prefill"]
+                                           + calls["lm_forward"])
+    want_routes["splitk"] = cfg.n_layers * calls["decode_step"]
+    require(routes == want_routes,
+            f"moe: flash_attention routes {routes}, expected {want_routes}")
+    require(rec.calls == expected,
+            f"moe: moe_ffn ran {rec.calls} times, expected {expected}")
+    decode_layers = LM_GREEDY * cfg.n_layers
+    require(rec.compared + rec.flipped == decode_layers * B,
+            "moe: not every greedy step's MoE layers were held to the oracle")
+    flip_share = rec.flipped / (decode_layers * B)
+    require(rec.max_rel <= MOE_DENSE_REL_L2 and flip_share
+            <= MOE_ROUTING_FLIP_MAX,
+            f"moe: decode MoE layers against moe_ffn_dense_ref: max row "
+            f"relative L2 {rec.max_rel} (bound {MOE_DENSE_REL_L2}), routing "
+            f"flips {flip_share} (bound {MOE_ROUTING_FLIP_MAX})")
+    require(bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
+            "moe teacher-forced logits not finite")
+    rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1)
+    max_rel, med_rel = float(rel.max()), float(rel.median())
+    above = float((rel > LM_BF16_REL_L2).float().mean())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    require(med_rel <= LM_BF16_REL_L2 and above <= MOE_BF16_ABOVE_MAX
+            and agree >= MOE_BF16_ARGMAX_MIN,
+            f"moe: decode vs forward (bf16, full depth): median relative "
+            f"L2 {med_rel} (bound {LM_BF16_REL_L2}), {above} of positions "
+            f"above it (bound {MOE_BF16_ABOVE_MAX}), argmax agreement "
+            f"{agree} (floor {MOE_BF16_ARGMAX_MIN})")
+    out.update({
+        "calls": calls, "launches": {"flash_attention": launches, **routes},
+        "launches_per_call": cfg.n_layers,
+        "prefill": {"tokens": B * LM_PROMPT, "t_cold_s": t_prefill[0],
+                    "t_warm_s": t_prefill[1:],
+                    "tokens_per_s_warm": [B * LM_PROMPT / t
+                                          for t in t_prefill[1:]],
+                    "groups": G, "tokens_per_group": Tg, "capacity": C,
+                    "dropped_share_by_layer": rec.dropped,
+                    "dropped_share": sum(rec.dropped) / len(rec.dropped)},
+        "decode": {"max_len": LM_TEACHER + LM_GREEDY,
+                   "teacher_forced": latency(t_teacher),
+                   "greedy_with_oracle": latency(t_greedy),
+                   "tokens_per_s_teacher": B * len(t_teacher)
+                   / sum(t_teacher)},
+        "check_dense_oracle": {"layers_checked": decode_layers,
+                               "tokens_compared": rec.compared,
+                               "routing_flips": rec.flipped,
+                               "flip_share": flip_share,
+                               "flip_bound": MOE_ROUTING_FLIP_MAX,
+                               "max_row_rel_l2": rec.max_rel,
+                               "bound": MOE_DENSE_REL_L2},
+        "check_decode_vs_forward_bf16": {
+            "layers": cfg.n_layers, "positions": LM_TEACHER,
+            "forward_moe_groups": B * LM_TEACHER,
+            "median_rel_l2": med_rel, "bound_on_median": LM_BF16_REL_L2,
+            "max_rel_l2": max_rel, "mean_rel_l2": float(rel.mean()),
+            "share_above_bound": above,
+            "bound_on_share_above": MOE_BF16_ABOVE_MAX,
+            "argmax_agreement": agree,
+            "floor_on_argmax_agreement": MOE_BF16_ARGMAX_MIN},
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del model, cache, got, ref, rel, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- full width, float32, MOE_CHECK_LAYERS layers: decode equals the
+    # teacher-forced forward at phase lm's float32 tolerance
+    cfg_a = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS,
+                                dtype="float32")
+    model = LM(cfg_a, generator=torch.Generator(device="cuda")
+               .manual_seed(1), device="cuda")
+    reset_launches()
+    got, cache, _ = decode_teacher_forced(
+        torch, model, prompt, LM_TEACHER, model.init_cache(B, LM_TEACHER))
+    model.opts = dataclasses.replace(model.opts, moe_groups=B * LM_TEACHER)
+    ref = teacher_logits(model, prompt[:, :LM_TEACHER])
+    torch.cuda.synchronize()
+    require(LAUNCHES["flash_attention"] == MOE_CHECK_LAYERS
+            * (LM_TEACHER + 1) == LAUNCHES["attn_scalar"],
+            "moe float32 check: flash_attention not launched once per "
+            "layer on the float32 route")
+    require(bool(torch.isfinite(got).all()),
+            "moe float32 check: logits not finite")
+    ok = bool(torch.allclose(got, ref, atol=LM_F32_TOL, rtol=LM_F32_TOL))
+    out["check_decode_vs_forward_f32"] = {
+        "layers": MOE_CHECK_LAYERS, "dtype": "float32", "tf32": False,
+        "positions": LM_TEACHER, "max_abs_err": float((got - ref).abs()
+                                                      .max()),
+        "atol": LM_F32_TOL, "rtol": LM_F32_TOL, "ok": ok}
+    require(ok, f"moe: decode vs forward beyond atol = rtol = {LM_F32_TOL} "
+                f"in float32: {out['check_decode_vs_forward_f32']}")
+    del model, cache, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# phase train: granite-8b at full width, cut to TRAIN_LAYERS of its 36
+# layers and train_4k cut to TRAIN_BATCH x TRAIN_SEQ (about 130 GB at 16
+# bytes a parameter for the whole model; 20 GB for the cut), three AdamW
+# steps through TrainDriver with remat, a checkpoint after two, an
+# injected crash and a resume; then olmoe-1b-7b at full width, 2 of its 16
+# layers, for 2 steps
+TRAIN_ARCH = "granite-8b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 4096
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 3, 2
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
+# check (b): two more steps on batch 0, the schedule continued (counts 3
+# and 4 of its 100-step warm-up, lr 9e-6 and 1.2e-5); at its peak (3e-4)
+# the first step of a random 4096-wide model overshoots (7.38 -> 12.27 on
+# the H100)
+TRAIN_REPEATS = 2
+TRAIN_DIR = os.path.join(ROOT, "build", "smoke_train")
+# check (a): the forward's lse-writing instance (the one training runs)
+# against its serving instance (output bit-identical) and the plain
+# version (output at the kernels row's tolerance; lse at LSE_TOL: bf16
+# inputs, float32 inputs), then the backward kernel against
+# flash_attention_bwd_ref fed the plain lse, on the step's attention shape
+# in bf16 (each gradient within 2e-2 of its largest magnitude, and 2e-2
+# relative L2 in every row of hd) and on a float32 shape (1e-4 absolute
+# and relative)
+BWD_BF16_TOL = 2e-2
+BWD_F32_SHAPE = (1, 1024, 32, 8, 128)
+BWD_F32_TOL = 1e-4
+LSE_TOL = (1e-3, 1e-4)
+# check (d): one granite-8b layer at full width in float32 (TF32 off) on
+# GRAD_REF_BATCH x GRAD_REF_SEQ tokens, with remat: the loss and every
+# parameter's gradient through the kernels against autograd through
+# flash_attention_ref on the same inputs; the loss and the gradient norm
+# at GRAD_REF_TOL relative, each gradient within GRAD_REF_TOL of its
+# largest magnitude
+GRAD_REF_BATCH, GRAD_REF_SEQ = 1, 4096
+GRAD_REF_TOL = 1e-4
+
+
+def train_bundle(arch: str, n_layers: int, opts, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ, **cut):
+    """The train bundle of ``arch``'s published config cut to ``n_layers``
+    (and ``cut``'s other fields) at ``batch x seq``."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.launch import steps
+    mod = get(arch)
+    cfg = dataclasses.replace(mod.CONFIG, n_layers=n_layers, **cut)
+    shape = steps.shape_of(mod, "train_4k", {"seq_len": seq,
+                                             "global_batch": batch})
+    return steps.lm_bundle(arch, cfg, shape, opts)
+
+
+def run_driver(torch, bundle, ckpt_dir, total, fail_at=None):
+    """``TrainDriver`` on the bundle; (result or None, step times, error)."""
+    from repro_torch.ft import DriverConfig, FailureInjector, TrainDriver
+    from repro_torch.launch.train import make_init_and_batches
+    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
+    driver = TrainDriver(
+        DriverConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                     ckpt_every=TRAIN_CKPT_EVERY, keep=1,
+                     async_save=True),
+        bundle.step_fn, init_state, batch_fn,
+        injector=FailureInjector(fail_at))
+    try:
+        return driver.run(), driver.step_times, None
+    except RuntimeError as e:
+        driver.mgr.wait()
+        return None, driver.step_times, str(e)
+
+
+def bwd_inputs(torch, gen, B, S, Hq, Hkv, hd, dt):
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return (draw((B, S, Hq, hd)), draw((B, S, Hkv, hd)),
+            draw((B, S, Hkv, hd)), draw((B, S, Hq, hd)))
+
+
+def check_bwd(torch, got, want, dt) -> dict:
+    """The backward kernel's (dq, dk, dv) against the plain version's."""
+    errs, rels = [], []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        rel = float(((g - w).norm(dim=-1)
+                     / w.norm(dim=-1).clamp_min(1e-3 * scale)).max())
+        if dt == torch.float32:
+            ok = bool(torch.allclose(g, w, atol=BWD_F32_TOL,
+                                     rtol=BWD_F32_TOL))
+        else:
+            ok = err <= BWD_BF16_TOL * scale and rel <= BWD_BF16_TOL
+        require(ok, f"check (a): flash_attention_bwd's {name} disagrees "
+                    f"with flash_attention_bwd_ref in {dt}: max abs err "
+                    f"{err} (largest {scale}), max row relative L2 {rel}")
+        errs.append(err)
+        rels.append(rel)
+    return {"max_abs_err": max(errs), "max_row_rel_l2": max(rels)}
+
+
+def check_forward_lse(torch, fops, q, k, v, dt) -> tuple:
+    """Check (a)'s forward part: the lse-writing instance's output equals
+    the serving instance's bit for bit and the plain version's at the
+    kernels row's tolerance, its lse the plain one's at ``LSE_TOL``.
+    Returns (the kernel's o and lse, the plain lse, the errors)."""
+    o, lse = fops.flash_attention_cuda(q, k, v, True, return_lse=True)
+    serving = fops.flash_attention_cuda(q, k, v, True)
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    require(torch.equal(o.view(bits), serving.view(bits)),
+            f"check (a): flash_attention's output with return_lse differs "
+            f"from the serving instance's in {dt}")
+    del serving
+    o_ref, lse_ref = fops.flash_attention_ref(q, k, v, True, return_lse=True)
+    if dt == torch.bfloat16:
+        o_err, _ = check_bf16_attention(torch, o, o_ref,
+                                        "check (a): flash_attention with "
+                                        "return_lse")
+        tol = LSE_TOL[0]
+    else:
+        o_err = float((o - o_ref).abs().max())
+        require(torch.allclose(o, o_ref, atol=ATTN_F32_TOL[0],
+                               rtol=ATTN_F32_TOL[1]),
+                f"check (a): flash_attention with return_lse disagrees "
+                f"with its plain version in float32: max abs err {o_err}")
+        tol = LSE_TOL[1]
+    del o_ref
+    lse_err = float((lse - lse_ref).abs().max())
+    require(torch.allclose(lse, lse_ref, atol=tol, rtol=tol),
+            f"check (a): flash_attention's lse disagrees with the plain "
+            f"version's in {dt}: max abs err {lse_err} (atol = rtol = {tol})")
+    return o, lse, lse_ref, {"o_max_abs_err": o_err,
+                             "lse_max_abs_err": lse_err,
+                             "lse_tolerance": tol,
+                             "o_equals_serving_bitwise": True}
+
+
+def check_grad_ref(torch, fops) -> dict:
+    """Check (d): the gradients of one float32 granite-8b layer at full
+    width through the kernels against autograd through
+    ``flash_attention_ref``, the rest of the model the same."""
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import make_init_and_batches
+    from repro_torch.models import transformer
+    from repro_torch.pytree import flatten, leaves
+
+    opts = RunOptions(remat=True, seq_parallel=False)
+    bundle = train_bundle(TRAIN_ARCH, 1, opts, GRAD_REF_BATCH, GRAD_REF_SEQ,
+                          dtype="float32")
+    cfg = bundle.cfg
+    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
+    params = init_state()[0]
+    tok, tgt = batch_fn(0)
+
+    def loss_and_grads():
+        loss = transformer.lm_loss(params, tok, tgt, cfg, opts)
+        grads = torch.autograd.grad(loss, leaves(params))
+        return float(loss.detach()), grads
+
+    def plain_attention(q, k, v, causal=True, *, q_offset=None,
+                        kv_valid_len=None, arm=None):
+        return fops.flash_attention_ref(q, k, v, causal, q_offset=q_offset,
+                                        kv_valid_len=kv_valid_len)
+
+    reset_launches()
+    loss, grads = loss_and_grads()
+    launched = {k: LAUNCHES[k] for k in ("flash_attention", "attn_scalar",
+                                         "flash_attention_bwd",
+                                         "bwd_scalar")}
+    want = {"flash_attention": 2, "attn_scalar": 2,
+            "flash_attention_bwd": 1, "bwd_scalar": 1}
+    require(launched == want,
+            f"check (d): launches {launched}, expected {want} (forward and "
+            f"remat recompute on the float32 route, one backward)")
+    kernel_attention = transformer.gqa_attention
+    transformer.gqa_attention = plain_attention
+    try:
+        loss_ref, grads_ref = loss_and_grads()
+    finally:
+        transformer.gqa_attention = kernel_attention
+    torch.cuda.synchronize()
+    require(LAUNCHES["flash_attention"] == 2
+            and LAUNCHES["flash_attention_bwd"] == 1,
+            "check (d): the plain side launched an attention kernel")
+    norm = float(torch.sqrt(sum((g * g).sum() for g in grads)))
+    norm_ref = float(torch.sqrt(sum((g * g).sum() for g in grads_ref)))
+    worst, worst_name = 0.0, None
+    for (path, _), g, w in zip(flatten(params), grads, grads_ref):
+        share = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if share >= worst:
+            worst, worst_name = share, "/".join(map(str, path))
+    out = {"arch": TRAIN_ARCH, "layers": 1, "dtype": "float32",
+           "tf32": False, "remat": True,
+           "tokens": {"batch": GRAD_REF_BATCH, "seq": GRAD_REF_SEQ},
+           "loss": loss, "loss_plain": loss_ref, "grad_norm": norm,
+           "grad_norm_plain": norm_ref,
+           "max_err_of_largest": worst, "worst_leaf": worst_name,
+           "leaves": len(grads), "tolerance": GRAD_REF_TOL,
+           "launches": launched}
+    require(abs(loss - loss_ref) <= GRAD_REF_TOL * abs(loss_ref)
+            and abs(norm - norm_ref) <= GRAD_REF_TOL * norm_ref
+            and worst <= GRAD_REF_TOL,
+            f"check (d): the kernels' gradients disagree with autograd "
+            f"through flash_attention_ref: {out}")
+    return out
+
+
+def phase_train(torch) -> dict:
+    """Phase 15: LM training on the card (granite-8b cut in depth through
+    the fault-tolerant driver, then olmoe-1b-7b cut in depth), with checks
+    (a)-(d)."""
+    import math
+    import shutil
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.train import make_init_and_batches
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    opts = RunOptions(remat=True, seq_parallel=False)
+    bundle = train_bundle(TRAIN_ARCH, TRAIN_LAYERS, opts)
+    cfg = bundle.cfg
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"phase": "train", "arch": TRAIN_ARCH, "dtype": cfg.dtype,
+           "masters": "float32", "opts": {"remat": True, "loss_chunk":
+                                          opts.loss_chunk, "moe_groups":
+                                          opts.moe_groups},
+           "reduced": {"n_layers": [36, TRAIN_LAYERS],
+                       "seq_len": [4096, TRAIN_SEQ],
+                       "global_batch": [256, TRAIN_BATCH]},
+           "params": cfg.param_count(), "tokens_per_step": tokens}
+
+    # -- the uninterrupted run, the step itself with no driver and no
+    # checkpoint, counted: forward + remat recompute + backward of every
+    # layer each step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
+    params, opt = init_state()
+    history, ref_times = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, *batch_fn(step))
+        history.append({"step": step,
+                        **{k: float(v) for k, v in m.items()}})
+        ref_times.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
+                                         "flash_attention_bwd", "bwd_mma")}
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L * TRAIN_STEPS,
+            "attn_wgmma": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd": L * TRAIN_STEPS,
+            "bwd_mma": L * TRAIN_STEPS}
+    require(launches == want,
+            f"check (c): launches {launches}, expected {want} (forward and "
+            f"remat recompute on wgmma, one backward, per layer and step)")
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- crash after the checkpoint of step 2, then resume
+    crash_dir = os.path.join(TRAIN_DIR, "crash")
+    t0 = time.perf_counter()
+    first, _, err = run_driver(torch, bundle, crash_dir, TRAIN_STEPS,
+                               fail_at=TRAIN_CKPT_EVERY)
+    require(first is None and err is not None and "injected" in err,
+            f"train: the injected crash did not happen ({err})")
+    from repro_torch.checkpoint import latest_step
+    saved = latest_step(crash_dir)
+    require(saved == TRAIN_CKPT_EVERY - 1,
+            f"train: latest checkpoint {saved} after the crash, expected "
+            f"{TRAIN_CKPT_EVERY - 1}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    resumed, _, err = run_driver(torch, bundle, crash_dir, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    require(err is None, f"train: the resumed run failed: {err}")
+    t_resume = time.perf_counter() - t1
+    got = resumed["history"]
+    require(got == history[TRAIN_CKPT_EVERY:],
+            f"train: resumed history {got} differs from the uninterrupted "
+            f"{history[TRAIN_CKPT_EVERY:]}")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in history),
+            f"check (b): a loss or grad norm is not finite: {history}")
+
+    # -- check (b): the repeated batch's loss falls
+    params, opt = resumed["params"], resumed["opt_state"]
+    del resumed
+    tok, tgt = batch_fn(0)
+    repeated = []
+    for _ in range(TRAIN_REPEATS):
+        params, opt, m = bundle.step_fn(params, opt, tok, tgt)
+        repeated.append(float(m["loss"]))
+    with torch.no_grad():
+        repeated.append(float(transformer.lm_loss(params, tok, tgt, cfg,
+                                                  opts)))
+    require(all(math.isfinite(x) for x in repeated)
+            and repeated[-1] < repeated[0],
+            f"check (b): the loss of a repeated batch does not fall: "
+            f"{repeated}")
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    step_wall = statistics.median(ref_times)
+    out.update({
+        "history": history, "step_wall_s": ref_times,
+        "tokens_per_s": tokens / step_wall, "t_uninterrupted_s": t_ref,
+        "t_crash_run_s": t1 - t0, "t_resume_s": t_resume,
+        "checkpoint": {"after_step": TRAIN_CKPT_EVERY - 1, "crashed_at":
+                       TRAIN_CKPT_EVERY, "resumed_history": got,
+                       "resume_exact": True},
+        "repeated_batch_loss": repeated,
+        "launches": launches, "launches_per_step":
+            {k: v // TRAIN_STEPS for k, v in launches.items()},
+        "max_memory_allocated": peak})
+
+    # -- olmoe-1b-7b at full width, 2 of 16 layers: the MoE backward
+    mopts = RunOptions(remat=True, seq_parallel=False, moe_groups=4)
+    mbundle = train_bundle(MOE_ARCH, MOE_TRAIN_LAYERS, mopts)
+    init_state, batch_fn = make_init_and_batches(mbundle, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_state()
+    reset_launches()
+    mhist, mtimes = [], []
+    for step in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = mbundle.step_fn(params, opt, *batch_fn(step))
+        mhist.append({k: float(v) for k, v in m.items()})
+        mtimes.append(time.perf_counter() - t0)
+    mlaunch = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
+                                        "flash_attention_bwd", "bwd_mma")}
+    Lm = MOE_TRAIN_LAYERS
+    mwant = {"flash_attention": 2 * Lm * MOE_TRAIN_STEPS,
+             "attn_wgmma": 2 * Lm * MOE_TRAIN_STEPS,
+             "flash_attention_bwd": Lm * MOE_TRAIN_STEPS,
+             "bwd_mma": Lm * MOE_TRAIN_STEPS}
+    require(mlaunch == mwant,
+            f"check (c): olmoe launches {mlaunch}, expected {mwant}")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in mhist),
+            f"check (b): an olmoe loss or grad norm is not finite: {mhist}")
+    out["moe"] = {"arch": MOE_ARCH, "reduced": {
+        "n_layers": [16, Lm], "seq_len": [4096, TRAIN_SEQ],
+        "global_batch": [256, TRAIN_BATCH]}, "moe_groups": 4,
+        "history": mhist, "step_wall_s": mtimes,
+        "tokens_per_s": tokens / mtimes[-1], "launches": mlaunch,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- check (a): the lse-writing forward against its serving instance
+    # and the plain version, and the backward kernel against its plain
+    # version fed the plain lse, on the step's shape (bf16) and a float32
+    # shape; the bf16 inputs are kept for the kernels row
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    checks = {}
+    for name, (B, S, hq, hkv, d), dt in (
+            ("bf16", (TRAIN_BATCH, TRAIN_SEQ, Hq, Hkv, hd), torch.bfloat16),
+            ("f32", BWD_F32_SHAPE, torch.float32)):
+        q, k, v, dout = bwd_inputs(torch, gen, B, S, hq, hkv, d, dt)
+        o, lse, lse_ref, fwd = check_forward_lse(torch, fops, q, k, v, dt)
+        got = fops.flash_attention_bwd_cuda(q, k, v, o, lse, dout)
+        want = fops.flash_attention_bwd_ref(q, k, v, o, lse_ref, dout)
+        checks[name] = {"shape": {"B": B, "S": S, "Hq": hq, "Hkv": hkv,
+                                  "hd": d}, **fwd,
+                        **check_bwd(torch, got, want, dt)}
+        if name == "bf16":
+            bwd_args = (q, k, v, o, lse, dout)
+        del q, k, v, dout, o, lse, lse_ref, got, want
+        torch.cuda.empty_cache()
+    out["check_a"] = {**checks, "tolerance": {
+        "bfloat16": {"of_largest": BWD_BF16_TOL, "row_rel_l2": BWD_BF16_TOL,
+                     "lse": LSE_TOL[0]},
+        "float32": {"atol": BWD_F32_TOL, "rtol": BWD_F32_TOL,
+                    "lse": LSE_TOL[1]}}}
+    out["check_d"] = check_grad_ref(torch, fops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return {"launches": launches["flash_attention_bwd"],
+            "per_step": launches["flash_attention_bwd"] // TRAIN_STEPS,
+            "steps": TRAIN_STEPS, "layers": L,
+            "moe_launches": mlaunch["flash_attention_bwd"],
+            "check_a": checks, "bwd_args": bwd_args}
+
+
+def flash_attention_bwd_row(torch, train) -> dict:
+    """``flash_attention_bwd`` at the training step's shape (granite-8b,
+    B 2, S 4096, causal, bf16) on check (a)'s inputs: timed beside its
+    plain version, SDPA's backward and the bound; launches from phase
+    train."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    args = train.pop("bwd_args")
+    q, k, v, o, lse, dout = args
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    err = train["check_a"]["bf16"]         # check (a) of phase train
+    ms = cuda_ms(torch, fops.flash_attention_bwd_cuda, lambda: args, reps=5)
+    plain_ms = cuda_ms(torch, fops.flash_attention_bwd_ref, lambda: args,
+                       reps=3)
+    torch.cuda.empty_cache()
+    device_ms = graph_ms(torch, lambda: fops.flash_attention_bwd_cuda(*args),
+                         n=10)
+    # SDPA's backward alone: one forward kept, its graph walked again
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    sd = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                        enable_gqa=True)
+    g_sd = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sd, leaves, g_sd, retain_graph=True)
+
+    library_ms = cuda_ms(torch, sdpa_bwd, reps=5)
+    del sd, leaves
+    pairs = S * (S + 1) // 2
+    n_ops = 10 * hd * pairs * B * Hq
+    nbytes = 2 * (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) + 4 * B * Hq * S
+    del q, k, v, dout, o, lse, args
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none (no TPU kernel has a backward; the JAX "
+                        "package trains through chunked_attention, "
+                        "src/repro/models/transformer.py:246)",
+            "launches": train["launches"], "max_abs_err": err["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3),
+            "library_ms": library_ms, "device_ms": device_ms,
+            "device_ms_launches": 10, "ops": n_ops, "pairs_per_head": pairs,
+            "max_row_rel_l2": err["max_row_rel_l2"],
+            "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
+                      "causal": True, "dtype": "bfloat16"},
+            "ops_counted": "10 hd per visible (query, key) pair and q-head "
+                           "(5 products) at BF16_OPS_PER_S",
+            "library_call": "torch.autograd.grad of "
+                            "torch.nn.functional.scaled_dot_product_attention"
+                            " (is_causal, enable_gqa): its backward alone",
+            "tolerance": {"of_largest": BWD_BF16_TOL,
+                          "row_rel_l2": BWD_BF16_TOL},
+            "launches_from": "phase train (granite-8b, the uninterrupted "
+                             "run: one a layer and step)",
+            "launches_per_step": train["per_step"],
+            "train_steps": train["steps"], "train_layers": train["layers"],
+            "moe_train_launches": train["moe_launches"]}
+
+
 def phase_peaks(torch, dev_info) -> dict:
     """Peak rates of the two units that can compute popcount(AND): the
     CUDA cores' 32-bit ``popc`` and the tensor cores' 1-bit MMA."""
@@ -3949,10 +4735,15 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm = phase_lm(torch)
+    phase_moe(torch)
+    train = phase_train(torch)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,
                          ops, w1_rec, lm, main_index)
+    r = flash_attention_bwd_row(torch, train)
+    emit({"phase": "kernel", **r})
+    rows.append(r)
     emit({"phase": "done", "t_total_s": time.perf_counter() - t_start})
     print(dev_info["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -221,12 +221,13 @@ MANIFEST: Tuple[HotFn, ...] = (
 # registry names deliberately not measured by the manifest. Every name in
 # kernels.registry's KERNELS and ROUTE_COUNTS must be either reached by a
 # MANIFEST entry (_KERNELS_COVERED) or listed here with a reason.
-_LM = ("the LM path (models/transformer), not the HC-s-t query path; "
-       "parity pinned by tests/test_torch_flash_attention.py")
+_LM = ("the LM path (models/transformer, its serving and training), not "
+       "the HC-s-t query path; parity pinned by "
+       "tests/test_torch_flash_attention.py")
 AUDIT_EXEMPT_KERNELS: Dict[str, str] = {
-    "flash_attention": _LM,
+    "flash_attention": _LM, "flash_attention_bwd": _LM,
     "attn_wgmma": _LM, "attn_splitk": _LM, "attn_mma": _LM,
-    "attn_scalar": _LM,
+    "attn_scalar": _LM, "bwd_mma": _LM, "bwd_scalar": _LM,
     "msbfs_expand": "the ops API's single hop (msbfs_hop_packed), not the "
                     "engine's level: the fused msbfs_step carries the "
                     "sweep; parity pinned by tests/test_torch_ops.py",

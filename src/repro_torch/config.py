@@ -4,9 +4,9 @@ A copy of ``repro/config.py`` (plain dataclasses, no JAX). Every LM
 architecture has a module in ``repro_torch/configs/<id>.py`` defining
 ``CONFIG`` (the exact published config), ``REDUCED`` (a small same-family
 config for CPU tests) and its shape table, resolved through
-``repro_torch.configs.get``. The port reads ``LMConfig``, ``MoEConfig``
-(to refuse it), ``ShapeSpec`` and ``RunOptions``; the other families'
-configs are kept as plain data for their slices.
+``repro_torch.configs.get``. The port reads ``LMConfig``, ``MoEConfig``,
+``ShapeSpec`` and ``RunOptions``; the other families' configs are kept as
+plain data for their slices.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 A copy of ``repro/configs/__init__.py`` for the LM family: each LM arch
 module holds ``CONFIG`` (the published configuration), ``REDUCED`` (a small
-same-family configuration for CPU tests), ``SHAPES`` and ``FAMILY``. The
-other families are not ported yet; asking for one raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+same-family configuration for CPU tests), ``SHAPES`` and ``FAMILY``. All
+five LM archs, dense and MoE, serve and train in the port
+(``models/transformer.py``, ``launch/train.py``). The other families are
+not ported yet; asking for one raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 

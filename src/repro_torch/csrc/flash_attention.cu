@@ -87,7 +87,20 @@ struct AttnArgs {
   int causal, q_offset, kv_end;
   float scale;
   int vec;  // 16-byte loads allowed (hd % 8 == 0, strides % 8, aligned)
+  // (B, Hq, Sq) float32: each row's log-sum-exp m + log l (natural log;
+  // -inf for a row that sees no key), for the backward; null to skip
+  float* lse;
 };
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// lse of row i of q-head h, batch b, from m and l in log2 units
+__device__ __forceinline__ void store_lse_log2(const AttnArgs& a, int b,
+                                               int i, int h, float m,
+                                               float l) {
+  a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + i] =
+      l > 0.0f ? (m + log2f(l)) * LN2 : -INFINITY;
+}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
@@ -255,6 +268,9 @@ __global__ void __launch_bounds__(S_THREADS)
     const int h = kvh * a.group + (r - i * a.group);
     const float l = sL[rr];
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + i] =
+          l > 0.0f ? sM[rr] + logf(l) : -INFINITY;
     float* orow = o + ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) *
                           hd;
 #pragma unroll
@@ -320,7 +336,9 @@ __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
   }
 }
 
-template <int HDP>
+// LSE: write each row's log-sum-exp to a.lse (the backward's input); the
+// serving instances (LSE false) compile without it
+template <int HDP, bool LSE>
 __global__ void __launch_bounds__(M_THREADS)
     attn_mma_kernel(const AttnArgs a) {
   constexpr int LD = HDP + 8;  // +16 bytes a row: conflict-free fragments
@@ -479,6 +497,9 @@ __global__ void __launch_bounds__(M_THREADS)
     const int r = r0 + rr, i = r / a.group;
     const int h = kvh * a.group + (r - i * a.group);
     const float inv = half ? inv1 : inv0;
+    if constexpr (LSE) {
+      if (t == 0) store_lse_log2(a, b, i, h, half ? m1 : m0, half ? l1 : l0);
+    }
     bf16* orow =
         o + ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * a.hd;
 #pragma unroll
@@ -685,7 +706,7 @@ struct KvDims {
   int key, head, batch;
 };
 
-template <int HD>
+template <int HD, bool LSE>  // LSE: as attn_mma_kernel's
 __global__ void __launch_bounds__(W_THREADS, 1)
     attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -922,6 +943,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       const int r = r0 + row, i = r / a.group;
       const int h = kvh * a.group + (r - i * a.group);
       const float inv = hh ? inv1 : inv0;
+      if constexpr (LSE) {
+        if (t == 0) store_lse_log2(a, b, i, h, hh ? m1 : m0, hh ? l1 : l0);
+      }
       bf16* orow =
           out + ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * HD;
 #pragma unroll
@@ -1234,6 +1258,7 @@ __global__ void __launch_bounds__(128)
                ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * hd;
   if (M == -INFINITY) {
     for (int d = tid; d < hd; d += 128) orow[d] = __ushort_as_bfloat16(0);
+    if (a.lse != nullptr && tid == 0) store_lse_log2(a, b, i, h, M, 0.0f);
     return;
   }
   float L = 0.0f;
@@ -1247,7 +1272,9 @@ __global__ void __launch_bounds__(128)
   __syncthreads();  // red[] read above; sw[] written
   if (lane == 0) red[warp] = L;
   __syncthreads();
-  const float inv = 1.0f / (red[0] + red[1] + red[2] + red[3]);
+  const float L_all = red[0] + red[1] + red[2] + red[3];
+  const float inv = 1.0f / L_all;
+  if (a.lse != nullptr && tid == 0) store_lse_log2(a, b, i, h, M, L_all);
   for (int d = tid; d < hd; d += 128) {
     float x = 0.0f;
 #pragma unroll 8
@@ -1278,8 +1305,11 @@ int launch_scalar(const AttnArgs& a, dim3 grid, cudaStream_t s) {
 
 template <int HDP>
 int launch_mma(const AttnArgs& a, dim3 grid, cudaStream_t s) {
-  return launch(attn_mma_kernel<HDP>, grid, M_THREADS,
-                mma_smem_bytes<HDP>(), s, a);
+  return a.lse != nullptr
+             ? launch(attn_mma_kernel<HDP, true>, grid, M_THREADS,
+                      mma_smem_bytes<HDP>(), s, a)
+             : launch(attn_mma_kernel<HDP, false>, grid, M_THREADS,
+                      mma_smem_bytes<HDP>(), s, a);
 }
 
 template <int HDP>
@@ -1385,8 +1415,12 @@ int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
     return static_cast<int>(cudaErrorInvalidValue);  // k, v laid out alike
   const int n_mtiles = (a.Sq * a.group + W_BM - 1) / W_BM;
   const dim3 grid(static_cast<unsigned>(n_mtiles) * Hkv * B);
-  return launch(attn_wgmma_kernel<HD>, grid, W_THREADS,
-                wgmma_smem_bytes<HD>(), s, mk, mv, a, dk, n_mtiles, Hkv);
+  return a.lse != nullptr
+             ? launch(attn_wgmma_kernel<HD, true>, grid, W_THREADS,
+                      wgmma_smem_bytes<HD>(), s, mk, mv, a, dk, n_mtiles, Hkv)
+             : launch(attn_wgmma_kernel<HD, false>, grid, W_THREADS,
+                      wgmma_smem_bytes<HD>(), s, mk, mv, a, dk, n_mtiles,
+                      Hkv);
 }
 
 }  // namespace
@@ -1399,21 +1433,24 @@ int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
 // 1 attn_mma_kernel, 2 attn_wgmma_kernel (hd 64 or 128, vec), 3
 // attn_splitk_kernel + attn_combine_kernel (Sq * Hq / Hkv <= 16), which
 // takes `splits` chunks of `chunk` keys and float32 scratch part_o
-// (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml (..., 2).
+// (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml (..., 2). lse: null, or
+// float32 (B, Hq, Sq) that every route fills with each row's log-sum-exp
+// (the backward's input; the output is the same either way).
 REPRO_EXPORT int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int q_offset, int kv_end,
     int dtype, int vec, int route, int chunk, int splits, void* part_o,
-    void* part_ml, void* stream) {
+    void* part_ml, void* lse, void* stream) {
   if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
       (dtype == 0) != (route == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs a{q,      k,        v,      out,  Sq,   Hq,   hd,
                    Hq / Hkv, q_sb,   q_ss,     q_sh,   k_sb, k_ss, k_sh,
                    v_sb,   v_ss,     v_sh,   causal, q_offset, kv_end,
-                   1.0f / sqrtf(static_cast<float>(hd)), vec};
+                   1.0f / sqrtf(static_cast<float>(hd)), vec,
+                   static_cast<float*>(lse)};
   auto s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(Sq) * a.group;
   if (route == 2) {

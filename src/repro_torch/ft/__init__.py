@@ -1,9 +1,8 @@
-"""repro_torch.ft -- fault tolerance of the serving loop.
-
-Only the work-stealing cluster scheduler is ported (the streaming
-server's checkpointable queue); the fault tolerance of training comes
-with the training slice.
-"""
+"""repro_torch.ft -- fault tolerance: the fault-tolerant training driver
+(:mod:`.driver`) and the work-stealing cluster scheduler of the streaming
+server (:mod:`.scheduler`)."""
+from .driver import DriverConfig, FailureInjector, TrainDriver
 from .scheduler import WorkStealingScheduler
 
-__all__ = ["WorkStealingScheduler"]
+__all__ = ["TrainDriver", "DriverConfig", "FailureInjector",
+           "WorkStealingScheduler"]

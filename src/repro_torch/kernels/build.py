@@ -39,7 +39,7 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "PROBES", "NVCC_FLAGS",
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("msbfs_step", "pairwise_popcount", "path_join", "ell_spmm",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 # not kernels of any path: the throughput probes that chip_smoke.py times
 # for peak rates, and the other designs of kernels that probes/*.py time
 # against the port's (built with the kernels, so that every source is

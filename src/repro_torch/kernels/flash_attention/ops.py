@@ -31,6 +31,22 @@ per q-head. Two arguments widen the JAX kernel's contract:
 A row that sees no key gives zeros in both arms (``ref.py`` would average
 V over all keys there; with the default ``q_offset`` and ``Sq <= Skv``
 every row sees key 0, so the two agree).
+
+The gradient (no TPU counterpart: the JAX package trains through its
+``jnp`` arm). ``return_lse=True`` makes either forward also return each
+row's log-sum-exp ``m + log l`` (float32, ``(B, Hq, Sq)``; every CUDA route
+writes it from its epilogue, the output unchanged).
+``flash_attention_bwd_ref`` is the plain backward (the formulas in
+float32), ``flash_attention_bwd_cuda`` the wrapper of
+``csrc/flash_attention_bwd.cu`` (``LAUNCHES["flash_attention_bwd"]``; by
+:func:`bwd_route`, tensor-core kernels in bf16 up to head dim 128,
+``LAUNCHES["bwd_mma"]``, CUDA-core ones otherwise,
+``["bwd_scalar"]``), and
+``flash_attention_bwd`` picks by device. ``gqa_attention`` goes through a
+``torch.autograd.Function`` whenever grad mode is on and q, k or v needs a
+gradient: its forward saves the lse, its backward is the kernel on a CUDA
+tensor and the plain backward on a CPU one, never the plain version on
+the card.
 """
 from __future__ import annotations
 
@@ -44,12 +60,18 @@ from .. import build
 from ..registry import ArmLike, KernelArm, count_launch, resolve_arm
 
 __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
-           "flash_attention_cuda", "attention_route", "attention_plan",
-           "splitk_chunks", "ROUTES", "MAX_HEAD_DIM"]
+           "flash_attention_cuda", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
+           "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
+           "ROUTES", "BWD_ROUTES", "MAX_HEAD_DIM"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch":
-               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 8 + [_P] * 3}
+               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 8 + [_P] * 4}
+_BWD_SIGNATURES = {"flash_attention_bwd_launch":
+                   [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 6 + [_P]}
+# the backward's kernels by their number in flash_attention_bwd_launch
+BWD_ROUTES = ("scalar", "mma")
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -151,27 +173,40 @@ def _window(Sq: int, Skv: int, q_offset: Optional[int],
     return q_offset, max(0, min(valid, Skv))
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, Hkv: int, causal: bool,
+            q_offset: int) -> torch.Tensor:
+    """The float32 scores ``q.k / sqrt(hd)``, (B, Hkv, G, Sq, keys), of q
+    (B, Sq, Hq, hd) against the keys k (B, keys, Hkv, hd); -inf where the
+    causal mask hides a key."""
+    B, Sq, Hq, hd = q.shape
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / (hd ** 0.5)
+    if causal:
+        kv_pos = torch.arange(k.shape[1], device=q.device)
+        q_pos = torch.arange(Sq, device=q.device) + q_offset
+        s = s.masked_fill(kv_pos[None, :] > q_pos[:, None], float("-inf"))
+    return s
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, *,
                         q_offset: Optional[int] = None,
-                        kv_valid_len: Optional[int] = None) -> torch.Tensor:
+                        kv_valid_len: Optional[int] = None,
+                        return_lse: bool = False):
     """Plain version: exact softmax attention in float32 over the first
     ``kv_valid_len`` keys (the ``(B, Hkv, G, Sq, kv_valid_len)`` scores
-    are materialised), cast to ``q``'s type."""
+    are materialised), cast to ``q``'s type; with ``return_lse`` also each
+    row's log-sum-exp, float32 (B, Hq, Sq), -inf where no key is seen."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
-    G = Hq // Hkv
-    k, v = k[:, :valid].float(), v[:, :valid].float()   # the tail is unread
-    qf = q.float().reshape(B, Sq, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k) / (hd ** 0.5)
-    if causal:
-        kv_pos = torch.arange(valid, device=q.device)
-        q_pos = torch.arange(Sq, device=q.device) + q_offset
-        s = s.masked_fill(kv_pos[None, :] > q_pos[:, None], float("-inf"))
+    s = _scores(q, k[:, :valid], Hkv, causal, q_offset)  # the tail unread
     # a row with no visible key: softmax gives NaN, the kernel gives 0
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v[:, :valid].float())
+    out = out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
 
 
 def flash_attention_splitk_ref(q: torch.Tensor, k: torch.Tensor,
@@ -224,7 +259,8 @@ def flash_attention_splitk_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, *,
                          q_offset: Optional[int] = None,
-                         kv_valid_len: Optional[int] = None) -> torch.Tensor:
+                         kv_valid_len: Optional[int] = None,
+                         return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` (contract of
     :func:`flash_attention_ref`). q, k, v: float32 or bfloat16, one type,
     one CUDA device, the last dimension contiguous (any other strides, e.g.
@@ -247,8 +283,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"not contiguous (strides {x.stride()})")
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     route, chunk, splits = attention_plan(
         q, k, v, causal, q_offset=q_offset, kv_valid_len=valid,
@@ -268,10 +306,150 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Sq, Hq, Hkv, hd, *strides, int(bool(causal)), q_offset, valid,
         _DTYPES.index(q.dtype), int(_aligned(q, k, v)), ROUTES.index(route),
         chunk, splits,
-        part_o, part_ml, stream)
+        part_o, part_ml, None if lse is None else lse.data_ptr(), stream)
     build.check(lib, rc, "flash_attention")
     count_launch("flash_attention", f"attn_{route}")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def bwd_route(hd: int, dtype: torch.dtype) -> str:
+    """The backward's kernels: ``mma`` (tensor cores) in bf16 up to head
+    dim 128, ``scalar`` (CUDA cores) for float32 and larger head dims."""
+    return "mma" if dtype == torch.bfloat16 and hd <= 128 else "scalar"
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, *,
+                            q_offset: Optional[int] = None,
+                            kv_valid_len: Optional[int] = None):
+    """Plain backward, in float32: with ``P = exp(q.k / sqrt(hd) - lse)``
+    over the visible keys (0 elsewhere and in a row whose lse is -inf),
+    ``D = rowsum(dout * o)`` and ``dS = P * (dout.v - D)``,
+    ``dV = P^T dout``, ``dK = dS^T q / sqrt(hd)``, ``dQ = dS k / sqrt(hd)``,
+    the q-heads of a GQA group summed into their kv-head; keys at or past
+    ``kv_valid_len`` get 0. ``o`` is the forward's output, ``lse`` its
+    (B, Hq, Sq) log-sum-exp. Returns ``(dq, dk, dv)`` in the types of q,
+    k and v."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    G = Hq // Hkv
+    kf, vf = k[:, :valid].float(), v[:, :valid].float()
+    s = _scores(q, kf, Hkv, causal, q_offset)
+    m = lse.float().reshape(B, Hkv, G, Sq, 1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    gf = dout.float().reshape(B, Sq, Hkv, G, hd)
+    delta = (gf * o.float().reshape(B, Sq, Hkv, G, hd)).sum(-1)
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", gf, vf)
+              - delta.permute(0, 2, 3, 1)[..., None])
+    qf = q.float().reshape(B, Sq, Hkv, G, hd)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) / (hd ** 0.5)
+    pad = (0, 0, 0, 0, 0, Skv - valid)
+    dk = torch.nn.functional.pad(
+        torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) / (hd ** 0.5), pad)
+    dv = torch.nn.functional.pad(
+        torch.einsum("bhgqk,bqhgd->bkhd", p, gf), pad)
+    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, *,
+                             q_offset: Optional[int] = None,
+                             kv_valid_len: Optional[int] = None):
+    """Launch ``csrc/flash_attention_bwd.cu`` (contract of
+    :func:`flash_attention_bwd_ref`): q, k, v as for the forward kernel,
+    ``o`` and ``dout`` (B, Sq, Hq, hd) of their type (made contiguous),
+    ``lse`` float32 (B, Hq, Sq)."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    dt = q.dtype
+    if dt not in _DTYPES or any(x.dtype != dt for x in (k, v, o, dout)):
+        raise TypeError(f"flash_attention_bwd: q, k, v, o, dout must share "
+                        f"one type of {_DTYPES}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {o.dtype}, {dout.dtype}")
+    tensors = (q, k, v, o, lse, dout)
+    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+        raise ValueError("flash_attention_bwd: the CUDA kernel needs q, k, "
+                         "v, o, lse and dout on one CUDA device")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} outside "
+                         f"1..{MAX_HEAD_DIM}")
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o and dout must be "
+                         f"{tuple(q.shape)}, got {tuple(o.shape)} and "
+                         f"{tuple(dout.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"{(B, Hq, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.numel() and x.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd: {name}'s last dimension "
+                             f"is not contiguous (strides {x.stride()})")
+    o, dout, lse = o.contiguous(), dout.contiguous(), lse.contiguous()
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    dq = torch.empty((B, Sq, Hq, hd), dtype=dt, device=q.device)
+    dk = torch.empty((B, Skv, Hkv, hd), dtype=dt, device=q.device)
+    dv = torch.empty((B, Skv, Hkv, hd), dtype=dt, device=q.device)
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    route = bwd_route(hd, dt)
+    vec = _aligned(q, k, v) and all(x.data_ptr() % 16 == 0
+                                    for x in (o, dout))
+    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, *strides,
+        int(bool(causal)), q_offset, valid, _DTYPES.index(dt),
+        BWD_ROUTES.index(route), int(vec), stream)
+    build.check(lib, rc, "flash_attention_bwd")
+    count_launch("flash_attention_bwd", f"bwd_{route}")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True, *,
+                        q_offset: Optional[int] = None,
+                        kv_valid_len: Optional[int] = None,
+                        arm: ArmLike = None):
+    """``(dq, dk, dv)`` on the arm of the tensors' device: the CUDA kernel
+    for CUDA tensors, the plain backward for CPU tensors."""
+    fn = (flash_attention_bwd_cuda
+          if resolve_arm(q.device, arm) is KernelArm.CUDA
+          else flash_attention_bwd_ref)
+    return fn(q, k, v, o, lse, dout, causal, q_offset=q_offset,
+              kv_valid_len=kv_valid_len)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention with a gradient: the forward of the tensors' arm, saving
+    its row log-sum-exp, and :func:`flash_attention_bwd` of the same arm."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_valid_len):
+        fwd = (flash_attention_cuda
+               if resolve_arm(q.device) is KernelArm.CUDA
+               else flash_attention_ref)
+        out, lse = fwd(q, k, v, causal, q_offset=q_offset,
+                       kv_valid_len=kv_valid_len, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = (causal, q_offset, kv_valid_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, kv_valid_len = ctx.window
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                         q_offset=q_offset,
+                                         kv_valid_len=kv_valid_len)
+        return dq, dk, dv, None, None, None
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -282,9 +460,15 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns (B, Sq, Hq, hd) in q's type, on the arm of the tensors'
     device: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors.
+    tensors. Where grad mode is on and q, k or v needs a gradient, through
+    the ``torch.autograd.Function`` whose backward is
+    :func:`flash_attention_bwd` on the same arm.
     """
-    if resolve_arm(q.device, arm) is KernelArm.CUDA:
+    chosen = resolve_arm(q.device, arm)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, q_offset, kv_valid_len)
+    if chosen is KernelArm.CUDA:
         return flash_attention_cuda(q, k, v, causal, q_offset=q_offset,
                                     kv_valid_len=kv_valid_len)
     return flash_attention_ref(q, k, v, causal, q_offset=q_offset,

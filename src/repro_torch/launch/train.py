@@ -1,0 +1,122 @@
+"""Training driver CLI for the LM family: the fault-tolerant loop.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
+        --reduced --steps 200 --ckpt-dir build/train_ckpt
+
+A port of ``repro/launch/train.py``. It runs on the card unless
+``--device cpu`` (the kernels' plain versions). ``--reduced`` takes the
+arch's small same-family config, at ``--seq-len`` x ``--batch``; without
+it the published config at the shape's full size. One device: a mesh
+other than ``host`` is refused, and so are the GNN and recsys families
+(ROADMAP.md queue 1, item 7).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import torch
+
+from .. import configs as config_registry
+from ..config import RunOptions
+from ..data.lm_data import TokenStream
+from ..ft import DriverConfig, FailureInjector, TrainDriver
+from ..kernels import build
+from ..kernels.registry import resolve_device
+from ..models import transformer
+from ..optim import adamw_init
+from .steps import build_bundle
+
+__all__ = ["run_training", "make_init_and_batches", "DEFAULT_CKPT_DIR"]
+
+# under the checkout's build/ (which git ignores)
+DEFAULT_CKPT_DIR = build.BUILD_DIR.parent / "train_ckpt"
+
+
+def make_init_and_batches(bundle, device, params: Optional[dict] = None):
+    """``(init_state, batch_fn)`` of an LM train bundle: float32 masters
+    (copied from ``params``, a tree in the JAX layout, else drawn from a
+    generator seeded with ``opts.seed``) and their AdamW state; the
+    synthetic token stream's batch at a step, on ``device``."""
+    cfg, opts, meta = bundle.cfg, bundle.opts, bundle.meta
+    dev = resolve_device(device)
+    stream = TokenStream(cfg.vocab, meta["global_batch"], meta["seq_len"],
+                         seed=opts.seed)
+
+    def init_state():
+        gen = None
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(opts.seed)
+        p = transformer.train_params(cfg, params, generator=gen, device=dev)
+        return p, adamw_init(p)
+
+    def batch_fn(step):
+        tok, tgt = stream.batch_at(step)
+        return (torch.from_numpy(tok).to(dev, torch.long),
+                torch.from_numpy(tgt).to(dev, torch.long))
+
+    return init_state, batch_fn
+
+
+def run_training(arch: str, shape_name: str, steps: int,
+                 ckpt_dir=DEFAULT_CKPT_DIR, reduced: bool = True,
+                 mesh_name: str = "host", overrides: dict | None = None,
+                 fail_at: int | None = None, ckpt_every: int = 50,
+                 opts: RunOptions | None = None, device=None,
+                 params: Optional[dict] = None) -> dict:
+    """Train ``arch`` for ``steps`` steps through :class:`TrainDriver`
+    (resuming from ``ckpt_dir``'s latest checkpoint), on ``device``
+    (default ``"cuda"``). ``params``: starting weights in the JAX layout
+    (default: random from ``opts.seed``). Returns the driver's result:
+    params, opt_state, history, stragglers."""
+    if mesh_name != "host":
+        raise NotImplementedError(
+            f"mesh {mesh_name!r}: the port trains on one device (the "
+            f"substrate's mesh options, ROADMAP.md queue 1)")
+    dev = resolve_device(device)
+    opts = opts or RunOptions(seq_parallel=False, loss_chunk=64,
+                              attn_chunk=256, moe_groups=4)
+    bundle = build_bundle(arch, shape_name, opts, reduced=reduced,
+                          overrides=overrides)
+    if bundle.kind != "train":
+        raise ValueError(f"{shape_name!r} is a {bundle.kind} shape, not a "
+                         f"train shape")
+    init_state, batch_fn = make_init_and_batches(bundle, dev, params)
+    driver = TrainDriver(
+        DriverConfig(total_steps=steps, ckpt_dir=str(ckpt_dir),
+                     ckpt_every=ckpt_every),
+        bundle.step_fn, init_state, batch_fn,
+        injector=FailureInjector(fail_at))
+    return driver.run()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", default="host")
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--fail-at", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
+    args = ap.parse_args(argv)
+    mod = config_registry.get(args.arch)
+    shape = args.shape or list(mod.SHAPES)[0]
+    over = None
+    if args.reduced:
+        over = {"seq_len": args.seq_len, "global_batch": args.batch}
+    out = run_training(args.arch, shape, args.steps, args.ckpt_dir,
+                       reduced=args.reduced, mesh_name=args.mesh,
+                       overrides=over, fail_at=args.fail_at,
+                       device=args.device)
+    hist = out["history"]
+    print(f"steps: {len(hist)}; loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}; stragglers: {out['stragglers']}")
+
+
+if __name__ == "__main__":
+    main()

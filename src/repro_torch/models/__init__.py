@@ -1,4 +1,4 @@
-"""The model substrate: the dense transformer's serving path
-(:mod:`.transformer`). MoE, GNN and recsys models and training come with
-later slices."""
-from . import transformer  # noqa: F401
+"""The model substrate: the dense and MoE transformer, its serving and
+training paths (:mod:`.transformer`, :mod:`.moe`). GNN and recsys models
+come with a later slice."""
+from . import moe, transformer  # noqa: F401

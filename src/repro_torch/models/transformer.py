@@ -1,30 +1,41 @@
-"""Dense decoder-only transformer: the serving path (prefill + KV-cache decode).
+"""Dense and MoE decoder-only transformer: serving and training.
 
-Counterpart of the serving subset of ``repro/models/transformer.py``: GQA
-attention (optional QKV bias, as Qwen), RoPE, RMSNorm, a SwiGLU FFN,
-tied or untied embeddings; ``lm_forward``, ``prefill``, ``init_cache`` and
-``decode_step``. Attention goes through
+Counterpart of ``repro/models/transformer.py``: GQA attention (optional
+QKV bias, as Qwen), RoPE, RMSNorm, a SwiGLU FFN or the MoE FFN
+(:mod:`.moe`), tied or untied embeddings; serving (``lm_forward``,
+``prefill``, ``init_cache``, ``decode_step``) and training
+(``forward_hidden``, ``lm_loss``). Attention goes through
 :func:`repro_torch.kernels.flash_attention.ops.gqa_attention`, whose arm
 follows the tensors' device: on a CUDA model every layer of every call
 runs the hand-written kernel (``RunOptions.kernel_backend`` picks nothing
-here), on a CPU model its plain version.
+here), and in training its backward kernel; on a CPU model the plain
+versions.
 
-:class:`LM` holds the parameters per layer under the JAX package's names
-(``wq``, ``wk``, ``wv``, ``wo``, ``attn_norm``, ``ffn_norm``, ``w_gate``,
-``w_up``, ``w_down``, ``bq``/``bk``/``bv``; ``embed``, ``final_norm``,
-``unembed``). Unlike the JAX package, which keeps float32 masters and
-casts them per layer, the serving weights and the KV cache are held in the
-working type (``cfg.dtype``: bfloat16 for the published configs, float32
-for the reduced ones; ``dataclasses.replace(cfg, dtype=...)`` for
-another). The functions below take the module and plain tensors; one
-device, so no sharding constraints and no tensor-parallel head padding
-(the JAX ``padded_heads`` at tp = 1 is ``cfg.n_heads``).
+Serving: :class:`LM` holds the parameters per layer under the JAX
+package's names (``wq``, ``wk``, ``wv``, ``wo``, ``attn_norm``,
+``ffn_norm``, ``w_gate``, ``w_up``, ``w_down`` or ``router``, ``e_gate``,
+``e_up``, ``e_down``, ``bq``/``bk``/``bv``; ``embed``, ``final_norm``,
+``unembed``), in the working type (``cfg.dtype``: bfloat16 for the
+published configs, float32 for the reduced ones;
+``dataclasses.replace(cfg, dtype=...)`` for another), and so does the KV
+cache; a layer's casts to the working type are no-ops there.
 
-Not ported here (refused with ``NotImplementedError`` where an option asks
-for them): MoE layers (``models/moe.py``), ``flash_decode`` (needs a mesh)
-and a float8 KV cache (``kv_cache_dtype="f8"``). ``lm_loss``, remat,
-``layer_group``, ``seq_parallel`` and ``cast_params_early`` belong to
-training and wait for it.
+Training: as the JAX ``lm_forward`` does, float32 masters (a parameter
+tree in the JAX layout, layers stacked on L: :func:`train_params`, whose
+leaves are ``nn.Parameter`` objects) cast to the working type at each use.
+``RunOptions.remat`` checkpoints each group of ``layer_group`` layers
+(``torch.utils.checkpoint``, non-reentrant; the JAX ``nothing_saveable``
+policy: ``remat_policy="dots"`` is refused), ``cast_params_early`` casts
+the stacked layers once before the loop, ``loss_chunk`` cuts the
+cross-entropy into checkpointed chunks so that the (B, S, vocab) logits
+never exist, and ``moe_groups`` is the MoE dispatch's group count.
+``seq_parallel`` shards the residual stream over a mesh in the JAX
+package; on one device it changes nothing, and is ignored.
+
+One device, so no sharding constraints and no tensor-parallel head
+padding (the JAX ``padded_heads`` at tp = 1 is ``cfg.n_heads``). Refused
+with ``NotImplementedError``: ``flash_decode`` (needs a mesh), a float8 KV
+cache (``kv_cache_dtype="f8"``) and ``remat_policy="dots"``.
 """
 from __future__ import annotations
 
@@ -36,13 +47,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..config import LMConfig, RunOptions
 from ..kernels.flash_attention.ops import gqa_attention
 from ..kernels.registry import resolve_device
+from .moe import moe_ffn
 
-__all__ = ["LM", "init_lm_params", "params_from_jax", "lm_forward",
-           "prefill", "decode_step", "init_cache", "working_dtype",
-           "rmsnorm", "rope", "rope_tables", "swiglu"]
+__all__ = ["LM", "init_lm_params", "params_from_jax", "train_params",
+           "lm_forward", "forward_hidden", "lm_loss", "prefill",
+           "decode_step", "init_cache", "working_dtype", "rmsnorm", "rope",
+           "rope_tables", "swiglu"]
 
 BIAS_PARAMS = ("bq", "bk", "bv")
 
@@ -54,11 +69,8 @@ def working_dtype(cfg: LMConfig) -> torch.dtype:
 
 
 def check_supported(cfg: LMConfig, opts: Optional[RunOptions] = None) -> None:
-    """Refuse the configurations and options whose code is not ported."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (models/moe.py) are not ported yet "
-            f"(ROADMAP.md queue 1, 'models/moe.py')")
+    """Refuse the options whose code is not ported (every LM config of
+    the registry, dense or MoE, is)."""
     if opts is None:
         return
     if opts.flash_decode:
@@ -69,6 +81,16 @@ def check_supported(cfg: LMConfig, opts: Optional[RunOptions] = None) -> None:
         raise NotImplementedError(
             "kv_cache_dtype='f8' (a float8 KV cache) is not ported yet "
             "(ROADMAP.md queue 1, the substrate's mesh options)")
+
+
+def check_trainable(opts: RunOptions) -> None:
+    """Refuse the training options whose code is not ported."""
+    if opts.remat and opts.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={opts.remat_policy!r} (saving the matmul outputs "
+            f"under remat) is not ported; the port rematerialises with the "
+            f"'nothing' policy (ROADMAP.md queue 1, the substrate's mesh "
+            f"options)")
 
 
 # ----------------------------------------------------------------------
@@ -84,9 +106,14 @@ def _param_shapes(cfg: LMConfig) -> tuple[dict, dict]:
         "attn_norm": ((L, D), None), "ffn_norm": ((L, D), None),
         "wq": ((L, D, Hq * hd), D), "wk": ((L, D, Hkv * hd), D),
         "wv": ((L, D, Hkv * hd), D), "wo": ((L, Hq * hd, D), Hq * hd),
-        "w_gate": ((L, D, cfg.d_ff), D), "w_up": ((L, D, cfg.d_ff), D),
-        "w_down": ((L, cfg.d_ff, D), cfg.d_ff),
     }
+    if cfg.moe is None:
+        layers.update(w_gate=((L, D, cfg.d_ff), D), w_up=((L, D, cfg.d_ff), D),
+                      w_down=((L, cfg.d_ff, D), cfg.d_ff))
+    else:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layers.update(router=((L, D, E), D), e_gate=((L, E, D, Fe), D),
+                      e_up=((L, E, D, Fe), D), e_down=((L, E, Fe, D), Fe))
     if cfg.qkv_bias:
         layers.update(bq=((L, Hq * hd), None), bk=((L, Hkv * hd), None),
                       bv=((L, Hkv * hd), None))
@@ -98,22 +125,23 @@ def _param_shapes(cfg: LMConfig) -> tuple[dict, dict]:
 
 
 def init_lm_params(cfg: LMConfig, *, generator: torch.Generator,
-                   device: DeviceLike = None) -> dict:
+                   device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
     """Random parameters with the law of the JAX ``init_lm_params``: each
     matrix ``normal / sqrt(fan_in)`` (fan_in = its second-to-last
     dimension), norms ones, biases zeros; layers stacked on a leading L
     axis. Drawn from ``generator`` in float32 one layer at a time, so the
-    working type of ``cfg`` is the only full-size copy."""
-    check_supported(cfg)
+    tree, in ``dtype`` (default the working type of ``cfg``; float32 for
+    training masters), is the only full-size copy."""
     dev = resolve_device(device)
-    dt = working_dtype(cfg)
+    dt = working_dtype(cfg) if dtype is None else dtype
     top, layers = _param_shapes(cfg)
 
     def make(name, shape, fan_in):
         out = torch.empty(shape, dtype=dt, device=dev)
         if fan_in is None:                      # norms ones, biases zeros
             return out.fill_(0.0 if name in BIAS_PARAMS else 1.0)
-        for part in (out.unbind(0) if len(shape) == 3 else (out,)):
+        for part in (out.unbind(0) if len(shape) >= 3 else (out,)):
             draw = torch.randn(part.shape, generator=generator, device=dev,
                                dtype=torch.float32)
             part.copy_(draw.div_(math.sqrt(fan_in)))
@@ -133,9 +161,13 @@ class Layer(nn.Module):
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
+    def tensors(self) -> dict:
+        """name -> parameter, the mapping :func:`_layer` reads."""
+        return self._parameters
+
 
 class LM(nn.Module):
-    """A dense decoder-only LM for serving, on one device.
+    """A dense or MoE decoder-only LM for serving, on one device.
 
     ``LM(cfg, generator=g)`` draws random weights (:func:`init_lm_params`)
     from ``g``, a ``torch.Generator`` on the model's device; ``LM(cfg,
@@ -143,7 +175,9 @@ class LM(nn.Module):
     stacked on L; :func:`params_from_jax` builds one from the JAX
     package's). ``device`` defaults to ``"cuda"`` and raises where there is
     no CUDA: the CPU runs only when asked (``device="cpu"``). The weights
-    are held in the working type of ``cfg``.
+    are held in the working type of ``cfg``. ``opts.moe_groups`` is the MoE
+    dispatch's group count (prefill; a decode step of B tokens groups them
+    by ``gcd(B, moe_groups)``, as the JAX ``decode_step`` does).
     """
 
     def __init__(self, cfg: LMConfig, params: Optional[dict] = None, *,
@@ -152,6 +186,7 @@ class LM(nn.Module):
         super().__init__()
         check_supported(cfg, opts)
         self.cfg = cfg
+        self.opts = RunOptions() if opts is None else opts
         self.device = resolve_device(device)
         self.dtype = working_dtype(cfg)
         if params is None:
@@ -267,20 +302,26 @@ def swiglu(x, w_gate, w_up, w_down):
 # forward
 # ----------------------------------------------------------------------
 
-def _layer(x: torch.Tensor, lp: Layer, cfg: LMConfig,
-           tables, cache=None) -> torch.Tensor:
-    """One transformer block; ``tables``: the RoPE (cos, sin) of the
-    tokens' positions. cache: None, or (ck, cv, pos) with ck, cv this
-    layer's (B, max_len, Hkv, hd) views of the cache, written in place at
-    ``pos``."""
+def _layer(x: torch.Tensor, lp, cfg: LMConfig, tables, cache=None,
+           moe_groups: int = 16):
+    """One transformer block; ``lp`` maps the JAX names to this layer's
+    tensors, each cast to x's (the working) type at use; ``tables``: the
+    RoPE (cos, sin) of the tokens' positions. cache: None, or (ck, cv, pos)
+    with ck, cv this layer's (B, max_len, Hkv, hd) views of the cache,
+    written in place at ``pos``. Returns ``(x, aux)``, aux the MoE
+    load-balance loss (0.0 for a dense layer)."""
     B, S, _ = x.shape
+    dt = x.dtype
     hd, Hkv = cfg.hd, cfg.n_kv_heads
-    Hq = lp.wq.shape[-1] // hd
+    Hq = lp["wq"].shape[-1] // hd
 
-    h = rmsnorm(x, lp.attn_norm)
-    q, k, v = h @ lp.wq, h @ lp.wk, h @ lp.wv
+    def w(name):
+        return lp[name].to(dt)
+
+    h = rmsnorm(x, lp["attn_norm"])
+    q, k, v = h @ w("wq"), h @ w("wk"), h @ w("wv")
     if cfg.qkv_bias:
-        q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
+        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
     q = apply_rope(q.reshape(B, S, Hq, hd), *tables)
     k = apply_rope(k.reshape(B, S, Hkv, hd), *tables)
     v = v.reshape(B, S, Hkv, hd)
@@ -293,25 +334,144 @@ def _layer(x: torch.Tensor, lp: Layer, cfg: LMConfig,
         cv[:, pos:pos + S] = v
         attn = gqa_attention(q, ck, cv, causal=True, q_offset=pos,
                              kv_valid_len=pos + S)
-    x = x + attn.reshape(B, S, Hq * hd) @ lp.wo
-    return x + swiglu(rmsnorm(x, lp.ffn_norm), lp.w_gate, lp.w_up, lp.w_down)
+    x = x + attn.reshape(B, S, Hq * hd) @ w("wo")
+    h = rmsnorm(x, lp["ffn_norm"])
+    if cfg.moe is None:
+        return x + swiglu(h, w("w_gate"), w("w_up"), w("w_down")), 0.0
+    f, aux = moe_ffn(h, lp, cfg, groups=moe_groups)
+    return x + f, aux
 
 
 @torch.no_grad()
 def lm_forward(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) integers at positions 0..S-1 -> final-normed hidden
-    states (B, S, D).
-
-    (The JAX function also returns the MoE auxiliary loss, always 0 for
-    the dense models the port runs.)
+    states (B, S, D). (The JAX function also returns the MoE auxiliary
+    loss, which serving does not use; :func:`forward_hidden` returns it.)
     """
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     tables = rope_tables(positions, model.cfg.hd, model.cfg.rope_theta)
     x = model.embed[tokens]
-    for lp in model.layers:
-        x = _layer(x, lp, model.cfg, tables)
+    for layer in model.layers:
+        x, _ = _layer(x, layer.tensors(), model.cfg, tables,
+                      moe_groups=model.opts.moe_groups)
     return rmsnorm(x, model.final_norm)
+
+
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+
+def _master(t, device: torch.device, copy: bool) -> nn.Parameter:
+    """A float32 master on ``device``: a copy of ``t`` (a tensor or a numpy
+    array) when ``copy``, else ``t`` itself where it is one already."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to(device)
+    else:
+        t, copy = torch.from_numpy(np.array(t)).to(device), False
+    return nn.Parameter(t.to(torch.float32, copy=copy))
+
+
+def train_params(cfg: LMConfig, params: Optional[dict] = None, *,
+                 generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None) -> dict:
+    """The float32 masters of training: a parameter tree in the JAX
+    layout (``{"embed", "final_norm", ["unembed"], "layers": {name: (L,
+    ...)}}``) whose leaves are ``nn.Parameter`` objects on ``device`` (default
+    ``"cuda"``), copied from ``params`` (tensors or numpy arrays, e.g. a
+    JAX ``init_lm_params`` tree) or drawn from ``generator``."""
+    dev = resolve_device(device)
+    copy = params is not None
+    if params is None:
+        if generator is None:
+            raise ValueError("train_params needs a parameter tree or a "
+                             "torch.Generator to draw one from")
+        params = init_lm_params(cfg, generator=generator, device=dev,
+                                dtype=torch.float32)
+    top, layers = _param_shapes(cfg)
+    if set(params) != set(top) | {"layers"} \
+            or set(params["layers"]) != set(layers):
+        raise ValueError(f"{cfg.name}: parameter names {sorted(params)} / "
+                         f"layers {sorted(params.get('layers', {}))} do not "
+                         f"match the config's {sorted(top)} / "
+                         f"{sorted(layers)}")
+
+    def master(t):
+        return _master(t, dev, copy)
+
+    tree = {name: master(params[name]) for name in top}
+    tree["layers"] = {name: master(t) for name, t in params["layers"].items()}
+    return tree
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+                   opts: RunOptions):
+    """The JAX ``lm_forward`` on a parameter tree (float32 masters cast to
+    the working type at use): tokens (B, S) -> (final-normed hidden states
+    (B, S, D) in the working type, summed MoE aux loss float32)."""
+    check_trainable(opts)
+    dt = working_dtype(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    tables = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    x = F.embedding(tokens, params["embed"].to(dt))
+    layers = params["layers"]
+    if opts.cast_params_early:
+        layers = {name: t.to(dt) if t.dtype == torch.float32 else t
+                  for name, t in layers.items()}
+    L = cfg.n_layers
+    g = opts.layer_group if (opts.layer_group
+                             and L % opts.layer_group == 0) else 1
+
+    def group(x, aux, first):
+        for i in range(first, first + g):
+            x, a = _layer(x, {name: t[i] for name, t in layers.items()}, cfg,
+                          tables, moe_groups=opts.moe_groups)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for first in range(0, L, g):
+        if opts.remat:
+            x, aux = checkpoint(group, x, aux, first, use_reentrant=False)
+        else:
+            x, aux = group(x, aux, first)
+    return rmsnorm(x, params["final_norm"]), aux
+
+
+def _chunk_loss(xc: torch.Tensor, tc: torch.Tensor,
+                unemb: torch.Tensor) -> torch.Tensor:
+    logits = (xc @ unemb).float()                       # (B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: LMConfig, opts: RunOptions) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32 scalar) of a parameter tree,
+    as the JAX ``lm_loss``: chunks of ``C = min(loss_chunk, S)`` positions,
+    each checkpointed (its (B, C, vocab) float32 logits are recomputed in
+    the backward), plus ``router_aux_weight * aux / n_layers`` for MoE."""
+    x, aux = forward_hidden(params, tokens, cfg, opts)
+    dt = working_dtype(cfg)
+    unemb = (params["embed"].T if cfg.tie_embeddings
+             else params["unembed"]).to(dt)
+    B, S, _ = x.shape
+    C = min(opts.loss_chunk, S)
+    if S % C:
+        raise ValueError(f"lm_loss: seq_len {S} is not a multiple of the "
+                         f"loss chunk {C}")
+    targets = targets.long()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, C):
+        tot = tot + checkpoint(_chunk_loss, x[:, c0:c0 + C],
+                               targets[:, c0:c0 + C], unemb,
+                               use_reentrant=False)
+    loss = tot / (B * S)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 @torch.no_grad()
@@ -359,8 +519,10 @@ def decode_step(model: LM, token: torch.Tensor, cache: dict):
     positions = torch.full((B, S), pos, dtype=torch.long, device=token.device)
     tables = rope_tables(positions, model.cfg.hd, model.cfg.rope_theta)
     x = model.embed[token]
-    for i, lp in enumerate(model.layers):
-        x = _layer(x, lp, model.cfg, tables, cache=(ck[i], cv[i], pos))
+    for i, layer in enumerate(model.layers):
+        x, _ = _layer(x, layer.tensors(), model.cfg, tables,
+                      cache=(ck[i], cv[i], pos),
+                      moe_groups=model.opts.moe_groups)
     x = rmsnorm(x, model.final_norm)
     logits = (x @ model.unembed_weight()).float()
     return logits, {"k": ck, "v": cv, "pos": pos + 1}

@@ -29,8 +29,9 @@ from repro_torch.kernels import LAUNCHES, build  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
     ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    attention_plan, flash_attention_cuda, flash_attention_ref,
-    flash_attention_splitk_ref, gqa_attention)
+    attention_plan, bwd_route, flash_attention_bwd_cuda, flash_attention_bwd_ref,
+    flash_attention_cuda, flash_attention_ref, flash_attention_splitk_ref,
+    gqa_attention)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
     msbfs_expand_cuda, msbfs_expand_ref, msbfs_hop_packed, msbfs_step_cuda,
     msbfs_step_ref, pack_bits)
@@ -1078,3 +1079,150 @@ def test_first_kernel_load_from_four_threads(dev, tmp_path, monkeypatch):
     assert [p.name for p in tmp_path.iterdir()] == \
         [build.library_path("ell_spmm").name]
     assert LAUNCHES["ell_spmm"] == 4
+
+
+# ---------------------------------------------------------------------
+# the gradient: each route's lse, flash_attention_bwd, a training step
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("route,case", ROUTE_CASES, ids=str)
+def test_flash_attention_lse_on_every_route(dev, route, case):
+    """return_lse leaves the output bit-identical and gives each row's
+    log-sum-exp: 1e-3 of the plain version's (the scores sum in another
+    order; -inf where a row sees no key)."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, valid = case
+    r = np.random.default_rng(Sq * 7 + hd)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+               .to(dev, torch.bfloat16)
+               for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                             (B, Skv, Hkv, hd)))
+    kw = dict(q_offset=q_offset, kv_valid_len=valid)
+    plain = flash_attention_cuda(q, k, v, causal, **kw)
+    out, lse = flash_attention_cuda(q, k, v, causal, return_lse=True, **kw)
+    assert torch.equal(out.view(torch.int16), plain.view(torch.int16))
+    _, want = flash_attention_ref(q, k, v, causal, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, atol=1e-3, rtol=1e-3)
+    _, lse32 = flash_attention_cuda(q.float(), k.float(), v.float(), causal,
+                                    return_lse=True, **kw)
+    torch.testing.assert_close(lse32, want, atol=1e-4, rtol=1e-4)
+
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len)
+BWD_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None),
+    (1, 130, 130, 32, 8, 128, True, None, None),
+    (2, 50, 50, 6, 3, 24, True, None, None),
+    (1, 40, 90, 8, 2, 256, False, None, 70),
+    (1, 33, 40, 4, 1, 96, True, 5, 37),
+    (1, 6, 6, 2, 1, 16, True, -2, None),
+    (2, 20, 20, 4, 2, 12, True, None, None),       # unaligned: no vec
+    (1, 200, 200, 8, 8, 128, True, None, None),    # several key tiles, G 1
+]
+
+
+def assert_grads_close(got, want, dtype):
+    """float32 at 1e-4; bf16 (float32 accumulation; the tensor-core route
+    rounds P and dS to bf16 for its products, and each gradient once): at
+    most 2e-2 of each tensor's largest magnitude and 2e-2 relative L2 in
+    every row of hd values."""
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+            continue
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 2e-2 * scale
+        rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-3 * scale)
+        assert float(rel.max()) <= 2e-2, float(rel.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_attention_bwd_matches_plain(dev, case, dtype):
+    B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, valid = case
+    dt = getattr(torch, dtype)
+    r = np.random.default_rng(Sq * 13 + hd)
+    q, k, v, dout = (
+        torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+        .to(dev, dt) for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                                   (B, Skv, Hkv, hd), (B, Sq, Hq, hd)))
+    kw = dict(q_offset=q_offset, kv_valid_len=valid)
+    o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True, **kw)
+    route = f"bwd_{bwd_route(hd, dt)}"
+    before = dict(LAUNCHES)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, dout, causal, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert LAUNCHES[route] == before[route] + 1
+    assert route == ("bwd_mma" if dtype == "bfloat16" and hd <= 128
+                     else "bwd_scalar")
+    assert [g.dtype for g in got] == [dt] * 3
+    assert_grads_close(got, want, dtype)
+    if valid is not None:
+        assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
+
+
+def test_gqa_attention_gradient_on_card_goes_through_the_kernels(dev):
+    r = np.random.default_rng(3)
+    q, k, v, dout = (
+        torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+        .to(dev, torch.bfloat16)
+        for shape in ((2, 96, 8, 128), (2, 96, 2, 128), (2, 96, 2, 128),
+                      (2, 96, 8, 128)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(LAUNCHES)
+    out = gqa_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attn_wgmma"] == before["attn_wgmma"] + 1
+    assert LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert LAUNCHES["bwd_mma"] == before["bwd_mma"] + 1
+    # the plain backward of the same forward (o and lse): dS = P (dP - D)
+    # cancels where a row's attention is concentrated, so a forward that
+    # rounds p elsewhere would move it by more than the bf16 tolerance
+    o, lse = flash_attention_cuda(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(out.detach(), o, atol=0, rtol=0)
+    assert_grads_close(got, flash_attention_bwd_ref(q, k, v, o, lse, dout),
+                       "bfloat16")
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+def test_reduced_training_step_on_card_matches_cpu(dev, arch):
+    """float32 (TF32 off), remat on: one step of the train bundle on the
+    card equals the CPU port's at 1e-4 (loss, grad norm, parameters),
+    with the forward twice a layer (remat) and the backward kernel once."""
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.launch.train import make_init_and_batches
+    from repro_torch.models.transformer import train_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.pytree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = build_bundle(arch, "train_4k",
+                          RunOptions(seq_parallel=False, loss_chunk=16,
+                                     moe_groups=4),
+                          reduced=True,
+                          overrides={"seq_len": 32, "global_batch": 2})
+    init_state, batch_fn = make_init_and_batches(bundle, "cpu")
+    cpu_params, cpu_opt = init_state()
+    card_params = train_params(bundle.cfg, cpu_params, device="cuda")
+    card_opt = adamw_init(card_params)
+    tok, tgt = batch_fn(0)
+    _, _, m_cpu = bundle.step_fn(cpu_params, cpu_opt, tok, tgt)
+    reset_launches()
+    _, _, m_card = bundle.step_fn(card_params, card_opt, tok.cuda(),
+                                  tgt.cuda())
+    torch.cuda.synchronize()
+    for key in ("loss", "grad_norm"):
+        assert float(m_card[key]) == pytest.approx(float(m_cpu[key]),
+                                                   rel=1e-4)
+    for a, b in zip(leaves(card_params), leaves(cpu_params)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4,
+                                   rtol=1e-4)
+    L = bundle.cfg.n_layers
+    assert LAUNCHES["flash_attention"] == LAUNCHES["attn_scalar"] == 2 * L
+    assert LAUNCHES["flash_attention_bwd"] == LAUNCHES["bwd_scalar"] == L

@@ -268,3 +268,121 @@ def test_route_counters_are_registered():
     LAUNCHES["attn_wgmma"] += 3
     reset_launches()
     assert not any(LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------
+# the gradient: flash_attention_bwd_ref and the autograd Function
+# ---------------------------------------------------------------------
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len)
+BWD_CASES = [(2, 12, 12, 4, 2, 16, True, None, None),
+             (1, 9, 9, 6, 2, 12, True, 0, None),
+             (2, 5, 11, 4, 4, 8, True, 3, 9),
+             (1, 7, 10, 8, 2, 16, False, None, 8),
+             (1, 6, 6, 2, 1, 8, True, -2, None)]      # rows that see no key
+
+
+def _grad_inputs(seed, B, Sq, Skv, Hq, Hkv, hd):
+    q, k, v = _qkv(seed, B, Sq, Skv, Hq, Hkv, hd)
+    dout = np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, Hq, hd)).astype(np.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_bwd_ref_matches_autograd_through_the_plain_forward(case):
+    """The formulas against torch.autograd of flash_attention_ref, in
+    float32 at 1e-5: GQA sums, the causal window, q_offset, keys past
+    kv_valid_len (gradient 0) and rows that see no key."""
+    *dims, causal, q_offset, valid = case
+    q, k, v, dout = map(torch.from_numpy, _grad_inputs(3, *dims))
+    kw = dict(q_offset=q_offset, kv_valid_len=valid)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention_ref(*leaves, causal, **kw)
+    want = torch.autograd.grad(out, leaves, dout)
+    o, lse = ops.flash_attention_ref(q, k, v, causal, return_lse=True, **kw)
+    torch.testing.assert_close(o, out.detach(), atol=0, rtol=0)
+    assert lse.shape == (dims[0], dims[3], dims[1]) and \
+        lse.dtype == torch.float32
+    got = ops.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    if valid is not None:
+        assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
+    # the Function: the same gradients, and the same forward
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out2 = ops.gqa_attention(*leaves, causal, **kw)
+    torch.testing.assert_close(out2.detach(), out.detach(), atol=0, rtol=0)
+    for g, w in zip(torch.autograd.grad(out2, leaves, dout), got):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", [(2, 32, 32, 4, 2, 16), (1, 24, 24, 6, 2, 8),
+                                  (2, 16, 16, 4, 4, 32)], ids=str)
+def test_bwd_ref_matches_jax_vjp_of_chunked_attention(case):
+    """The JAX package trains through chunked_attention (causal,
+    q_offset 0): its jax.vjp is the reference, at 1e-5 in float32; the
+    forward's lse equals its m + log l."""
+    q, k, v, dout = _grad_inputs(7, *case)
+    B, Sq, Skv, Hq, Hkv, hd = case
+
+    def f(q_, k_, v_):
+        return chunked_attention(q_, k_, v_, causal=True, q_offset=0,
+                                 chunk=8)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    acc, m, l = chunked_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                                  q_offset=0, chunk=8, return_stats=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = ops.flash_attention_ref(tq, tk, tv, True, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(m + jnp.log(l)),
+                               atol=1e-5, rtol=1e-5)
+    got = ops.flash_attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_bwd_in_bf16_keeps_types_and_tracks_float32():
+    q, k, v, dout = (torch.from_numpy(x) for x in
+                     _grad_inputs(9, 2, 16, 16, 4, 2, 16))
+    o, lse = ops.flash_attention_ref(q, k, v, True, return_lse=True)
+    want = ops.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+    bf = [x.bfloat16() for x in (q, k, v)]
+    ob, lseb = ops.flash_attention_ref(*bf, True, return_lse=True)
+    got = ops.flash_attention_bwd_ref(*bf, ob, lseb, dout.bfloat16())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel < 3e-2, rel
+
+
+def test_gradient_path_is_taken_only_where_a_gradient_is_needed():
+    q, k, v, dout = (torch.from_numpy(x) for x in
+                     _grad_inputs(4, 1, 8, 8, 4, 2, 8))
+    out = ops.gqa_attention(q, k, v)
+    assert out.grad_fn is None
+    kr = k.clone().requires_grad_()
+    out = ops.gqa_attention(q, kr, v)
+    assert type(out.grad_fn).__name__ == "_AttentionBackward"
+    with torch.no_grad():
+        assert ops.gqa_attention(q, kr, v).grad_fn is None
+    (dk,) = torch.autograd.grad(out, [kr], dout)
+    assert dk.shape == k.shape
+    with pytest.raises(ValueError, match="cannot run"):
+        ops.flash_attention_bwd(q, k, v, out.detach(), torch.zeros(1, 4, 8),
+                                dout, arm="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention_bwd_cuda(q, k, v, out.detach(),
+                                     torch.zeros(1, 4, 8), dout)
+
+
+@pytest.mark.parametrize("hd,dtype,route", [
+    (128, torch.bfloat16, "mma"), (12, torch.bfloat16, "mma"),
+    (129, torch.bfloat16, "scalar"), (256, torch.bfloat16, "scalar"),
+    (128, torch.float32, "scalar"), (16, torch.float32, "scalar")])
+def test_bwd_route_by_type_and_head_dim(hd, dtype, route):
+    from repro_torch.kernels import LAUNCHES
+    assert ops.bwd_route(hd, dtype) == route
+    assert f"bwd_{route}" in LAUNCHES and route in ops.BWD_ROUTES

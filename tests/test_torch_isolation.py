@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither ``jax`` nor ``repro``, and the entry points (the engine, the
-session, the streaming server and its CLI, the model) never run on the
-CPU unless asked to."""
+session, the streaming server and its CLI, the model, training and its
+CLI) never run on the CPU unless asked to."""
 import ast
 import os
 import pathlib
@@ -144,3 +144,40 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_train_cli_needs_cuda_unless_asked_for_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.checkpoint import latest_step
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "olmoe-1b-7b", "--reduced", "--steps", "2", "--seq-len", "16",
+            "--batch", "2", "--ckpt-dir", str(tmp_path / "c")]
+    out = subprocess.run(args, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    assert not (tmp_path / "c").exists()
+    out = subprocess.run(args + ["--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("steps: 2; loss ")
+    assert latest_step(tmp_path / "c") == 1
+
+
+def test_training_needs_cuda_unless_asked_for_cpu(tmp_path):
+    from repro_torch.configs import get
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.transformer import train_params
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    cfg = get("olmoe-1b-7b").REDUCED
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_params(cfg, generator=gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_training("olmoe-1b-7b", "train_4k", 1, tmp_path / "c",
+                     overrides={"seq_len": 8, "global_batch": 2})
+    assert not (tmp_path / "c").exists()
+    assert train_params(cfg, generator=gen, device="cpu")["embed"] \
+        .device.type == "cpu"

@@ -1,7 +1,9 @@
 """The port's transformer serving path against the JAX package's, on the CPU.
 
 granite-8b, qwen1.5-110b and qwen2.5-14b ``REDUCED`` (both qwen: QKV
-bias; qwen1.5 hd 16, 2:1 heads; qwen2.5 hd 12, 5:1 heads). The JAX
+bias; qwen1.5 hd 16, 2:1 heads; qwen2.5 hd 12, 5:1 heads), and the MoE
+archs olmoe-1b-7b and moonshot-v1-16b-a3b ``REDUCED`` (8 experts top-2,
+the dispatch grouped by ``moe_groups`` 16 in both packages). The JAX
 parameter tree (``init_lm_params``, seed 0) is carried into the port with
 ``params_from_jax``; the same numpy tokens go through both.
 ``lm_forward`` and ``prefill`` are held against both JAX attention arms
@@ -29,7 +31,8 @@ from repro_torch.config import RunOptions  # noqa: E402
 from repro_torch.data.lm_data import TokenStream  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
-ARCHS = ["granite-8b", "qwen1.5-110b", "qwen2.5-14b"]
+ARCHS = ["granite-8b", "qwen1.5-110b", "qwen2.5-14b", "olmoe-1b-7b",
+         "moonshot-v1-16b-a3b"]
 LM_ARCHS = ["granite-8b", "qwen1.5-110b", "qwen2.5-14b",
             "moonshot-v1-16b-a3b", "olmoe-1b-7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -38,6 +41,17 @@ B, S = 2, 12
 
 def ident(x, axes):
     return x
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These models are tiny: torch's thread pool only contends with the
+    other test workers (a reduced train step takes 20 ms on one thread and
+    1-2 s on eight of a loaded machine)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jopts(backend):
@@ -149,7 +163,14 @@ def test_decode_step_matches_jax_jnp_arm(pair):
 
 
 def test_decode_equals_teacher_forced_forward_in_port(pair):
-    cfg, _, model, toks = pair
+    """A decode step's MoE groups hold one token each (capacity >= 1, no
+    drop), so the teacher-forced forward is held to it with one token a
+    group too: a larger group may drop assignments past its capacity."""
+    cfg, params, model, toks = pair
+    if cfg.moe is not None:
+        model = tt.params_from_jax(jax.tree.map(np.asarray, params),
+                                   model.cfg, device="cpu",
+                                   opts=RunOptions(moe_groups=B * S))
     full = (model(toks) @ model.unembed_weight()).float()
     cache = model.init_cache(B, S + 3)
     steps = []
@@ -190,9 +211,14 @@ def test_random_init_follows_the_jax_law():
 def test_unported_options_raise():
     cfg = tcr.get("granite-8b").REDUCED
     gen = torch.Generator()
-    for arch in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tt.LM(tcr.get(arch).REDUCED, generator=gen, device="cpu")
+    for arch in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):     # ported now
+        assert tt.LM(tcr.get(arch).REDUCED, generator=gen,
+                     device="cpu").layers[0].e_gate.dim() == 3
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        tt.lm_loss(tt.train_params(cfg, generator=gen, device="cpu"),
+                   torch.zeros((1, 4), dtype=torch.long),
+                   torch.zeros((1, 4), dtype=torch.long), cfg,
+                   RunOptions(remat_policy="dots"))
     with pytest.raises(NotImplementedError, match="flash_decode"):
         tt.LM(cfg, generator=gen, device="cpu",
               opts=RunOptions(flash_decode=True))
