@@ -21,7 +21,10 @@ transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
 kernel); phase 14 the MoE FFN on that path (olmoe-1b-7b); phase 15 LM
 training (loss, gradients through the ``flash_attention_bwd`` kernel,
-AdamW, checkpoints and the fault-tolerant driver).
+AdamW, checkpoints and the fault-tolerant driver); phases 16 and 17 the
+GNN zoo and the two-tower recsys model at their published configs
+(their paths reach no Pallas kernel: gathers, segmented sums and cuBLAS
+matmuls in float32).
 
 Phases, each printing one JSON line (``"phase": ...``, with
 ``t_elapsed_s``, the seconds since the script started):
@@ -284,10 +287,60 @@ Phases, each printing one JSON line (``"phase": ...``, with
                route, backward once) against autograd through
                ``flash_attention_ref``, the rest of the model the same,
                at 1e-4 relative (each gradient: of its largest magnitude).
-16. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
+16. gnn     -- the GNN zoo at each arch's published ``CONFIG``, float32
+               (TF32 off), weights drawn on the card from a seeded
+               ``torch.Generator`` with the JAX init law. Three AdamW steps
+               on one batch through each arch's own bundle
+               (``build_bundle(arch, shape).step_fn``): graphcast (16
+               layers, d 512) and meshgraphnet (15 layers, d 128) on
+               ``full_graph_sm`` (the launcher's graph
+               ``generators.powerlaw(2708, 4.0, seed=0)``, padded to 3,072
+               nodes / 10,752 edges), schnet (3 interactions, d 64, rbf
+               300) on ``molecule`` (128 x 30 atoms x 64 edges),
+               graphsage-reddit (2 layers, d 128, mean) on
+               ``minibatch_lg`` (1,024 roots, fanout (15, 10), d_feat 602,
+               over ``powerlaw(232965, 4.0)``: the Reddit graph's 114.6 M
+               edges cut to 0.93 M). Then graphsage-reddit's forward under
+               ``no_grad`` on ``ogb_products`` (2,449,029 nodes, d_feat
+               100; the powerlaw law drawn on the card at the published
+               61,859,140 edge draws, self loops and repeats dropped, in
+               61,859,328 edge slots), and at that size the cost of the
+               fixed order of summation: the edge sort, and layer 1's
+               segmented sum beside one atomic ``index_add_`` of the same
+               rows (each train case also times its step's sorts,
+               ``order_ms``). Checks: (a) each arch at full width
+               cut to 2 layers: the card's forward, loss and gradient norm
+               equal the port's CPU run from the same weights and batch at
+               rtol = atol = 1e-4; (b) every loss and gradient norm
+               finite, and the loss of the repeated batch falls over the
+               three steps; (c) the ``ogb_products`` output rows of 64
+               seeded nodes equal a CPU forward on their 2-hop in-ball at
+               1e-4; (d) meshgraphnet under ``TrainDriver`` checkpoints
+               after two steps and crashes at the third, and the resumed
+               step equals the uninterrupted one exactly (loss and
+               gradient norm). MGN, GraphCast and SchNet at
+               ``ogb_products`` need 95-127 GB of edge tensors and wait for
+               the mesh options.
+17. recsys  -- two-tower-retrieval ``CONFIG`` (embed 256, towers
+               1024-512-256, 5,242,880 x 256 user and 2,097,152 x 256 item
+               tables: 7.52 GB float32), random from seed 0 on the card.
+               ``serve_p99`` (B 512) and ``serve_bulk`` (B 262,144)
+               through the serve bundle and ``retrieval_cand`` (1 query
+               against 1,000,000 candidates padded to 1,000,448 with -1
+               ids, top 100) through the retrieval bundle, cold once and
+               warm twice; three AdamW steps of ``train_batch`` cut to B
+               32,768 (at 65,536 the (B, B) logits, their log-softmax and
+               its gradient are about 52 GB beside the 30.1 GB of tables,
+               gradients and moments). Checks: (a) the card's scores
+               against the CPU towers (only the table rows used copied
+               over) at 1e-4 on the serve batch and on 65,536 seeded
+               candidates; (b) the top-100 ids equal a stable descending
+               sort of the card's own scores, no padded id among them; (c)
+               every loss finite, and the loss of the repeated batch falls.
+18. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
-17. kernels -- first a card-only ``torch.profiler`` window over one
+19. kernels -- first a card-only ``torch.profiler`` window over one
                ``similarity_matrix`` call of the main batch (device time
                by kernel name against the call's host wall). Then each
                kernel again on the inputs of its heaviest call in the
@@ -3869,6 +3922,544 @@ def flash_attention_bwd_row(torch, train) -> dict:
             "moe_train_launches": train["moe_launches"]}
 
 
+# ----------------------------------------------------------------------
+# phase gnn: the GNN zoo at its published configs
+# ----------------------------------------------------------------------
+
+# (arch, shape) of the train steps: each arch's CONFIG at full width and
+# depth, three AdamW steps on one batch through its own bundle's step
+# (build_bundle(arch, shape).step_fn); the host graphs are the launcher's
+# (generators.powerlaw(n_nodes, 4.0, seed=0): 2,708 nodes, and for
+# minibatch_lg 232,965 nodes with 0.93 M edges, a cut of the Reddit
+# graph's 114.6 M)
+GNN_CASES = (("graphcast", "full_graph_sm"), ("meshgraphnet", "full_graph_sm"),
+             ("schnet", "molecule"), ("graphsage-reddit", "minibatch_lg"))
+GNN_STEPS = 3
+# check (a): each arch at full width cut to GNN_CHECK_LAYERS layers, in
+# float32 with TF32 off: the card's forward, loss and gradient norm against
+# the port on the CPU from the same weights and batch, at rtol = atol =
+# GNN_TOL (float32 sums in another order on either side: about 1e-6)
+GNN_CHECK_LAYERS = 2
+GNN_TOL = 1e-4
+# the large forward: graphsage-reddit's CONFIG on ogb_products (2,449,029
+# nodes, d_feat 100), the graph core/generators.py's powerlaw law drawn on
+# the card (a host build of 61.9 M edges takes minutes) at the published
+# 61,859,140 edge draws, self loops and repeats dropped, in the bundle's
+# 61,859,328 edge slots; check (c) on GNN_BALL_SAMPLE seeded nodes
+GNN_LARGE = ("graphsage-reddit", "ogb_products")
+GNN_BALL_SAMPLE = 64
+# check (d): crash-resume through TrainDriver (phase train's run_driver:
+# a checkpoint after two steps, a crash at the third)
+GNN_CRASH_ARCH = "meshgraphnet"
+GNN_DIR = os.path.join(ROOT, "build", "smoke_gnn")
+
+
+def cpu_params(torch, params):
+    """A CPU copy of a parameter tree (float32 ``nn.Parameter`` leaves)."""
+    from repro_torch.pytree import tree_map
+    return tree_map(lambda p: torch.nn.Parameter(p.detach().cpu()), params)
+
+
+def close(torch, got, want, tol: float) -> dict:
+    """``got`` (any device) against ``want`` (CPU) at atol = rtol = tol."""
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    excess = float(((got - want).abs() - tol * want.abs()).max())
+    return {"max_abs_err": float((got - want).abs().max()),
+            "ok": bool(torch.isfinite(got).all()) and excess <= tol}
+
+
+def gnn_check_cpu(torch, arch, bundle, batch, mol: bool) -> dict:
+    """Check (a): ``bundle``'s config cut to GNN_CHECK_LAYERS layers, the
+    card's forward, loss and gradient norm against the CPU's."""
+    import dataclasses
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(bundle.cfg, n_layers=GNN_CHECK_LAYERS)
+    cut = steps.gnn_bundle(arch, cfg, bundle.spec, bundle.opts)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p_gpu = gnn.init_gnn_params(cfg, *steps.gnn_dims(cfg, bundle.spec),
+                                generator=gen, device="cuda")
+    p_cpu = cpu_params(torch, p_gpu)
+    b_cpu = {k: v.cpu() for k, v in batch.items()}
+    flat = gnn.flatten_molecules if mol else (lambda b: b)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        o_gpu = gnn.gnn_forward(p_gpu, flat(batch), cfg)
+        o_cpu = gnn.gnn_forward(p_cpu, flat(b_cpu), cfg)
+    _, _, m_gpu = cut.step_fn(p_gpu, adamw_init(p_gpu), batch)
+    _, _, m_cpu = cut.step_fn(p_cpu, adamw_init(p_cpu), b_cpu)
+    res = {"layers": GNN_CHECK_LAYERS, "forward": close(torch, o_gpu, o_cpu,
+                                                        GNN_TOL)}
+    for k in ("loss", "grad_norm"):
+        res[k] = {"card": float(m_gpu[k]), "cpu": float(m_cpu[k]),
+                  **close(torch, m_gpu[k], m_cpu[k], GNN_TOL)}
+    res["t_s"] = time.perf_counter() - t0
+    require(all(res[k]["ok"] for k in ("forward", "loss", "grad_norm")),
+            f"gnn check (a): {arch} at {GNN_CHECK_LAYERS} layers, the card "
+            f"against the CPU beyond {GNN_TOL}: {res}")
+    return res
+
+
+def gnn_train_case(torch, arch: str, shape: str) -> dict:
+    """GNN_STEPS AdamW steps of ``arch``'s published config on batch 0 of
+    its launcher's stream, with checks (a) and (b)."""
+    import math
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_init_and_batches
+    from repro_torch.models import gnn
+    bundle = steps.build_bundle(arch, shape)
+    mol = bundle.kind == "gnn_mol"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (batch,) = batch_fn(0)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    params, opt = init_state()
+    losses, norms, walls = [], [], []
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    loss_fn = gnn.gnn_molecule_loss if mol else gnn.gnn_loss
+    with torch.no_grad():
+        losses.append(float(loss_fn(params, batch, bundle.cfg)))
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"gnn check (b): {arch}: a loss or grad norm is not finite: "
+            f"{losses}, {norms}")
+    require(losses[-1] < losses[0],
+            f"gnn check (b): {arch}: the loss of the repeated batch does not "
+            f"fall over {GNN_STEPS} steps: {losses}")
+    rec = {"shape": shape, "kind": bundle.kind,
+           "params": bundle.meta["params"], "layers": bundle.cfg.n_layers, "d_hidden": bundle.cfg.d_hidden,
+           "inputs": {k: list(v[0]) for k, v in bundle.inputs.items()},
+           "t_graph_s": t_graph, "t_batch_s": t_batch,
+           "step_wall_s": walls, "loss": losses, "grad_norm": norms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if not mol:
+        rec["real"] = {"nodes": int(batch["node_mask"].sum()),
+                       "edges": int(batch["edge_mask"].sum())}
+        rec["order_ms"] = order_ms(torch, batch)
+    del params, opt, m
+    rec["check_a"] = gnn_check_cpu(torch, arch, bundle, batch, mol)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def device_powerlaw(torch, n: int, draws: int, gen):
+    """``core/generators.py``'s powerlaw law drawn on the card: ``draws``
+    uniform sources, destinations 70% Pareto-skewed towards low ids and 30%
+    uniform; self loops and repeats dropped. (src, dst) int64, sorted by
+    (dst, src) as ``Graph.edges_by_dst``."""
+    dev = "cuda"
+    src = torch.randint(0, n, (draws,), generator=gen, device=dev)
+    u = torch.rand(draws, generator=gen, device=dev, dtype=torch.float64)
+    zipf = torch.clamp((((1.0 - u) ** (-1.0 / 1.5) - 1.0) * n * 0.01).long(),
+                       max=n - 1)
+    del u
+    uni = torch.randint(0, n, (draws,), generator=gen, device=dev)
+    pick = torch.rand(draws, generator=gen, device=dev) < 0.7
+    dst = torch.where(pick, zipf, uni)
+    del zipf, uni, pick
+    keep = src != dst
+    key = torch.unique(dst[keep] * n + src[keep])
+    return key % n, key // n
+
+
+def order_ms(torch, batch: dict) -> float:
+    """CUDA-event ms of the fixed order of summation's setup for one step
+    on ``batch`` (a flat graph): the destination sort of ``EdgeList`` (the
+    destination gather's backward adds through it too) and the sort by
+    source that the source gather's backward adds through."""
+    from repro_torch.models import gnn
+
+    def setup():
+        ed = gnn.EdgeList(batch["edge_src"], batch["edge_dst"],
+                          batch["edge_mask"], batch["nodes"].shape[0])
+        return ed.src_rows.ids, ed.by_key.ids
+
+    return cuda_ms(torch, setup, reps=3)
+
+
+def gnn_large_forward(torch) -> dict:
+    """graphsage-reddit's forward under no_grad at ogb_products, and
+    check (c): 64 seeded nodes' output rows against a CPU forward on their
+    2-hop in-ball.
+
+    The forward's gathered rows (24.7 and 31.7 GB) take most of the card,
+    so its memory comes from expandable segments: a freed block's pages go
+    back to the device even where a live tensor shares its segment. With
+    fixed segments, small tensors placed in the freed layer-1 rows' block
+    (and in the graph draw's) hold it, and whether layer 2's rows fit
+    depends on the allocator's history."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return large_forward_run(torch)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def large_forward_run(torch) -> dict:
+    """The body of :func:`gnn_large_forward`."""
+    import numpy as np
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    arch, shape = GNN_LARGE
+    bundle = steps.build_bundle(arch, shape)
+    cfg = bundle.cfg
+    n, draws = bundle.dims["n_nodes"], bundle.dims["n_edges"]
+    (N, d_in), _ = bundle.inputs["nodes"]
+    (E,), _ = bundle.inputs["edge_src"]
+    d_out = steps.gnn_dims(cfg, bundle.spec)[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src, dst = device_powerlaw(torch, n, draws, gen)
+    m = int(src.shape[0])
+    require(m <= E, f"gnn: {m} edges in {E} slots")
+    batch = {"nodes": torch.zeros((N, d_in), device="cuda"),
+             "edge_src": torch.zeros(E, dtype=torch.int32, device="cuda"),
+             "edge_dst": torch.zeros(E, dtype=torch.int32, device="cuda"),
+             "edge_mask": torch.arange(E, device="cuda") < m}
+    batch["nodes"][:n] = torch.randn((n, d_in), generator=gen, device="cuda")
+    batch["edge_src"][:m] = src
+    batch["edge_dst"][:m] = dst
+    src_h, dst_h = src.cpu().numpy(), dst.cpu().numpy()   # for check (c)
+    del src, dst
+    params = gnn.init_gnn_params(cfg, d_in, d_out, generator=gen,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = gnn.gnn_forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(torch.isfinite(out).all()) and out.shape == (N, d_out),
+            f"gnn: the ogb_products forward {tuple(out.shape)} is not finite")
+
+    # check (c): the rows of GNN_BALL_SAMPLE nodes against a CPU forward on
+    # their 2-hop in-ball (under mean aggregation and per-row
+    # normalisation a row depends on that ball alone)
+    t0 = time.perf_counter()
+    sample = np.sort(np.random.default_rng(0).choice(n, GNN_BALL_SAMPLE,
+                                                     replace=False))
+
+    def in_edges(vs):           # the ids of the in-edges of vs, in order
+        lo = np.searchsorted(dst_h, vs)
+        hi = np.searchsorted(dst_h, vs, side="right")
+        return np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)])
+
+    hop1 = np.union1d(sample, src_h[in_edges(sample)])
+    eids = in_edges(hop1)
+    ball = np.union1d(hop1, src_h[eids])
+    rows = torch.from_numpy(ball).cuda()
+    sub = {"nodes": batch["nodes"].index_select(0, rows).cpu(),
+           "edge_src": torch.from_numpy(np.searchsorted(ball, src_h[eids])),
+           "edge_dst": torch.from_numpy(np.searchsorted(ball, dst_h[eids]))}
+    with torch.no_grad():
+        want = gnn.gnn_forward(cpu_params(torch, params), sub, cfg)
+    want = want[torch.from_numpy(np.searchsorted(ball, sample))]
+    got = out[torch.from_numpy(sample).cuda()]
+    check_c = {"sample": GNN_BALL_SAMPLE, "ball_nodes": int(ball.size),
+               "ball_edges": int(eids.size), **close(torch, got, want,
+                                                     GNN_TOL),
+               "t_s": time.perf_counter() - t0}
+    require(check_c["ok"], f"gnn check (c): ogb_products rows against their "
+                           f"2-hop balls on the CPU: {check_c}")
+    # the cost of the fixed order at this size: the edge sort, and layer
+    # 1's segmented sum beside one index_add_ of the same rows (atomics,
+    # no fixed order)
+    del out
+    ed = gnn.EdgeList(batch["edge_src"], batch["edge_dst"],
+                      batch["edge_mask"], N)
+    # the sorted keys: a masked edge's is the extra segment N
+    key = ed.by_key.idx.index_select(0, ed.perm)
+    with torch.no_grad():
+        rows = ed.gather_src(batch["nodes"])
+        acc = torch.zeros((N + 1, d_in), device="cuda")
+        order = {
+            "edge_sort_ms": cuda_ms(torch, lambda: gnn.EdgeList(
+                batch["edge_src"], batch["edge_dst"], batch["edge_mask"], N),
+                reps=3),
+            "segment_sum_ms": cuda_ms(
+                torch, lambda: ed.by_key.reduce(rows, "sum"), reps=3),
+            "index_add_ms": cuda_ms(
+                torch, lambda: acc.zero_().index_add_(0, key, rows),
+                reps=3)}
+        order["max_abs_diff"] = float(
+            (ed.by_key.reduce(rows, "sum") - acc).abs().max())
+    del ed, rows, acc, key
+    # the forward gathers a row for each of the E edge slots (a masked
+    # edge's row goes to the dropped segment, as in the JAX package)
+    gathered = {f"layer_{i + 1}": E * w.shape[0] * 4 for i, w in
+                enumerate(lp["w_self"] for lp in params["layers"])}
+    # the least the forward must move: the features and edge ids read
+    # once, the output written once
+    least = N * d_in * 4 + E * (4 + 4 + 1) + N * d_out * 4
+    del batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": shape, "nodes": n, "d_feat": d_in,
+            "edge_draws": draws, "edges": m, "edge_slots": E,
+            "t_data_s": t_data, "forward_wall_s": walls,
+            "gathered_bytes": gathered, "least_bytes": least,
+            "bound_ms": least / HBM_BYTES_PER_S * 1e3,
+            "gathered_ms": 3 * sum(gathered.values()) / HBM_BYTES_PER_S
+            * 1e3,
+            "max_memory_allocated": peak, "memory_before": base,
+            "check_c": check_c, "fixed_order": order}
+
+
+def phase_gnn(torch) -> dict:
+    """Phase 16: the GNN zoo on the card, with checks (a)-(d)."""
+    import shutil
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shutil.rmtree(GNN_DIR, ignore_errors=True)
+    reset_launches()
+    out = {"phase": "gnn", "steps": GNN_STEPS, "tolerance": GNN_TOL,
+           "archs": {arch: gnn_train_case(torch, arch, shape)
+                     for arch, shape in GNN_CASES}}
+    out["large_forward"] = gnn_large_forward(torch)
+
+    # check (d): crash after the checkpoint of step 2, then an exact resume
+    bundle = steps.build_bundle(GNN_CRASH_ARCH, "full_graph_sm")
+    t0 = time.perf_counter()
+    ref, _, err = run_driver(torch, bundle, os.path.join(GNN_DIR, "ref"),
+                             TRAIN_STEPS)
+    require(err is None, f"gnn check (d): the uninterrupted run failed: {err}")
+    crash_dir = os.path.join(GNN_DIR, "crash")
+    first, _, err = run_driver(torch, bundle, crash_dir, TRAIN_STEPS,
+                               fail_at=TRAIN_CKPT_EVERY)
+    require(first is None and err is not None and "injected" in err,
+            f"gnn check (d): the injected crash did not happen ({err})")
+    saved = latest_step(crash_dir)
+    require(saved == TRAIN_CKPT_EVERY - 1,
+            f"gnn check (d): latest checkpoint {saved} after the crash")
+    resumed, _, err = run_driver(torch, bundle, crash_dir, TRAIN_STEPS)
+    require(err is None, f"gnn check (d): the resumed run failed: {err}")
+    require(resumed["history"] == ref["history"][TRAIN_CKPT_EVERY:],
+            f"gnn check (d): resumed {resumed['history']} against "
+            f"{ref['history'][TRAIN_CKPT_EVERY:]}")
+    out["check_d"] = {"arch": GNN_CRASH_ARCH, "history": ref["history"],
+                      "resumed": resumed["history"], "exact": True,
+                      "t_s": time.perf_counter() - t0}
+    del ref, resumed
+    shutil.rmtree(GNN_DIR, ignore_errors=True)
+    out["kernel_launches"] = sum(LAUNCHES.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase recsys: two-tower retrieval at its published config
+# ----------------------------------------------------------------------
+
+RECSYS_ARCH = "two-tower-retrieval"
+RECSYS_SERVE = ("serve_p99", "serve_bulk")
+RECSYS_CALLS = 3                     # cold once, warm twice
+# train_batch's 65,536 cut to 32,768: at 65,536 the (B, B) logits, their
+# log-softmax and its gradient are about 52 GB beside the 30.1 GB of
+# tables, gradients and AdamW moments
+RECSYS_TRAIN_BATCH = 32768
+RECSYS_STEPS = 3
+# check (a): the card's scores against the CPU towers (the rows used
+# copied over) at rtol = atol = RECSYS_TOL, on the serve_p99 batch and
+# RECSYS_SAMPLE seeded candidates of the retrieval
+RECSYS_TOL = 1e-4
+RECSYS_SAMPLE = 65536
+
+
+def cpu_towers(torch, params, user_ids, item_ids):
+    """A CPU copy of the towers holding only the table rows of
+    ``user_ids`` / ``item_ids`` (numpy, -1 pads allowed): (params, a map
+    of user ids and of item ids to the copy's rows)."""
+    import numpy as np
+    from repro_torch.pytree import tree_map
+    u = np.unique(user_ids[user_ids >= 0])
+    i = np.unique(item_ids[item_ids >= 0])
+
+    def rows(table, ids):
+        return table.detach().index_select(
+            0, torch.from_numpy(ids).cuda()).cpu()
+
+    cpu = {"user_table": rows(params["user_table"], u),
+           "item_table": rows(params["item_table"], i),
+           "user_mlp": tree_map(lambda p: p.detach().cpu(),
+                                params["user_mlp"]),
+           "item_mlp": tree_map(lambda p: p.detach().cpu(),
+                                params["item_mlp"])}
+
+    def remap(ids, table_ids):
+        return torch.from_numpy(np.where(ids >= 0, np.searchsorted(
+            table_ids, np.maximum(ids, 0)), -1).astype(np.int64))
+
+    return cpu, (lambda x: remap(x, u)), (lambda x: remap(x, i))
+
+
+def timed_calls(torch, fn, *args) -> tuple:
+    walls = []
+    for _ in range(RECSYS_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def phase_recsys(torch) -> dict:
+    """Phase 17: two-tower-retrieval on the card, with checks (a)-(c)."""
+    import math
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.data.recsys_data import InteractionStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    cfg = get(RECSYS_ARCH).CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = recsys.init_recsys_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "recsys", "arch": RECSYS_ARCH,
+           "params": recsys.recsys_param_count(cfg),
+           "table_bytes": (cfg.n_users + cfg.n_items) * cfg.embed_dim * 4,
+           "t_init_s": time.perf_counter() - t0, "serve": {}}
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+    # -- serving: pointwise scores at B 512 and 262,144
+    checks = {}
+    for shape in RECSYS_SERVE:
+        bundle = steps.build_bundle(RECSYS_ARCH, shape)
+        B = bundle.dims["batch"]
+        data = InteractionStream(cfg, B, seed=0).batch_at(0)
+        b = on_card(data)
+        scores, walls = timed_calls(torch, bundle.step_fn, params,
+                                    b["hist_ids"], b["item_ids"])
+        require(bool(torch.isfinite(scores).all())
+                and scores.shape == (B,), f"recsys: {shape} scores")
+        out["serve"][shape] = {"batch": B, "wall_s": walls,
+                               "pairs_per_s": B / min(walls[1:])}
+        if shape == "serve_p99":             # check (a) on this batch
+            cpu, umap, imap = cpu_towers(torch, params, data["hist_ids"],
+                                         data["item_ids"])
+            with torch.no_grad():
+                want = recsys.score_candidates(
+                    cpu, umap(data["hist_ids"]), imap(data["item_ids"]))
+            checks["serve_p99"] = close(torch, scores, want, RECSYS_TOL)
+        del b, scores
+
+    # -- retrieval: one query against 1,000,000 candidates (padded), top 100
+    bundle = steps.build_bundle(RECSYS_ARCH, "retrieval_cand")
+    Nc = bundle.dims["n_candidates"]
+    (Np,), _ = bundle.inputs["cand_ids"]
+    cands = torch.full((Np,), -1, dtype=torch.int32, device="cuda")
+    cands[:Nc] = torch.arange(Nc, dtype=torch.int32, device="cuda")
+    hist = InteractionStream(cfg, 1, seed=0).batch_at(0)["hist_ids"]
+    (vals, ids), walls = timed_calls(torch, bundle.step_fn, params,
+                                     torch.from_numpy(hist).cuda(), cands)
+    out["retrieval"] = {"candidates": Nc, "padded_to": Np,
+                        "k": int(ids.shape[0]), "wall_s": walls,
+                        "candidates_per_s": Nc / min(walls[1:])}
+    # check (b): the card's own scores, stably sorted
+    with torch.no_grad():
+        u = recsys.user_tower(params, torch.from_numpy(hist).cuda())
+        v = recsys.item_tower(params, torch.clamp(cands, min=0))
+        s = torch.where(cands >= 0, (v @ u[0]).float(), -math.inf)
+    del v
+    order = torch.sort(s, descending=True, stable=True)[1][:ids.shape[0]]
+    check_b = {"ids_equal": bool(torch.equal(ids, cands[order])),
+               "vals_equal": bool(torch.equal(vals, s[order])),
+               "padded_ids": int((ids < 0).sum())}
+    require(check_b["ids_equal"] and check_b["vals_equal"]
+            and check_b["padded_ids"] == 0,
+            f"recsys check (b): the top {ids.shape[0]} against a stable "
+            f"sort of the card's scores: {check_b}")
+    out["check_b"] = check_b
+    # check (a) on a seeded sample of the candidates
+    pick = np.sort(np.random.default_rng(0).choice(Nc, RECSYS_SAMPLE,
+                                                   replace=False))
+    cpu, umap, imap = cpu_towers(torch, params, hist, pick)
+    with torch.no_grad():
+        want = recsys.item_tower(cpu, imap(pick)) @ recsys.user_tower(
+            cpu, umap(hist))[0]
+    checks["retrieval_sample"] = close(
+        torch, s[torch.from_numpy(pick).cuda()], want, RECSYS_TOL)
+    require(all(c["ok"] for c in checks.values()),
+            f"recsys check (a): scores against the CPU towers beyond "
+            f"{RECSYS_TOL}: {checks}")
+    out["check_a"] = {**checks, "sample": RECSYS_SAMPLE,
+                      "tolerance": RECSYS_TOL}
+    del s, u, cands, vals, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- training: three AdamW steps on one batch of RECSYS_TRAIN_BATCH
+    bundle = steps.build_bundle(RECSYS_ARCH, "train_batch",
+                                overrides={"batch": RECSYS_TRAIN_BATCH})
+    b = on_card(InteractionStream(cfg, RECSYS_TRAIN_BATCH,
+                                  seed=0).batch_at(0))
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for _ in range(RECSYS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        losses.append(float(recsys.recsys_loss(params, b, cfg)))
+    require(all(math.isfinite(x) for x in losses + norms)
+            and losses[-1] < losses[0],
+            f"recsys check (c): losses {losses}, grad norms {norms}")
+    out["train"] = {"batch": RECSYS_TRAIN_BATCH,
+                    "reduced": {"batch": [65536, RECSYS_TRAIN_BATCH]},
+                    "step_wall_s": walls, "loss": losses, "grad_norm": norms,
+                    "examples_per_s": RECSYS_TRAIN_BATCH / min(walls[1:]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    out["kernel_launches"] = sum(LAUNCHES.values())
+    del params, opt, m, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def phase_peaks(torch, dev_info) -> dict:
     """Peak rates of the two units that can compute popcount(AND): the
     CUDA cores' 32-bit ``popc`` and the tensor cores' 1-bit MMA."""
@@ -4737,6 +5328,8 @@ def main(argv=None) -> int:
     lm = phase_lm(torch)
     phase_moe(torch)
     train = phase_train(torch)
+    phase_gnn(torch)
+    phase_recsys(torch)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,

@@ -1,12 +1,12 @@
 """Config system: model/arch configs, input shapes, run options.
 
-A copy of ``repro/config.py`` (plain dataclasses, no JAX). Every LM
-architecture has a module in ``repro_torch/configs/<id>.py`` defining
-``CONFIG`` (the exact published config), ``REDUCED`` (a small same-family
-config for CPU tests) and its shape table, resolved through
+A copy of ``repro/config.py`` (plain dataclasses, no JAX). Every LM, GNN
+and recsys architecture has a module in ``repro_torch/configs/<id>.py``
+defining ``CONFIG`` (the exact published config), ``REDUCED`` (a small
+same-family config for CPU tests) and its shape table, resolved through
 ``repro_torch.configs.get``. The port reads ``LMConfig``, ``MoEConfig``,
-``ShapeSpec`` and ``RunOptions``; the other families' configs are kept as
-plain data for their slices.
+``GNNConfig``, ``RecsysConfig``, ``ShapeSpec`` and ``RunOptions``;
+``PathEngineConfig`` is kept as plain data for its slice.
 """
 from __future__ import annotations
 

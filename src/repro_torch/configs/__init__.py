@@ -1,12 +1,14 @@
 """Architecture registry of the port: ``get(arch)`` and ``shapes_for``.
 
-A copy of ``repro/configs/__init__.py`` for the LM family: each LM arch
-module holds ``CONFIG`` (the published configuration), ``REDUCED`` (a small
-same-family configuration for CPU tests), ``SHAPES`` and ``FAMILY``. All
-five LM archs, dense and MoE, serve and train in the port
-(``models/transformer.py``, ``launch/train.py``). The other families are
-not ported yet; asking for one raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+A copy of ``repro/configs/__init__.py``: each arch module holds ``CONFIG``
+(the published configuration), ``REDUCED`` (a small same-family
+configuration for CPU tests), ``SHAPES`` and ``FAMILY``. All five LM
+archs, dense and MoE, serve and train in the port
+(``models/transformer.py``, ``launch/train.py``); the four GNN archs and
+two-tower-retrieval train, and the recsys model serves
+(``models/gnn.py``, ``models/recsys.py``, ``launch/steps.py``). The
+engine's ``path-engine`` config is not ported yet; asking for it raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -36,12 +38,6 @@ ASSIGNED = [a for a in ARCHS if a != "path-engine"]
 
 # the archs whose family has no slice in the port yet -> the ROADMAP item
 _NOT_PORTED = {
-    **dict.fromkeys(("meshgraphnet", "graphcast", "schnet",
-                     "graphsage-reddit"),
-                    "ROADMAP.md queue 1, 'GNN and recsys models' "
-                    "(models/gnn.py)"),
-    "two-tower-retrieval": "ROADMAP.md queue 1, 'GNN and recsys models' "
-                           "(models/recsys.py)",
     "path-engine": "ROADMAP.md queue 1, item 13 (the dry-run launchers, "
                    "launch/dryrun.py)",
 }

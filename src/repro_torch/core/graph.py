@@ -13,12 +13,14 @@ in-/out-neighbour tables as int32 tensors on the engine's device:
 
 ELL capacities are bucketed to powers of two (``pow2_ceil`` of the largest
 degree), so every kernel shape is stable while the graph stays within its
-bucket. The destination-sorted edge lists of the JAX package's segment
-arm are not part of this port.
+bucket. ``Graph.edges_by_dst``, the destination-sorted edge list, feeds
+the GNN batches (``data/gnn_data.py``); the JAX package's segment arm that
+also reads it is not part of this port.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 from typing import Optional, Union
 
 import numpy as np
@@ -104,6 +106,13 @@ class Graph:
     def neighbors(self, v: int, reverse: bool = False) -> np.ndarray:
         ip, ix = (self.r_indptr, self.r_indices) if reverse else (self.indptr, self.indices)
         return ix[ip[v]:ip[v + 1]]
+
+    @cached_property
+    def edges_by_dst(self) -> tuple[np.ndarray, np.ndarray]:
+        """(src, dst) of G with dst non-decreasing, both int32."""
+        dst = np.repeat(np.arange(self.n, dtype=np.int32),
+                        np.diff(self.r_indptr))
+        return self.r_indices.astype(np.int32), dst
 
     def ell(self, cap: Optional[int] = None, reverse: bool = False) -> EllView:
         ip, ix = (self.r_indptr, self.r_indices) if reverse else (self.indptr, self.indices)

@@ -1,2 +1,2 @@
 """Synthetic data for the model substrate (numpy only)."""
-from . import lm_data  # noqa: F401
+from . import gnn_data, lm_data, recsys_data  # noqa: F401

@@ -38,6 +38,8 @@ from repro.checkpoint import save_checkpoint as j_save  # noqa: E402
 from repro.config import RunOptions as JaxRunOptions  # noqa: E402
 from repro.launch.mesh import mesh_by_name, use_mesh  # noqa: E402
 from repro.launch.steps import build_bundle as j_build_bundle  # noqa: E402
+from repro.models import gnn as jg  # noqa: E402
+from repro.models import recsys as jr  # noqa: E402
 from repro.models import transformer as jt  # noqa: E402
 from repro.models.sharding import Rules  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
@@ -51,6 +53,8 @@ from repro_torch.ft import DriverConfig, FailureInjector, TrainDriver  # noqa
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.launch.train import (make_init_and_batches,  # noqa: E402
                                       run_training)
+from repro_torch.models import gnn as tg  # noqa: E402
+from repro_torch.models import recsys as tr  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.optim import (adamw_init, adamw_update,  # noqa: E402
                                compress_int8, cosine_schedule,
@@ -355,6 +359,52 @@ def test_checkpoint_written_by_jax_restores_in_the_port(tmp_path):
                for p in pytree.leaves(params))
 
 
+def _family_tree(family):
+    """A GNN tree (lists of weights, stacked blocks) or a recsys tree in
+    the JAX layout, with its port counterpart (float32 masters)."""
+    if family == "gnn":
+        cfg = jcr.get("meshgraphnet").REDUCED
+        tree = jax.tree.map(np.asarray, jg.init_gnn_params(
+            jax.random.PRNGKey(0), cfg, d_in=5, d_out=3))
+        return tree, tg.gnn_params_from_jax(
+            tree, tcr.get("meshgraphnet").REDUCED, device="cpu")
+    cfg = jcr.get("two-tower-retrieval").REDUCED
+    tree = jax.tree.map(np.asarray, jr.init_recsys_params(
+        jax.random.PRNGKey(0), cfg))
+    return tree, tr.recsys_params_from_jax(
+        tree, tcr.get("two-tower-retrieval").REDUCED, device="cpu")
+
+
+@pytest.mark.parametrize("family", ["gnn", "recsys"])
+def test_model_checkpoints_cross_restore(tmp_path, family):
+    """Written by the port and restored in JAX, and the reverse: the GNN
+    tree's lists of MLP weights and stacked blocks, the recsys tables."""
+    tree, params = _family_tree(family)
+    opt = adamw_init(params)
+    opt = opt._replace(count=torch.tensor(4, dtype=torch.int32),
+                       m=pytree.tree_map(lambda p: p.detach() * 0.5, params))
+    save_checkpoint(tmp_path / "port", 2, (params, opt))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jtemplate = (jparams, jadamw.adamw_init(jparams))
+    got, step, _ = j_restore(tmp_path / "port", jtemplate)
+    assert step == 2 and int(got[1].count) == 4
+    for a, b in zip(pytree.leaves((params, opt)), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
+
+    jopt = jadamw.adamw_init(jparams)._replace(
+        count=jnp.int32(6), v=jax.tree.map(lambda a: a * 0.25, jparams))
+    j_save(tmp_path / "jax", 5, (jparams, jopt))
+    zeros = pytree.tree_map(lambda p: torch.nn.Parameter(torch.zeros_like(p)),
+                            params)
+    (rp, ro), step, _ = restore_checkpoint(
+        tmp_path / "jax", (zeros, adamw_init(zeros)), device="cpu")
+    assert step == 5 and int(ro.count) == 6
+    for a, b in zip(pytree.leaves((rp, ro)),
+                    jax.tree.leaves((jparams, jopt))):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
+    assert all(isinstance(p, torch.nn.Parameter) for p in pytree.leaves(rp))
+
+
 def test_checkpoint_format_edges(tmp_path):
     tree = {"a": torch.arange(6.0).reshape(2, 3),
             "nested": {"b": torch.ones(4, dtype=torch.int32),
@@ -395,9 +445,16 @@ def test_checkpoint_manager_keeps_the_last_and_saves_async(tmp_path):
     assert torch.equal(got["a"], torch.arange(4.0))
 
 
+# a train shape and its CPU-sized overrides per arch of the driver tests
+DRIVER_SHAPES = {"meshgraphnet": ("full_graph_sm", {"n_nodes": 150,
+                                                    "n_edges": 600,
+                                                    "d_feat": 9})}
+
+
 def _driver(tmp_path, total, fail_at=None, ckpt_every=2, arch="granite-8b"):
-    over = {"seq_len": S, "global_batch": 2}
-    bundle = tsteps.build_bundle(arch, "train_4k", _opts(RunOptions),
+    shape, over = DRIVER_SHAPES.get(
+        arch, ("train_4k", {"seq_len": S, "global_batch": 2}))
+    bundle = tsteps.build_bundle(arch, shape, _opts(RunOptions),
                                  reduced=True, overrides=over)
     init_state, batch_fn = make_init_and_batches(bundle, "cpu")
     cfg = DriverConfig(total_steps=total, ckpt_dir=str(tmp_path),
@@ -406,11 +463,14 @@ def _driver(tmp_path, total, fail_at=None, ckpt_every=2, arch="granite-8b"):
                        injector=FailureInjector(fail_at))
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b",
+                                  "meshgraphnet"])
 def test_crash_resume_is_exact(tmp_path, arch):
     ref = _driver(tmp_path / "ref", 5, arch=arch).run()
+    crashing = _driver(tmp_path / "crash", 5, fail_at=3, arch=arch)
     with pytest.raises(RuntimeError, match="injected failure"):
-        _driver(tmp_path / "crash", 5, fail_at=3, arch=arch).run()
+        crashing.run()
+    crashing.mgr.wait()        # the save of step 1 may still be writing
     assert latest_step(tmp_path / "crash") == 1
     out = _driver(tmp_path / "crash", 5, arch=arch).run()
     assert [h["step"] for h in out["history"]] == [2, 3, 4]
@@ -458,8 +518,10 @@ def test_launchers_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training("granite-8b", "train_4k", 1, tmp_path, mesh_name="pod",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="GNN and recsys"):
-        tsteps.build_bundle("meshgraphnet", "train_4k")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tsteps.build_bundle("path-engine", "batch_1b")
+    with pytest.raises(NotImplementedError, match="mesh options"):
+        tg.ring_aggregate(None, None, None, None, "cells")
     with pytest.raises(NotImplementedError, match="remat_policy"):
         tsteps.build_bundle("granite-8b", "train_4k",
                             RunOptions(remat_policy="dots"), reduced=True)
