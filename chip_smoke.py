@@ -266,7 +266,8 @@ Phases, each printing one JSON line (``"phase": ...``, with
                olmoe-1b-7b at full width, 2 of its 16 layers, for two
                steps (the MoE backward). Checks: (a) at the step's
                attention shape (Hq 32, Hkv 8, hd 128, causal, S 4096,
-               bf16) and at a float32 shape (1 x 1024), the forward's
+               bf16), at that shape with hd 96 (bf16) and at a float32
+               shape (1 x 1024), the forward's
                lse-writing instance (the one training runs) gives the
                serving instance's output bit for bit, the plain version's
                output at the kernels row's tolerance and its lse at 1e-3
@@ -274,13 +275,17 @@ Phases, each printing one JSON line (``"phase": ...``, with
                dQ, dK and dV against ``flash_attention_bwd_ref`` fed the
                plain lse (bf16: within 2e-2 of each gradient's largest
                magnitude and 2e-2 relative L2 in every row; float32:
-               1e-4);
+               1e-4), and a second launch on the same inputs equal to
+               the first bit for bit (bf16 at hd 128 on its wgmma route,
+               at hd 96 on its mma.sync one, float32 on the CUDA-core
+               one);
                (b) every loss and grad norm finite, and the loss of a
                repeated batch falls over two more steps on it (the
                schedule continued); (c) per layer and step, two
                ``flash_attention`` launches on wgmma (forward and remat
-               recompute) and one ``flash_attention_bwd`` on its
-               tensor-core route (``bwd_mma``); (d) one granite-8b layer
+               recompute) and one ``flash_attention_bwd`` on its wgmma
+               route (``bwd_wgmma``), for granite-8b and for olmoe-1b-7b;
+               (d) one granite-8b layer
                at full width in float32 (TF32 off, remat, 1 x 4096
                tokens): the loss, the gradient norm and every parameter's
                gradient through the kernels (forward twice on the float32
@@ -3484,10 +3489,13 @@ TRAIN_DIR = os.path.join(ROOT, "build", "smoke_train")
 # version (output at the kernels row's tolerance; lse at LSE_TOL: bf16
 # inputs, float32 inputs), then the backward kernel against
 # flash_attention_bwd_ref fed the plain lse, on the step's attention shape
-# in bf16 (each gradient within 2e-2 of its largest magnitude, and 2e-2
-# relative L2 in every row of hd) and on a float32 shape (1e-4 absolute
-# and relative)
+# in bf16 at the model's hd (wgmma route) and at BWD_MMA_HD (mma route;
+# each gradient within 2e-2 of its largest magnitude, and 2e-2 relative
+# L2 in every row of hd) and on a float32 shape (1e-4 absolute and
+# relative)
 BWD_BF16_TOL = 2e-2
+# the bf16 head dim that takes the mma.sync route (not 64 or 128)
+BWD_MMA_HD = 96
 BWD_F32_SHAPE = (1, 1024, 32, 8, 128)
 BWD_F32_TOL = 1e-4
 LSE_TOL = (1e-3, 1e-4)
@@ -3715,15 +3723,16 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     t_ref = time.perf_counter() - t0
     launches = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
-                                         "flash_attention_bwd", "bwd_mma")}
+                                         "flash_attention_bwd", "bwd_wgmma")}
     L = cfg.n_layers
     want = {"flash_attention": 2 * L * TRAIN_STEPS,
             "attn_wgmma": 2 * L * TRAIN_STEPS,
             "flash_attention_bwd": L * TRAIN_STEPS,
-            "bwd_mma": L * TRAIN_STEPS}
+            "bwd_wgmma": L * TRAIN_STEPS}
     require(launches == want,
             f"check (c): launches {launches}, expected {want} (forward and "
-            f"remat recompute on wgmma, one backward, per layer and step)")
+            f"remat recompute on wgmma, one backward on wgmma, per layer "
+            f"and step)")
     peak = torch.cuda.max_memory_allocated()
     del params, opt, m
     gc.collect()
@@ -3803,12 +3812,12 @@ def phase_train(torch) -> dict:
         mhist.append({k: float(v) for k, v in m.items()})
         mtimes.append(time.perf_counter() - t0)
     mlaunch = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
-                                        "flash_attention_bwd", "bwd_mma")}
+                                        "flash_attention_bwd", "bwd_wgmma")}
     Lm = MOE_TRAIN_LAYERS
     mwant = {"flash_attention": 2 * Lm * MOE_TRAIN_STEPS,
              "attn_wgmma": 2 * Lm * MOE_TRAIN_STEPS,
              "flash_attention_bwd": Lm * MOE_TRAIN_STEPS,
-             "bwd_mma": Lm * MOE_TRAIN_STEPS}
+             "bwd_wgmma": Lm * MOE_TRAIN_STEPS}
     require(mlaunch == mwant,
             f"check (c): olmoe launches {mlaunch}, expected {mwant}")
     require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
@@ -3826,20 +3835,36 @@ def phase_train(torch) -> dict:
 
     # -- check (a): the lse-writing forward against its serving instance
     # and the plain version, and the backward kernel against its plain
-    # version fed the plain lse, on the step's shape (bf16) and a float32
-    # shape; the bf16 inputs are kept for the kernels row
+    # version fed the plain lse, on the step's shape (bf16, wgmma), the
+    # step's shape at hd BWD_MMA_HD (bf16, mma) and a float32 shape; the
+    # first case's inputs are kept for the kernels row
     gen = torch.Generator(device="cuda").manual_seed(11)
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    step_shape = (TRAIN_BATCH, TRAIN_SEQ, Hq, Hkv)
     checks = {}
-    for name, (B, S, hq, hkv, d), dt in (
-            ("bf16", (TRAIN_BATCH, TRAIN_SEQ, Hq, Hkv, hd), torch.bfloat16),
-            ("f32", BWD_F32_SHAPE, torch.float32)):
+    for name, (B, S, hq, hkv, d), dt, want_route in (
+            ("bf16", (*step_shape, hd), torch.bfloat16, "wgmma"),
+            ("bf16_mma", (*step_shape, BWD_MMA_HD), torch.bfloat16, "mma"),
+            ("f32", BWD_F32_SHAPE, torch.float32, "scalar")):
         q, k, v, dout = bwd_inputs(torch, gen, B, S, hq, hkv, d, dt)
         o, lse, lse_ref, fwd = check_forward_lse(torch, fops, q, k, v, dt)
+        route = fops.bwd_plan(q, k, v, o, dout)
+        require(route == want_route,
+                f"check (a): the backward takes route {route} in {dt} at "
+                f"hd {d}, expected {want_route}")
         got = fops.flash_attention_bwd_cuda(q, k, v, o, lse, dout)
+        again = fops.flash_attention_bwd_cuda(q, k, v, o, lse, dout)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        require(all(torch.equal(x.view(bits), y.view(bits))
+                    for x, y in zip(got, again)),
+                f"check (a): two launches of flash_attention_bwd on the same "
+                f"inputs differ in {dt}")
+        del again
         want = fops.flash_attention_bwd_ref(q, k, v, o, lse_ref, dout)
         checks[name] = {"shape": {"B": B, "S": S, "Hq": hq, "Hkv": hkv,
-                                  "hd": d}, **fwd,
+                                  "hd": d}, "route": f"bwd_{route}",
+                        "repeat_bitwise_equal": True, **fwd,
                         **check_bwd(torch, got, want, dt)}
         if name == "bf16":
             bwd_args = (q, k, v, o, lse, dout)
@@ -3893,18 +3918,23 @@ def flash_attention_bwd_row(torch, train) -> dict:
     pairs = S * (S + 1) // 2
     n_ops = 10 * hd * pairs * B * Hq
     nbytes = 2 * (4 * B * S * Hq * hd + 4 * B * S * Hkv * hd) + 4 * B * Hq * S
+    kernel_route = fops.bwd_plan(q, k, v, o, dout)
     del q, k, v, dout, o, lse, args
     torch.cuda.empty_cache()
+    lim = bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3)
     return {"name": "flash_attention_bwd", "route": "cuda",
+            "kernel_route": f"bwd_{kernel_route}",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "none (no TPU kernel has a backward; the JAX "
                         "package trains through chunked_attention, "
                         "src/repro/models/transformer.py:246)",
             "launches": train["launches"], "max_abs_err": err["max_abs_err"],
-            "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3),
+            "ms": ms, "plain_ms": plain_ms, **lim,
             "library_ms": library_ms, "device_ms": device_ms,
-            "device_ms_launches": 10, "ops": n_ops, "pairs_per_head": pairs,
+            "device_ms_launches": 10,
+            "device_share_of_bound": lim["bound_ms"] / device_ms,
+            "ms_over_library": ms / library_ms,
+            "ops": n_ops, "pairs_per_head": pairs,
             "max_row_rel_l2": err["max_row_rel_l2"],
             "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd,
                       "causal": True, "dtype": "bfloat16"},

@@ -66,12 +66,12 @@
 //    in shared memory; exact f32 softmax (no rounding of p). It exists for
 //    the float32 model and for checks at the float32 tolerances; it is
 //    bounded by shared-memory traffic, far from the f32 peak.
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 
 #include <cmath>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -293,31 +293,6 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * static_cast<size_t>(M_BM + 2 * M_BN) * (HDP + 8);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t a0,
-                                         const uint32_t a1, const uint32_t a2,
-                                         const uint32_t a3, const uint32_t b0,
-                                         const uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // one row of HDP values (zeros past hd, or everywhere when src is null)
 // into shared memory, 8 values per chunk; chunk ch of the row
 __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
@@ -514,176 +489,6 @@ __global__ void __launch_bounds__(M_THREADS)
 }
 
 // ---------------------------------------------------------------------
-// Hopper primitives: shared-memory addresses, mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-D tensor map into shared memory; the bytes are counted
-// on `bar` (out-of-range elements arrive as zeros)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of a wgmma operand held
-// in registers across the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// shared-memory matrix descriptor of a 128-byte-swizzled operand: lbo and
-// sbo in bytes (for K-major operands lbo is unused, sbo the 8-row stride;
-// for MN-major ones lbo steps 64 columns, sbo 8 rows of K)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// D (64 x 128, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 128,
-// shared, K-major); scale_d = 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared,
-// MN-major, i.e. transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared,
-// MN-major, i.e. transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// ---------------------------------------------------------------------
 // bf16 prefill: warp-specialised wgmma kernel (FlashAttention-3 shape)
 // ---------------------------------------------------------------------
 
@@ -699,12 +504,6 @@ constexpr size_t wgmma_smem_bytes() {
   return 1024 + static_cast<size_t>(HD / 64) * W_ATOM * (1 + 2 * W_STAGES) +
          8 * 3 * W_STAGES;
 }
-
-// where each of (key, kv-head, batch) sits among dimensions 1..3 of the
-// K / V tensor maps (dimension 0 is hd)
-struct KvDims {
-  int key, head, batch;
-};
 
 template <int HD, bool LSE>  // LSE: as attn_mma_kernel's
 __global__ void __launch_bounds__(W_THREADS, 1)
@@ -1323,93 +1122,15 @@ int launch_splitk(const AttnArgs& a, const SplitArgs& sp, int B, int Hkv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled is a driver-API function; the library links only
-// the runtime, so it is fetched once through the runtime's entry-point
-// query (the driver is loaded by then)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of k or v for attn_wgmma_kernel: 4-D, hd innermost, then
-// (key, kv-head, batch) in increasing stride (a dimension of extent 1 last,
-// with a stride that steps past the others); boxes of 64 columns x W_BN
-// keys, 128-byte swizzle. The key extent is kv_end, so keys past it
-// arrive as zeros and are never read.
-int kv_tensor_map(CUtensorMap* map, KvDims* dims, const void* ptr, int hd,
-                  int kv_end, int Hkv, int B, long long ss, long long sh,
-                  long long sb) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  struct Dim {
-    long long extent, stride;
-    int box, which;  // which: 0 key, 1 kv-head, 2 batch
-  } d[3] = {{kv_end > 0 ? kv_end : 1, ss * 2, W_BN, 0},
-            {Hkv, sh * 2, 1, 1},
-            {B, sb * 2, 1, 2}};
-  for (int i = 0; i < 3; ++i)  // insertion sort: extent 1 last, by stride
-    for (int j = i; j > 0; --j) {
-      const bool one_a = d[j - 1].extent == 1, one_b = d[j].extent == 1;
-      if (one_a > one_b || (one_a == one_b && !one_a &&
-                            d[j - 1].stride > d[j].stride)) {
-        const Dim x = d[j];
-        d[j] = d[j - 1];
-        d[j - 1] = x;
-      }
-    }
-  long long past = 2LL * hd;  // bytes spanned by the dimensions so far
-  for (int i = 0; i < 3; ++i) {
-    if (d[i].extent == 1) d[i].stride = (past + 15) / 16 * 16;
-    const long long span = d[i].stride * d[i].extent;
-    past = span > past ? span : past;
-  }
-  cuuint64_t gdim[4] = {static_cast<cuuint64_t>(hd)};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {64};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  int* pos[3] = {&dims->key, &dims->head, &dims->batch};
-  for (int i = 0; i < 3; ++i) {
-    gdim[i + 1] = static_cast<cuuint64_t>(d[i].extent);
-    gstride[i] = static_cast<cuuint64_t>(d[i].stride);
-    box[i + 1] = static_cast<cuuint32_t>(d[i].box);
-    *pos[d[i].which] = i + 1;
-  }
-  const CUresult rc = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), gdim,
-      gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int HD>
 int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
   CUtensorMap mk, mv;
   KvDims dk, dv;
   int rc = kv_tensor_map(&mk, &dk, a.k, HD, a.kv_end, Hkv, B, a.k_ss,
-                         a.k_sh, a.k_sb);
+                         a.k_sh, a.k_sb, W_BN);
   if (rc == 0)
     rc = kv_tensor_map(&mv, &dv, a.v, HD, a.kv_end, Hkv, B, a.v_ss, a.v_sh,
-                       a.v_sb);
+                       a.v_sb, W_BN);
   if (rc != 0) return rc;
   if (dk.key != dv.key || dk.head != dv.head || dk.batch != dv.batch)
     return static_cast<int>(cudaErrorInvalidValue);  // k, v laid out alike

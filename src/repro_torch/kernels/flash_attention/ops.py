@@ -39,9 +39,11 @@ writes it from its epilogue, the output unchanged).
 ``flash_attention_bwd_ref`` is the plain backward (the formulas in
 float32), ``flash_attention_bwd_cuda`` the wrapper of
 ``csrc/flash_attention_bwd.cu`` (``LAUNCHES["flash_attention_bwd"]``; by
-:func:`bwd_route`, tensor-core kernels in bf16 up to head dim 128,
-``LAUNCHES["bwd_mma"]``, CUDA-core ones otherwise,
-``["bwd_scalar"]``), and
+:func:`bwd_route`, in bf16 the wgmma kernels at hd 64 or 128 with
+16-byte-aligned inputs and a GQA group of at most 64 q-heads,
+``LAUNCHES["bwd_wgmma"]``, ``mma.sync`` ones for the other shapes up to
+hd 128, ``["bwd_mma"]``, CUDA-core ones otherwise, ``["bwd_scalar"]``),
+and
 ``flash_attention_bwd`` picks by device. ``gqa_attention`` goes through a
 ``torch.autograd.Function`` whenever grad mode is on and q, k or v needs a
 gradient: its forward saves the lse, its backward is the kernel on a CUDA
@@ -63,15 +65,18 @@ __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
            "flash_attention_cuda", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
            "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
-           "ROUTES", "BWD_ROUTES", "MAX_HEAD_DIM"]
+           "bwd_plan", "bwd_row_tiles", "ROUTES", "BWD_ROUTES",
+           "MAX_HEAD_DIM"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch":
                [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 8 + [_P] * 4}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch":
-                   [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 6 + [_P]}
+                   [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 6 + [_L, _P]}
 # the backward's kernels by their number in flash_attention_bwd_launch
-BWD_ROUTES = ("scalar", "mma")
+BWD_ROUTES = ("scalar", "mma", "wgmma")
+# the wgmma backward's row tiles: 64 rows, whole positions of a GQA group
+BWD_TILE_ROWS = 64
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -312,10 +317,41 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def bwd_route(hd: int, dtype: torch.dtype) -> str:
-    """The backward's kernels: ``mma`` (tensor cores) in bf16 up to head
-    dim 128, ``scalar`` (CUDA cores) for float32 and larger head dims."""
-    return "mma" if dtype == torch.bfloat16 and hd <= 128 else "scalar"
+def bwd_route(group: int, hd: int, dtype: torch.dtype, vec: bool) -> str:
+    """The backward's kernels for a GQA group of ``group`` q-heads a
+    kv-head at head dim ``hd`` (``vec`` as for :func:`attention_route`):
+    ``scalar`` (CUDA cores) for float32 and head dims above 128; in bf16
+    ``wgmma`` at hd 64 or 128 with ``vec`` and ``group <= 64`` (a row tile
+    is 64 rows of whole positions), ``mma`` for the rest. By shape only."""
+    if dtype == torch.float32 or hd > 128:
+        return "scalar"
+    if hd in WGMMA_HEAD_DIMS and vec and group <= BWD_TILE_ROWS:
+        return "wgmma"
+    return "mma"
+
+
+def bwd_row_tiles(Sq: int, group: int) -> tuple[int, int]:
+    """``(P, tiles)`` of the wgmma backward: a row tile holds
+    ``P = 64 // group`` whole positions of the group's q-heads, and
+    ``tiles = ceil(Sq / P)`` of them cover the queries of one (batch,
+    kv-head). At G 4: 16 positions, 64 rows; at G 5: 12, 60 rows."""
+    P = BWD_TILE_ROWS // group
+    return P, -(-Sq // P)
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             o: torch.Tensor, dout: torch.Tensor) -> str:
+    """The route :func:`flash_attention_bwd_cuda` launches for these
+    tensors (``o`` and ``dout`` contiguous, as it passes them on)."""
+    return bwd_route(q.shape[2] // k.shape[2], q.shape[3], q.dtype,
+                     _bwd_vec(q, k, v, o, dout))
+
+
+def _bwd_vec(q, k, v, o, dout) -> bool:
+    """16-byte loads allowed for the backward: q, k, v as for the forward,
+    ``o`` and ``dout`` aligned."""
+    return _aligned(q, k, v) and all(x.data_ptr() % 16 == 0
+                                     for x in (o, dout))
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
@@ -396,11 +432,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty((B, Skv, Hkv, hd), dtype=dt, device=q.device)
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
-    route = bwd_route(hd, dt)
-    vec = _aligned(q, k, v) and all(x.data_ptr() % 16 == 0
-                                    for x in (o, dout))
+    vec = _bwd_vec(q, k, v, o, dout)
+    route = bwd_route(Hq // Hkv, hd, dt, vec)
+    # D (B, Hq, Sq); on wgmma the row tiles' lse * log2 e, then their D
+    # (the launch refuses a shorter scratch)
+    n = (2 * B * Hkv * bwd_row_tiles(Sq, Hq // Hkv)[1] * BWD_TILE_ROWS
+         if route == "wgmma" else B * Hq * Sq)
+    delta = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_bwd_launch(
@@ -408,7 +447,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd, *strides,
         int(bool(causal)), q_offset, valid, _DTYPES.index(dt),
-        BWD_ROUTES.index(route), int(vec), stream)
+        BWD_ROUTES.index(route), int(vec), delta.numel(), stream)
     build.check(lib, rc, "flash_attention_bwd")
     count_launch("flash_attention_bwd", f"bwd_{route}")
     return dq, dk, dv

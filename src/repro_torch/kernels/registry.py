@@ -47,7 +47,7 @@ KERNELS = ("msbfs_step", "pairwise_popcount", "gamma_pack", "path_member",
 # path_member (one expand level) and rowwise_overlap (one join) on the
 # engine's path (each also counted under its kernel's name)
 ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_mma", "attn_scalar",
-                "bwd_mma", "bwd_scalar", "ell_gather_f1",
+                "bwd_wgmma", "bwd_mma", "bwd_scalar", "ell_gather_f1",
                 "level_fused", "join_fused")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + ROUTE_COUNTS, 0)
 _LAUNCHES_LOCK = threading.Lock()

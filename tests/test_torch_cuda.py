@@ -29,7 +29,8 @@ from repro_torch.kernels import LAUNCHES, build  # noqa: E402
 from repro_torch.kernels.ell_spmm.ops import (  # noqa: E402
     ell_aggregate, ell_spmm_cuda, ell_spmm_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    attention_plan, bwd_route, flash_attention_bwd_cuda, flash_attention_bwd_ref,
+    attention_plan, bwd_plan, bwd_route, flash_attention_bwd_cuda,
+    flash_attention_bwd_ref,
     flash_attention_cuda, flash_attention_ref, flash_attention_splitk_ref,
     gqa_attention)
 from repro_torch.kernels.msbfs_expand.ops import (  # noqa: E402
@@ -1117,6 +1118,27 @@ BWD_CASES = [
     (1, 6, 6, 2, 1, 16, True, -2, None),
     (2, 20, 20, 4, 2, 12, True, None, None),       # unaligned: no vec
     (1, 200, 200, 8, 8, 128, True, None, None),    # several key tiles, G 1
+    # the wgmma route (bf16, hd 64 or 128): S not a multiple of the tiles,
+    # G 1, 4 and 5 (row tiles of 60 rows), q_offset, kv_valid_len with and
+    # without the mask, a key tile wholly past kv_valid_len, B > 1
+    (1, 77, 77, 10, 2, 128, True, None, None),
+    (2, 45, 45, 5, 1, 64, True, None, None),
+    (2, 100, 100, 8, 2, 64, True, None, None),
+    (1, 100, 150, 8, 2, 128, True, 30, None),
+    (1, 40, 40, 2, 2, 64, True, -3, None),         # rows that see no key
+    (2, 70, 190, 4, 1, 64, False, None, 133),
+    (1, 96, 96, 4, 4, 64, True, None, 70),
+    (1, 64, 300, 4, 1, 128, False, None, 100),
+    # the mma route at HDP 64 (hd 48; hd 36, no 16-byte loads) and past
+    # the wgmma route's groups (G 65 at hd 128)
+    (1, 70, 70, 8, 2, 48, True, None, None),
+    (2, 30, 30, 4, 2, 36, True, None, None),
+    (1, 20, 20, 65, 1, 128, True, None, None),
+    # wgmma at the groups of GQA configs: G 8 (P 8), G 64 (one position a
+    # tile), G 7 (63-row tiles)
+    (1, 50, 50, 16, 2, 128, True, None, None),
+    (1, 9, 9, 64, 1, 64, True, None, None),
+    (2, 30, 30, 14, 2, 64, True, None, None),
 ]
 
 
@@ -1136,19 +1158,24 @@ def assert_grads_close(got, want, dtype):
         assert float(rel.max()) <= 2e-2, float(rel.max())
 
 
+def _bwd_inputs(dev, case, dt):
+    B, Sq, Skv, Hq, Hkv, hd = case[:6]
+    r = np.random.default_rng(Sq * 13 + hd)
+    return tuple(
+        torch.from_numpy(r.standard_normal(shape).astype(np.float32))
+        .to(dev, dt) for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                                   (B, Skv, Hkv, hd), (B, Sq, Hq, hd)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)
 def test_flash_attention_bwd_matches_plain(dev, case, dtype):
     B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, valid = case
     dt = getattr(torch, dtype)
-    r = np.random.default_rng(Sq * 13 + hd)
-    q, k, v, dout = (
-        torch.from_numpy(r.standard_normal(shape).astype(np.float32))
-        .to(dev, dt) for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
-                                   (B, Skv, Hkv, hd), (B, Sq, Hq, hd)))
+    q, k, v, dout = _bwd_inputs(dev, case, dt)
     kw = dict(q_offset=q_offset, kv_valid_len=valid)
     o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True, **kw)
-    route = f"bwd_{bwd_route(hd, dt)}"
+    route = f"bwd_{bwd_plan(q, k, v, o, dout)}"
     before = dict(LAUNCHES)
     got = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal, **kw)
     want = flash_attention_bwd_ref(q, k, v, o, lse, dout, causal, **kw)
@@ -1156,12 +1183,53 @@ def test_flash_attention_bwd_matches_plain(dev, case, dtype):
     assert LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
     assert LAUNCHES[route] == before[route] + 1
-    assert route == ("bwd_mma" if dtype == "bfloat16" and hd <= 128
-                     else "bwd_scalar")
+    # contiguous inputs allow 16-byte loads iff hd % 8 == 0
+    assert route == f"bwd_{bwd_route(Hq // Hkv, hd, dt, hd % 8 == 0)}"
     assert [g.dtype for g in got] == [dt] * 3
     assert_grads_close(got, want, dtype)
     if valid is not None:
         assert not got[1][:, valid:].any() and not got[2][:, valid:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in
+                                  (1, 4, 8, 10, 13, 16, 18, 20, 21)],
+                         ids=str)
+def test_flash_attention_bwd_is_bitwise_repeatable(dev, case, dtype):
+    """Two launches on the same inputs give the same dQ, dK and dV bit for
+    bit on every route: each gradient is summed in a fixed order (exact
+    crash-resume depends on it)."""
+    causal, q_offset, valid = case[6:]
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _bwd_inputs(dev, case, dt)
+    kw = dict(q_offset=q_offset, kv_valid_len=valid)
+    o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (9, 21)], ids=str)
+def test_flash_attention_bwd_refuses_a_short_scratch(dev, monkeypatch, case):
+    """The launch checks the length of the wrapper's delta scratch against
+    the wgmma route's row tiles: one tile too few is refused with an
+    error, not written past."""
+    from repro_torch.kernels.flash_attention import ops
+    causal = case[6]
+    q, k, v, dout = _bwd_inputs(dev, case, torch.bfloat16)
+    o, lse = flash_attention_cuda(q, k, v, causal, return_lse=True)
+    assert bwd_plan(q, k, v, o, dout) == "wgmma"
+    tiles = ops.bwd_row_tiles
+    monkeypatch.setattr(ops, "bwd_row_tiles",
+                        lambda Sq, group: (tiles(Sq, group)[0],
+                                           tiles(Sq, group)[1] - 1))
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+        flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal)
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
 
 
 def test_gqa_attention_gradient_on_card_goes_through_the_kernels(dev):
@@ -1179,7 +1247,9 @@ def test_gqa_attention_gradient_on_card_goes_through_the_kernels(dev):
     assert LAUNCHES["attn_wgmma"] == before["attn_wgmma"] + 1
     assert LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
-    assert LAUNCHES["bwd_mma"] == before["bwd_mma"] + 1
+    route = f"bwd_{bwd_route(4, 128, torch.bfloat16, True)}"
+    assert route == "bwd_wgmma"
+    assert LAUNCHES[route] == before[route] + 1
     # the plain backward of the same forward (o and lse): dS = P (dP - D)
     # cancels where a row's attention is concentrated, so a forward that
     # rounds p elsewhere would move it by more than the bf16 tolerance

@@ -378,11 +378,45 @@ def test_gradient_path_is_taken_only_where_a_gradient_is_needed():
                                      torch.zeros(1, 4, 8), dout)
 
 
-@pytest.mark.parametrize("hd,dtype,route", [
-    (128, torch.bfloat16, "mma"), (12, torch.bfloat16, "mma"),
-    (129, torch.bfloat16, "scalar"), (256, torch.bfloat16, "scalar"),
-    (128, torch.float32, "scalar"), (16, torch.float32, "scalar")])
-def test_bwd_route_by_type_and_head_dim(hd, dtype, route):
+@pytest.mark.parametrize("group,hd,dtype,vec,route", [
+    (4, 128, torch.bfloat16, False, "mma"),
+    (4, 12, torch.bfloat16, True, "mma"),
+    (1, 129, torch.bfloat16, True, "scalar"),
+    (4, 256, torch.bfloat16, True, "scalar"),
+    (4, 128, torch.float32, True, "scalar"),
+    (1, 16, torch.float32, False, "scalar"),
+    # the wgmma kernels: hd 64 or 128, aligned, whole positions a row tile
+    (4, 128, torch.bfloat16, True, "wgmma"),
+    (1, 64, torch.bfloat16, True, "wgmma"),
+    (5, 128, torch.bfloat16, True, "wgmma"),
+    (64, 64, torch.bfloat16, True, "wgmma"),
+    (4, 96, torch.bfloat16, True, "mma"),       # another head dim
+    (1, 64, torch.bfloat16, False, "mma"),      # unaligned input
+    (65, 128, torch.bfloat16, True, "mma")])    # no whole position a tile
+def test_bwd_route_by_type_and_head_dim(group, hd, dtype, vec, route):
     from repro_torch.kernels import LAUNCHES
-    assert ops.bwd_route(hd, dtype) == route
+    assert ops.bwd_route(group, hd, dtype, vec) == route
     assert f"bwd_{route}" in LAUNCHES and route in ops.BWD_ROUTES
+
+
+@pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "mma")])
+def test_bwd_plan_reads_alignment_from_the_tensors(offset, route):
+    """A q whose rows start one value into their buffer (2 bytes: no
+    16-byte loads, no TMA) takes ``mma``; the aligned one ``wgmma``."""
+    big = torch.zeros(2, 8, 4, 128 + 8, dtype=torch.bfloat16)
+    q = big[..., offset:offset + 128]
+    k = v = torch.zeros(2, 8, 1, 128, dtype=torch.bfloat16)
+    o = dout = torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16)
+    assert ops.bwd_plan(q, k, v, o, dout) == route
+    assert ops.bwd_plan(q.float(), k.float(), v.float(), o.float(),
+                        dout.float()) == "scalar"
+
+
+@pytest.mark.parametrize("Sq,group,want", [
+    (4096, 4, (16, 256)), (4096, 1, (64, 64)), (33, 5, (12, 3)),
+    (130, 1, (64, 3)), (5, 64, (1, 5)), (1, 3, (21, 1))])
+def test_bwd_row_tiles_hold_whole_positions(Sq, group, want):
+    P, tiles = ops.bwd_row_tiles(Sq, group)
+    assert (P, tiles) == want
+    assert P * group <= ops.BWD_TILE_ROWS < (P + 1) * group
+    assert (tiles - 1) * P < Sq <= tiles * P
