@@ -5,7 +5,10 @@
     python3 chip_smoke.py --n 65536 --queries 32 --sharing-queries 16
                                              # a quicker, smaller run
 
-Phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
+Phase 3a drives the paper's engine at billion scale (``path-engine`` at
+``batch_1b``: six supersteps of its step bundle, each one ``msbfs_step``
+over 1.07 G edges and one fused expand level, in a fresh process);
+phases 4 and 5 drive the first slice's path (``plan_caps=False``, BATCH
 and BASIC); phase 6 the observability layer (stage spans annotated under
 ``torch.profiler``, compile telemetry, the launch audit); phases 7 and 8
 the engine's default configuration (``EngineConfig()``: walk-count
@@ -34,6 +37,45 @@ Phases, each printing one JSON line (``"phase": ...``, with
                ``src/repro_torch/csrc``, one ``nvcc`` per source.
 3. workload -- the 2**20-vertex community graph (about 8.4 M edges) and
                256 random (s, t, k) queries, k in 4..6, from fixed seeds.
+3a. engine  -- started before phase 3, in a fresh process
+               (``--engine-child``: an empty allocator, the card's memory
+               to itself) while this one builds the host graph, and
+               waited for after it. ``path-engine`` ``CONFIG`` at
+               ``batch_1b``, nothing cut: the dry run's estimate of the
+               cell (``launch/dryrun.py`` on ``meta``: 61.35 GiB) against
+               ``torch.cuda.mem_get_info`` first (too little free memory
+               fails the run; the cell is never shrunk). Data from a
+               seeded ``torch.Generator`` on the card, in row chunks: a
+               (2**26, 64) in-neighbour ELL, each row a Poisson(16) degree
+               clipped to 64 and that many uniform in-neighbours (about
+               1.07 G edges); 512 distinct sources (dist 127, 0 at each
+               source, and their frontier bits); a (2**22 + 1, 64) pruned
+               ELL drawn the same way, ``prune_table`` of a seeded slack
+               in 0..6 (no splice); 65,536 level-1 paths along pruned
+               edges. ``EngineSuperstep.prime`` makes the sentinel
+               frontier buffer and the visited words; then six
+               supersteps (hop 1..6) of the bundle's step, frontier, dist
+               and visited carried, the paths the same each time: per
+               superstep the ``msbfs_step`` ms (CUDA events around its
+               wrapper) and the expand's, the wall, the new pairs and the
+               hop's bound; the peak of ``torch.cuda.max_memory_allocated``
+               beside the dry run's estimate. Checks: (a) after each hop,
+               on 65,536 seeded vertices and all 512 queries, a BFS
+               certificate: dist == hop has an in-neighbour at hop - 1,
+               no in-neighbour lies below dist - 1, an unreached entry
+               has none at hop - 1 or less, and the frontier's bits are
+               dist == hop; and on the same rows the hop's kernel against
+               ``msbfs_step_ref`` (their in-neighbours, the whole frontier
+               it read, their visited words and dist from before the
+               hop): new words, visited words and dist equal exactly, the
+               sentinel row 0; (b) the last expand equals
+               ``expand_level_ref`` on the same inputs on the card
+               (count, no overflow, rows equal as sorted
+               rows); (c) a second run from the same seed gives the same
+               digests (two int64 sums of the words) of the ELL tables,
+               every hop's frontier and the final dist, and the same
+               expand rows and counts; and one ``msbfs_step`` and one
+               ``level_fused`` launch per superstep (``LAUNCHES``).
 4. main     -- ``PathSession(g, EngineConfig(plan_caps=False),
                device="cuda").run(queries, planner="batch")``: cold once
                (the run whose kernel launches are counted), warm twice;
@@ -400,7 +442,12 @@ Phases, each printing one JSON line (``"phase": ...``, with
                each ``msbfs_step`` call restores visited from a saved copy
                first, and the copies' own graph time is subtracted), and
                ``msbfs_step`` so on every level of the main batch's index
-               build (``levels``: per hop and summed).
+               build (``levels``: per hop and summed), and at the
+               engine's word width (W = 16: the third level from 512
+               sources on a 2**20-vertex graph of phase ``engine``'s
+               law, ``engine_width``); its row also carries phase
+               ``engine``'s launches and per-superstep ms at V = 2**26
+               (``engine_batch_1b``), as ``expand_level``'s does.
                ``pairwise_popcount``'s library calls are three exact
                products of the unpacked Γ, each required equal to the
                kernel: float32 (TF32 off), bf16 with float32 output
@@ -435,6 +482,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -861,6 +909,403 @@ def phase_workload(n: int, nq: int):
                      for k in (4, 5, 6)},
           "t_graph_s": t_graph, "t_setup_s": time.perf_counter() - t0})
     return g, queries
+
+
+# ----------------------------------------------------------------------
+# phase engine: the paper's engine at billion scale, in a fresh process
+# ----------------------------------------------------------------------
+
+ENGINE_ARCH, ENGINE_SHAPE = "path-engine", "batch_1b"
+ENGINE_SEED = 0
+ENGINE_ROWS = 1 << 20          # ELL rows drawn a pass
+ENGINE_PATHS = 65536           # level-1 paths every superstep expands
+ENGINE_SAMPLE = 65536          # vertices of the BFS certificate
+ENGINE_CERT_ROWS = 2048        # certificate vertices a gather
+# headroom over the dry run's peak for the build's, the certificate's and
+# the digests' temporaries
+ENGINE_HEADROOM = 2 << 30
+ENGINE_DIGEST_WORDS = 1 << 25  # int64 words a digest pass
+ENGINE_TIMEOUT_S = 400
+
+
+def engine_ell(torch, n: int, rows: int, cap: int, avg_deg: float, gen):
+    """A (rows, cap) int32 in-neighbour table over ``n`` vertices (pad
+    ``n``): each of the first ``n`` rows a Poisson(avg_deg) degree clipped
+    to ``cap`` and that many uniform in-neighbours, drawn on the card
+    ENGINE_ROWS rows at a time; rows past ``n`` all pads. Returns the table
+    and its edge count (a 0-d tensor on the card)."""
+    ell = torch.full((rows, cap), n, dtype=torch.int32, device="cuda")
+    cols = torch.arange(cap, device="cuda", dtype=torch.int32)
+    edges = torch.zeros((), dtype=torch.int64, device="cuda")
+    for r0 in range(0, n, ENGINE_ROWS):
+        r = min(ENGINE_ROWS, n - r0)
+        deg = torch.poisson(torch.full((r,), float(avg_deg), device="cuda"),
+                            generator=gen).clamp_(max=cap).to(torch.int32)
+        nb = torch.randint(0, n, (r, cap), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        ell[r0:r0 + r] = torch.where(cols < deg[:, None], nb, n)
+        edges += deg.sum()
+    return ell, edges
+
+
+def engine_sources(torch, d: dict, gen):
+    """Q distinct seeded sources: dist (V, Q) int8, 127 with 0 at each
+    query's source, and the (V, W) int32 frontier of their bits."""
+    from repro_torch.kernels.msbfs_expand.ops import wrap_int32
+    V, Q, W = d["V"], d["Q"], d["W"]
+    sources = torch.randperm(V, generator=gen, device="cuda")[:Q]
+    q = torch.arange(Q, device="cuda")
+    dist = torch.full((V, Q), 127, dtype=torch.int8, device="cuda")
+    dist[sources, q] = 0
+    frontier = torch.zeros((V, W), dtype=torch.int32, device="cuda")
+    # one (row, word) pair a query: the sources are distinct
+    frontier[sources, q // 32] = wrap_int32(
+        torch.ones_like(q) << (q % 32).to(torch.int64))
+    return dist, frontier
+
+
+def engine_paths(torch, d: dict, pruned, n_paths: int, gen):
+    """``n_paths`` level-1 paths (u, v) along edges of the pruned table
+    (v a non-pad entry of u's row, v != u) in the (out_cap, width) int32
+    buffer, -1 elsewhere; and their count (0-d int64)."""
+    Vp, cap = d["Vp"], d["cap"]
+    u = torch.randint(0, Vp, (8 * n_paths,), generator=gen, device="cuda")
+    j = torch.randint(0, cap, (8 * n_paths,), generator=gen, device="cuda")
+    v = pruned[u, j].long()
+    keep = torch.nonzero((v != Vp) & (v != u)).squeeze(1)[:n_paths]
+    require(keep.numel() == n_paths, f"only {keep.numel()} level-1 paths "
+                                     f"drawn of {n_paths}")
+    paths = torch.full((d["out_cap"], d["width"]), -1, dtype=torch.int32,
+                       device="cuda")
+    paths[:n_paths, 0] = u[keep].to(torch.int32)
+    paths[:n_paths, 1] = v[keep].to(torch.int32)
+    return paths, torch.tensor(n_paths, dtype=torch.int64, device="cuda")
+
+
+def digest(torch, x) -> list:
+    """Two wrapping int64 sums of ``x``'s bytes read as int64 words, plain
+    and position-weighted, ENGINE_DIGEST_WORDS words a pass: equal digests
+    of two runs stand for equal bits."""
+    flat = x.contiguous().view(-1).view(torch.uint8)
+    require(flat.numel() % 8 == 0, f"digest of {flat.numel()} bytes")
+    words = flat.view(torch.int64)
+    s1 = torch.zeros((), dtype=torch.int64, device=x.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, words.numel(), ENGINE_DIGEST_WORDS):
+        c = words[c0:c0 + ENGINE_DIGEST_WORDS]
+        pos = torch.arange(c0, c0 + c.numel(), device=x.device)
+        s1 += c.sum()
+        s2 += (c * (pos * 2654435761 % 2147483647 + 1)).sum()
+    return [int(s1), int(s2)]
+
+
+def set_bits(torch, words) -> int:
+    """Set bits of int32 words, ENGINE_ROWS rows a pass."""
+    return sum(int(popcount_words(torch, words[r0:r0 + ENGINE_ROWS]))
+               for r0 in range(0, words.shape[0], ENGINE_ROWS))
+
+
+def sorted_rows(torch, x):
+    """The rows of ``x`` in lexicographic order (stable sorts, last column
+    first)."""
+    for c in reversed(range(x.shape[1])):
+        x = x[torch.sort(x[:, c], stable=True).indices]
+    return x
+
+
+def bfs_certificate(torch, ell, dist, frontier, sample, hop: int) -> dict:
+    """Check (a) after ``hop`` on the ``sample`` vertices, all queries:
+    dist == hop has an in-neighbour at hop - 1; no in-neighbour lies below
+    dist - 1; dist == 127 has no in-neighbour at hop - 1 or less; the
+    frontier's bits are dist == hop. Returns the violations of each rule
+    (0 everywhere on a correct BFS) and the sampled pairs reached."""
+    from repro_torch.kernels.msbfs_expand.ops import unpack_bits
+    V, Q = dist.shape
+    bad = {"no_parent": 0, "parent_too_near": 0, "unreached_has_parent": 0,
+           "frontier_bits": 0}
+    reached = 0
+    for c0 in range(0, sample.numel(), ENGINE_CERT_ROWS):
+        vs = sample[c0:c0 + ENGINE_CERT_ROWS]
+        nb = ell[vs].long()                                   # (c, cap)
+        nd = dist[nb.clamp(max=V - 1)].to(torch.int32)        # (c, cap, Q)
+        nd = torch.where((nb != V)[..., None], nd, 127)
+        low = nd.amin(dim=1)                                  # (c, Q)
+        dv = dist[vs].to(torch.int32)
+        got = dv < 127
+        bad["no_parent"] += int(((dv == hop) & (low != hop - 1)).sum())
+        bad["parent_too_near"] += int((got & (low < dv - 1)).sum())
+        bad["unreached_has_parent"] += int((~got & (low <= hop - 1)).sum())
+        bad["frontier_bits"] += int(
+            (unpack_bits(frontier[vs], Q) != (dv == hop)).sum())
+        reached += int(got.sum())
+    return {"violations": bad, "sample_pairs_reached": reached}
+
+
+def hop_against_plain(torch, ell, sample, hop: int, fr_in, vis_in, dist_in,
+                      fr_out, vis, dist) -> dict:
+    """The hop's kernel against ``msbfs_step_ref`` on the ``sample`` rows:
+    the plain version takes those rows' in-neighbours, the whole frontier
+    the kernel read (``fr_in``, (V+1, W)) and the rows' visited words and
+    distances from before the hop (``vis_in``, ``dist_in``); its new
+    words, visited words and distances must equal the kernel's on those
+    rows exactly, and the kernel's sentinel row must stay 0."""
+    from repro_torch.kernels.msbfs_expand.ops import msbfs_step_ref
+    V = ell.shape[0]
+    ref = msbfs_step_ref(ell[sample], fr_in, vis_in, dist_in, hop)
+    return {"rows": sample.numel(),
+            "frontier_equal": torch.equal(ref[:-1], fr_out[sample]),
+            "visited_equal": torch.equal(vis_in, vis[sample]),
+            "dist_equal": torch.equal(dist_in, dist[sample]),
+            "sentinel_zero": not bool(fr_out[V].any()),
+            "new_pairs": int(popcount_words(torch, ref[:-1]))}
+
+
+def popcount_words(torch, words):
+    """Set bits of int32 words (a 0-d tensor)."""
+    from repro_torch.kernels.pairwise_popcount.ops import popcount32
+    return popcount32(words.to(torch.int64) & 0xFFFFFFFF).sum()
+
+
+def engine_run(torch, seed: int, first: bool, int_rate: float) -> dict:
+    """Build the batch_1b cell on the card from ``seed`` and run its six
+    supersteps through the engine bundle's step. The first run times each
+    superstep (the hop and the expand by CUDA events around
+    ``msbfs_step``), checks the BFS certificate and the hop against its
+    plain version on the sampled rows after each hop, and holds the last
+    expand to ``expand_level_ref``; every run returns digests of
+    what it made."""
+    from repro_torch.core import enumerate as enum
+    from repro_torch.kernels.registry import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    bundle = steps.build_bundle(ENGINE_ARCH, ENGINE_SHAPE)
+    cfg, step = bundle.cfg, bundle.step_fn
+    d = steps.engine_dims(cfg, bundle.spec)
+    V, W, cap, Vp = d["V"], d["W"], d["cap"], d["Vp"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ell, edges = engine_ell(torch, V, V, cap, cfg.avg_degree, gen)
+    dist, frontier = engine_sources(torch, d, gen)
+    pruned, _ = engine_ell(torch, Vp, Vp + 1, cap, cfg.avg_degree, gen)
+    slack = torch.randint(0, d["k"] + 1, (Vp + 1,), generator=gen,
+                          device="cuda", dtype=torch.int8)
+    slack[Vp] = -1
+    tbl = enum.prune_table(slack, torch.full_like(slack, -1))
+    paths, n_paths = engine_paths(torch, d, pruned, ENGINE_PATHS, gen)
+    del slack
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    frontier, dist = step.prime(frontier, dist)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    out = {"edges": int(edges), "t_data_s": t_data, "t_build_s": t_build,
+           "t_prime_s": t_build - t_data, "digests": {
+               "ell": digest(torch, ell), "pruned": digest(torch, pruned)}}
+    sample = torch.randperm(
+        V, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+        device="cuda")[:ENGINE_SAMPLE]
+    marks, held = [], []
+    hop_kernel = steps.msbfs_step
+
+    def marked(ell_i, fr, vis, buf, hop):
+        if first:       # the sampled rows' state before the hop
+            held[:] = [fr, vis[sample].clone(), buf[sample].clone()]
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        got = hop_kernel(ell_i, fr, vis, buf, hop)
+        ev1.record()
+        marks.append((ev0, ev1))
+        if first:
+            held.extend([got, vis, buf])
+        return got
+
+    steps.msbfs_step = marked
+    supersteps, counts, cert = [], [], []
+    reset_launches()
+    try:
+        for hop in range(1, d["k"] + 1):
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            frontier, dist, verts, count = step(
+                ell, frontier, dist, hop, pruned, tbl, paths, n_paths)
+            e1.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts.append(int(count))
+            out["digests"][f"frontier_{hop}"] = digest(torch, frontier)
+            if first:
+                new_bits = set_bits(torch, frontier)
+                nbytes = V * cap * 4 + (V + 1) * W * 8 + V * W * 8 + new_bits
+                supersteps.append({
+                    "hop": hop, "wall_s": wall,
+                    "msbfs_step_ms": marks[-1][0].elapsed_time(marks[-1][1]),
+                    "expand_ms": marks[-1][1].elapsed_time(e1),
+                    "new_pairs": new_bits,
+                    "msbfs_step_bound": bound(
+                        nbytes, V * W * cap / int_rate * 1e3),
+                    "expand_count": counts[-1]})
+                cert.append({"hop": hop, **bfs_certificate(
+                    torch, ell, dist, frontier, sample, hop),
+                    "plain": hop_against_plain(torch, ell, sample, hop,
+                                               *held)})
+                held.clear()
+    finally:
+        steps.msbfs_step = hop_kernel
+    out["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+    out["expand_counts"] = counts
+    out["digests"]["dist"] = digest(torch, dist)
+    out["verts"] = verts.cpu()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not first:
+        return out
+    out["supersteps"] = supersteps
+    out["certificate"] = cert
+    # check (b): the last expand against its plain version on the card,
+    # once the graph's tables are freed
+    del ell, dist, frontier, step, bundle
+    torch.cuda.empty_cache()
+    ref = enum.expand_level_ref(paths, n_paths, pruned, tbl, -2, level=1,
+                                budget=d["width"] - 1, out_cap=d["out_cap"])
+    n_ref = int(ref.frontier.count)
+    n = counts[-1]
+    got_rows = verts[:n].to("cuda")
+    cand = int((ref.nbrs[:ENGINE_PATHS] != Vp).sum())
+    out["expand_ref"] = {
+        "count": n_ref, "overflow": bool(ref.frontier.overflow),
+        "rows_equal_sorted": n == n_ref and torch.equal(
+            sorted_rows(torch, got_rows),
+            sorted_rows(torch, ref.frontier.verts[:n_ref])),
+        "same_order": n == n_ref and torch.equal(
+            got_rows, ref.frontier.verts[:n_ref]),
+        "bound": bound(ENGINE_PATHS * d["width"] * 4
+                       + (ENGINE_PATHS + 1) * cap * 4 + cand * 2
+                       + d["out_cap"] * cap * 5
+                       + d["out_cap"] * d["width"] * 4 + 16, 0.0)}
+    return out
+
+
+def engine_child() -> dict:
+    """What phase engine runs in a fresh process (``--engine-child``): the
+    dry run's estimate of the batch_1b cell, the card's free memory
+    against it, two runs from ENGINE_SEED (checks (a)-(c))."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    est = dryrun.dryrun_cell(ENGINE_ARCH, ENGINE_SHAPE)
+    t_dry = time.perf_counter() - t0
+    need = est["memory"]["peak_device_bytes"] + ENGINE_HEADROOM
+    free, total = torch.cuda.mem_get_info()
+    require(free >= need, f"phase engine needs {need} bytes of the card, "
+                          f"{free} of {total} are free")
+    props = torch.cuda.get_device_properties(0)
+    int_rate = INT_PER_CLK_SM * props.multi_processor_count \
+        * float(smi("clocks.max.sm", units=False)) * 1e6
+    first = engine_run(torch, ENGINE_SEED, True, int_rate)
+    torch.cuda.empty_cache()
+    second = engine_run(torch, ENGINE_SEED, False, int_rate)
+    return {"nvidia_smi": smi("name,power.limit"),
+            "dry_run": {"peak_device_bytes": est["memory"]
+                        ["peak_device_bytes"], "memory": est["memory"],
+                        "kernels": est["census"]["kernels"],
+                        "t_trace_s": est["t_trace_s"], "t_s": t_dry},
+            "free_bytes": free, "total_bytes": total, "first": {
+                k: v for k, v in first.items() if k != "verts"},
+            "second": {k: second[k] for k in ("edges", "t_build_s",
+                                              "expand_counts", "launches",
+                                              "peak_bytes")},
+            "same_digests": first["digests"] == second["digests"],
+            "same_verts": torch.equal(first["verts"], second["verts"]),
+            "same_counts": first["expand_counts"] == second["expand_counts"]}
+
+
+def engine_start():
+    """Phase engine's fresh process, started while this one builds the
+    host graph: it starts from an empty allocator and holds the card's
+    memory to itself."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--engine-child"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=ROOT)
+
+
+def phase_engine(torch, child) -> dict:
+    """Phase engine: wait for the fresh process, check what it ran, emit
+    the phase line."""
+    t0 = time.perf_counter()
+    try:
+        out, err = child.communicate(timeout=ENGINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
+    lines = out.strip().splitlines()
+    require(child.returncode == 0 and lines,
+            f"phase engine's fresh process failed ({child.returncode}): "
+            f"{err[-3000:]}")
+    got = json.loads(lines[-1])
+    first = got["first"]
+    steps = first["supersteps"]
+    k = len(steps)
+    per = {"msbfs_step": 1, "path_member": 1, "level_fused": 1}
+    line = {"phase": "engine", "arch": ENGINE_ARCH, "shape": ENGINE_SHAPE,
+            "t_wait_s": time.perf_counter() - t0, **got,
+            "msbfs_step_ms": [s["msbfs_step_ms"] for s in steps],
+            "expand_ms": [s["expand_ms"] for s in steps],
+            "superstep_wall_s": [s["wall_s"] for s in steps],
+            "peak_gib": first["peak_bytes"] / 2**30,
+            "dry_run_peak_gib": got["dry_run"]["peak_device_bytes"] / 2**30}
+    emit(line)
+    bad = [c for c in first["certificate"] if any(c["violations"].values())]
+    require(not bad, f"phase engine: the BFS certificate fails: {bad}")
+    bad = [c["plain"] for c in first["certificate"]
+           if not all(c["plain"][n] for n in (
+               "frontier_equal", "visited_equal", "dist_equal",
+               "sentinel_zero"))]
+    require(not bad and k == len(first["certificate"]),
+            f"phase engine: msbfs_step disagrees with msbfs_step_ref on the "
+            f"sampled rows: {bad}")
+    require(all(first["launches"].get(n) == k * c for n, c in per.items())
+            and set(first["launches"]) == set(per) and k == 6,
+            f"phase engine: launches {first['launches']} in {k} supersteps "
+            f"(one msbfs_step and one fused level each)")
+    ref = first["expand_ref"]
+    require(ref["rows_equal_sorted"] and not ref["overflow"]
+            and all(0 < n < 1 << 20 for n in first["expand_counts"]),
+            f"phase engine: the expand disagrees with expand_level_ref "
+            f"or overflows: {ref}, counts {first['expand_counts']}")
+    require(got["same_digests"] and got["same_verts"]
+            and got["same_counts"],
+            "phase engine: a second run from the same seed differs")
+    return line
+
+
+# the kernels phase's msbfs_step case at the engine's word width: a
+# 2**20-vertex graph of the engine's law, the third level from 512 sources
+ENGINE_WIDTH_V = 1 << 20
+ENGINE_WIDTH_HOP = 3
+
+
+def engine_width_call(torch) -> tuple:
+    """``msbfs_step``'s arguments at W = 16 (512 queries): the ELL, the
+    (V+1, W) frontier, visited and dist after ENGINE_WIDTH_HOP - 1 levels
+    from seeded sources, and the next hop."""
+    from repro_torch import configs
+    from repro_torch.kernels.msbfs_expand import ops as mops
+    from repro_torch.launch import steps
+    cfg = configs.get(ENGINE_ARCH).CONFIG
+    V, Q = ENGINE_WIDTH_V, cfg.n_queries
+    d = {"V": V, "Q": Q, "W": -(-Q // 32)}
+    gen = torch.Generator(device="cuda").manual_seed(ENGINE_SEED)
+    ell, _ = engine_ell(torch, V, V, cfg.ell_cap, cfg.avg_degree, gen)
+    dist, fr = engine_sources(torch, d, gen)
+    frontier = torch.zeros((V + 1, d["W"]), dtype=torch.int32, device="cuda")
+    frontier[:V] = fr
+    visited = steps.visited_words(dist)
+    for hop in range(1, ENGINE_WIDTH_HOP):
+        frontier = mops.msbfs_step_cuda(ell, frontier, visited, dist, hop)
+    return ell, frontier, visited, dist, ENGINE_WIDTH_HOP
 
 
 def check_paths(g, q, paths) -> None:
@@ -4860,7 +5305,7 @@ def overlap_work(torch, a_v, b_v) -> dict:
 
 def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
                   share_launches, plan_rec, plan_launches, ops,
-                  w1_rec, lm, main_index) -> list[dict]:
+                  w1_rec, lm, main_index, engine) -> list[dict]:
     from repro_torch.core import enumerate as enum
     from repro_torch.core import join
     from repro_torch.kernels.msbfs_expand import ops as mops
@@ -4938,13 +5383,37 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
         msbfs_step(w1_rec)
     require(err2 == 0, "msbfs_step disagrees with its plain version on the "
                        "delta sweep")
+    # at the engine's word width (W = 16), on a graph of its law
+    call = engine_width_call(torch)
+    shape3, err3, ms3, plain3, nbytes3, t_ops3, bits3, x3 = msbfs_step(
+        {"msbfs_step": types.SimpleNamespace(best=call, calls=[call])})
+    del call
+    require(err3 == 0, "msbfs_step disagrees with its plain version at the "
+                       "engine's word width")
     shape, err, ms, plain_ms, nbytes, t_ops, new_bits, x = \
         msbfs_step(main_rec)
+    first = engine["first"]
     row("msbfs_step", shape, err, ms, plain_ms, nbytes=nbytes,
         t_ops_ms=t_ops, new_bits=new_bits, **x,
         delta_sweep={"shape": shape2, "max_abs_err": err2, "ms": ms2,
                      "plain_ms": plain2, "new_bits": bits2, **x2,
-                     **bound(nbytes2, t_ops2)})
+                     **bound(nbytes2, t_ops2)},
+        engine_width={"shape": shape3, "max_abs_err": err3, "ms": ms3,
+                      "plain_ms": plain3, "new_bits": bits3, **x3,
+                      **bound(nbytes3, t_ops3)},
+        engine_batch_1b={
+            "launches": first["launches"]["msbfs_step"],
+            "shape": {"V": 1 << 26, "D": 64, "W": 16},
+            "ms": engine["msbfs_step_ms"],
+            "bound_ms": [s["msbfs_step_bound"]["bound_ms"]
+                         for s in first["supersteps"]],
+            "new_pairs": [s["new_pairs"] for s in first["supersteps"]],
+            "sampled_rows_equal_plain": [
+                all(c["plain"][n] for n in ("frontier_equal",
+                                            "visited_equal", "dist_equal"))
+                for c in first["certificate"]],
+            "sampled_rows": ENGINE_SAMPLE,
+            "from": "phase engine, one launch a superstep (CUDA events)"})
 
     # -- the similarity stage of the main batch under the profiler
     emit({"phase": "similarity_profile",
@@ -5168,6 +5637,13 @@ def phase_kernels(torch, dev_info, peaks, main_rec, launches, share_rec,
     row("expand_level", level_main["shape"], level_main["max_abs_err"],
         level_main["ms"], level_main["plain_ms"],
         nbytes=level_main["bytes"], t_ops_ms=0.0,
+        engine_batch_1b={
+            "launches": engine["first"]["launches"]["level_fused"],
+            "ms": engine["expand_ms"],
+            "bound_ms": engine["first"]["expand_ref"]["bound"]["bound_ms"],
+            "counts": engine["first"]["expand_counts"],
+            "from": "phase engine, one fused level a superstep (CUDA "
+                    "events), 65,536 level-1 paths into 2**20 rows"},
         device_ms=level_main["device_ms"],
         device_ms_launches=ATTN_GRAPH_LAUNCHES,
         launches_from="LAUNCHES['level_fused'] of the main batch (each also "
@@ -5319,6 +5795,9 @@ def main(argv=None) -> int:
                     help="queries in the sharing batch (default 64)")
     # phase obs runs its compile window and audit in a fresh process
     ap.add_argument("--obs-child", metavar="TRACE", help=argparse.SUPPRESS)
+    # phase engine runs the batch_1b cell in a fresh process
+    ap.add_argument("--engine-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5331,11 +5810,21 @@ def main(argv=None) -> int:
     if args.obs_child:
         emit(obs_child(args.obs_child))
         return 0
+    if args.engine_child:
+        emit(engine_child())
+        return 0
 
     t_start = time.perf_counter()
     dev_info = phase_device(torch)
     phase_build()
-    g, queries = phase_workload(args.n, args.queries)
+    child = engine_start()      # on the card while the host builds the graph
+    try:
+        g, queries = phase_workload(args.n, args.queries)
+    except BaseException:
+        child.kill()
+        child.communicate()
+        raise
+    engine = phase_engine(torch, child)
     session, main_rec, launches, main_report, main_index, main_warm = \
         phase_main(torch, g, queries)
     share_rec, join_rec, share_launches, share_queries, share_report = \
@@ -5363,7 +5852,7 @@ def main(argv=None) -> int:
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,
-                         ops, w1_rec, lm, main_index)
+                         ops, w1_rec, lm, main_index, engine)
     r = flash_attention_bwd_row(torch, train)
     emit({"phase": "kernel", **r})
     rows.append(r)

@@ -206,6 +206,46 @@ def _mk_gamma_intersections(device, k: int):
             (dist, col, ks))
 
 
+# the engine superstep's audit shape: path-engine REDUCED cut to 64
+# vertices (16 queries, k 4: W = 1, dist padded inside the step)
+_ENGINE_AUDIT = {"n_vertices": 64, "n_queries": 16, "k": 4}
+
+
+def _mk_engine_superstep(device, k: int):
+    """One superstep of the engine bundle past the first (its frontier
+    buffer and visited words made by ``prime``, then carried from call to
+    call as a caller chains supersteps): on the card one ``msbfs_step``
+    and one fused expand level, and no copy to the host."""
+    from ..kernels.msbfs_expand.ops import pack_bits
+    from ..launch.steps import build_bundle
+    b = build_bundle("path-engine", "batch_1b", reduced=True,
+                     overrides=_ENGINE_AUDIT)
+    V, Q = _ENGINE_AUDIT["n_vertices"], _ENGINE_AUDIT["n_queries"]
+    ell = _ell(device, V, b.cfg.ell_cap)
+    source = torch.eye(V, Q, dtype=torch.bool)     # query q from vertex q
+    dist = torch.where(source, 0, 127).to(torch.int8)
+    frontier, dist = b.step_fn.prime(pack_bits(source).to(device),
+                                     dist.to(device))
+    tbl = torch.full((V + 1, 2), 8, dtype=torch.int8)
+    tbl[:, 1] = -1                      # no splice
+    tbl[V] = -1
+    paths = torch.full(b.inputs["paths"][0], -1, dtype=torch.int32)
+    paths[:8, 0] = torch.arange(8, dtype=torch.int32)
+    paths[:8, 1] = (paths[:8, 0] - 1) % V       # the ring's in-edges
+    carry = {"frontier": frontier, "dist": dist}
+
+    def superstep(ell_idx, hop, *rest):
+        """The step on the frontier and dist the last call returned."""
+        out = b.step_fn(ell_idx, carry["frontier"], carry["dist"], hop,
+                        *rest)
+        carry["frontier"], carry["dist"] = out[:2]
+        return out
+
+    return (superstep,
+            (ell[:V].contiguous(), 1, ell, tbl.to(device), paths.to(device),
+             torch.tensor(8, device=device)))
+
+
 MANIFEST: Tuple[HotFn, ...] = (
     HotFn("msbfs_dist_ell", _mk_msbfs_dist_ell),
     HotFn("msbfs_set_dist_ell", _mk_msbfs_set_dist_ell),
@@ -216,6 +256,8 @@ MANIFEST: Tuple[HotFn, ...] = (
     HotFn("cross_join", _mk_cross_join, leveled=False),
     # the similarity stage (once per batch and direction, not per level)
     HotFn("gamma_intersections", _mk_gamma_intersections, leveled=False),
+    # the engine bundle's superstep (launch/steps.py, path-engine)
+    HotFn("engine_superstep", _mk_engine_superstep, leveled=False),
 )
 
 # registry names deliberately not measured by the manifest. Every name in
@@ -240,11 +282,12 @@ AUDIT_EXEMPT_KERNELS: Dict[str, str] = {
 # path_member runs inside the fused level, rowwise_overlap inside the
 # fused join, ell_spmm as its F = 1 kernel
 _KERNELS_COVERED = {
-    "msbfs_step": ("msbfs_dist_ell", "msbfs_set_dist_ell"),
+    "msbfs_step": ("msbfs_dist_ell", "msbfs_set_dist_ell",
+                   "engine_superstep"),
     "ell_spmm": ("walk_counts_ell",),
     "ell_gather_f1": ("walk_counts_ell",),
-    "path_member": ("expand_level",),
-    "level_fused": ("expand_level",),
+    "path_member": ("expand_level", "engine_superstep"),
+    "level_fused": ("expand_level", "engine_superstep"),
     "rowwise_overlap": ("keyed_join", "keyed_join_count", "cross_join"),
     "join_fused": ("keyed_join", "keyed_join_count", "cross_join"),
     "gamma_pack": ("gamma_intersections",),

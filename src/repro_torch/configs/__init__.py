@@ -6,9 +6,10 @@ configuration for CPU tests), ``SHAPES`` and ``FAMILY``. All five LM
 archs, dense and MoE, serve and train in the port
 (``models/transformer.py``, ``launch/train.py``); the four GNN archs and
 two-tower-retrieval train, and the recsys model serves
-(``models/gnn.py``, ``models/recsys.py``, ``launch/steps.py``). The
-engine's ``path-engine`` config is not ported yet; asking for it raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+(``models/gnn.py``, ``models/recsys.py``, ``launch/steps.py``), and the engine's
+``path-engine`` config runs one billion-edge superstep
+(``launch/steps.py``'s engine bundle; ``ASSIGNED`` leaves it out, as in
+the JAX package).
 """
 from __future__ import annotations
 
@@ -36,21 +37,11 @@ ARCHS = {
 
 ASSIGNED = [a for a in ARCHS if a != "path-engine"]
 
-# the archs whose family has no slice in the port yet -> the ROADMAP item
-_NOT_PORTED = {
-    "path-engine": "ROADMAP.md queue 1, item 13 (the dry-run launchers, "
-                   "launch/dryrun.py)",
-}
-
 
 def get(arch: str):
     """The arch module (``CONFIG``, ``REDUCED``, ``SHAPES``, ``FAMILY``)."""
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet: see "
-            f"{_NOT_PORTED[arch]}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 

@@ -1,6 +1,6 @@
-"""Shape tables of the LM, GNN and recsys families (copies of
-``repro/configs/_shapes.py``'s ``LM_SHAPES``, ``GNN_SHAPES`` and
-``RECSYS_SHAPES``; the engine's table comes with its slice)."""
+"""Shape tables of the four families (copies of
+``repro/configs/_shapes.py``'s ``LM_SHAPES``, ``GNN_SHAPES``,
+``RECSYS_SHAPES`` and ``ENGINE_SHAPES``)."""
 from ..config import ShapeSpec
 
 LM_SHAPES = {
@@ -35,4 +35,10 @@ RECSYS_SHAPES = {
     "serve_bulk": ShapeSpec("serve_bulk", "recsys_serve", (("batch", 262144),)),
     "retrieval_cand": ShapeSpec("retrieval_cand", "recsys_retrieval",
                                 (("batch", 1), ("n_candidates", 1_000_000),)),
+}
+
+ENGINE_SHAPES = {
+    "batch_1b": ShapeSpec("batch_1b", "engine_batch",
+                          (("n_vertices", 67_108_864), ("avg_degree", 16),
+                           ("n_queries", 512), ("k", 6))),
 }

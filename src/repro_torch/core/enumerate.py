@@ -9,7 +9,8 @@ slack prune / splice triggers), and cumsum-compacts the survivors.
 whole level is one fused kernel (``expand_level_cuda``, around
 ``path_member``'s duplicate test), elsewhere the eager composition of
 plain PyTorch ops around ``path_member_ref`` (``expand_level_ref``); the
-two agree bit for bit on every output.
+two agree bit for bit on every output. On ``meta`` tensors (the dry run)
+``expand_level_meta`` gives the outputs' shapes and computes nothing.
 
 Splice handling (BatchEnum, Alg 4 lines 20-23): vertices that root a
 materialized dominating HC-s path query are *not* expanded when the cached
@@ -23,11 +24,11 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.path_join.ops import fused_level_cuda, path_member_ref
-from ..kernels.registry import ArmLike, KernelArm, resolve_arm
+from ..kernels.registry import ArmLike, KernelArm, meta_launch, resolve_arm
 from .pathset import PathSet, compact_index, compact_rows
 
 __all__ = ["ExpandOut", "expand_level", "expand_level_ref",
-           "expand_level_cuda", "prune_table", "extract_rows",
+           "expand_level_cuda", "expand_level_meta", "prune_table", "extract_rows",
            "select_ending_at", "count_ending_at"]
 
 
@@ -59,8 +60,9 @@ def expand_level(verts: torch.Tensor, count: torch.Tensor,
             optimization; pass -2 to disable).
     arm: the kernel arm; by default the one of ``verts``' device.
     """
-    fn = expand_level_cuda if resolve_arm(verts.device, arm) \
-        is KernelArm.CUDA else expand_level_ref
+    fn = {KernelArm.CUDA: expand_level_cuda,
+          KernelArm.META: expand_level_meta}.get(
+        resolve_arm(verts.device, arm), expand_level_ref)
     return fn(verts, count, ell_idx, prune_tbl, stop_vertex, level=level,
               budget=budget, out_cap=out_cap)
 
@@ -111,6 +113,32 @@ def expand_level_cuda(verts: torch.Tensor, count: torch.Tensor,
         budget=budget, out_cap=out_cap)
     return ExpandOut(frontier=PathSet(out, n_out, ovf),
                      nbrs=nbrs, splice_hit=splice_hit)
+
+
+def expand_level_meta(verts: torch.Tensor, count: torch.Tensor,
+                      ell_idx: torch.Tensor, prune_tbl: torch.Tensor,
+                      stop_vertex: int, *, level: int, budget: int,
+                      out_cap: int) -> ExpandOut:
+    """The meta arm (the dry run): the fused level's outputs, empty. Its
+    bytes by ``PERF.md`` section 6's rule for the fused level, at the most
+    the shapes allow (every row valid, every candidate live): the rows,
+    their ELL rows and the candidates' prune entries read, ``nbrs``,
+    ``splice_hit``, the new frontier and its status written."""
+    cap, L = verts.shape
+    D = ell_idx.shape[1]
+    device = verts.device
+    with meta_launch("expand_level", ops=0,
+                     nbytes=cap * L * 4 + cap * D * 4 + cap * D * 2
+                     + cap * D * 5 + out_cap * L * 4 + 16):
+        out = torch.empty((out_cap, L), dtype=torch.int32, device=device)
+        frontier = PathSet(out, torch.empty((), dtype=torch.int64,
+                                            device=device),
+                           torch.empty((), dtype=torch.bool, device=device))
+        return ExpandOut(frontier=frontier,
+                         nbrs=torch.empty((cap, D), dtype=torch.int32,
+                                          device=device),
+                         splice_hit=torch.empty((cap, D), dtype=torch.bool,
+                                                device=device))
 
 
 def extract_rows(verts: torch.Tensor, row_mask: torch.Tensor, *,

@@ -48,7 +48,9 @@ and
 ``torch.autograd.Function`` whenever grad mode is on and q, k or v needs a
 gradient: its forward saves the lse, its backward is the kernel on a CUDA
 tensor and the plain backward on a CPU one, never the plain version on
-the card.
+the card. On ``meta`` tensors (the dry run) both go to their meta versions,
+which give the outputs' shapes and the work of ``PERF.md`` section 6's
+bounds, and compute nothing.
 """
 from __future__ import annotations
 
@@ -59,12 +61,14 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..registry import ArmLike, KernelArm, count_launch, resolve_arm
+from ..registry import (ArmLike, KernelArm, count_launch, meta_launch,
+                        resolve_arm)
 
 __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
            "flash_attention_cuda", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
-           "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
+           "flash_attention_meta", "flash_attention_bwd_meta",
+           "visible_pairs", "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
            "bwd_plan", "bwd_row_tiles", "ROUTES", "BWD_ROUTES",
            "MAX_HEAD_DIM"]
 
@@ -317,6 +321,67 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def visible_pairs(Sq: int, q_offset: int, valid: int, causal: bool) -> int:
+    """The (query, key) pairs one (batch, q-head) sees: query ``i`` sees
+    keys ``0 .. min(q_offset + i, valid - 1)`` when causal, all ``valid``
+    keys otherwise."""
+    if not causal:
+        return Sq * valid
+
+    def upto(n):          # sum of min(x, valid) over x = 1 .. n
+        n = max(n, 0)
+        m = min(n, valid)
+        return m * (m + 1) // 2 + (n - m) * valid
+
+    return upto(q_offset + Sq) - upto(q_offset)
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, *,
+                         q_offset: Optional[int] = None,
+                         kv_valid_len: Optional[int] = None,
+                         return_lse: bool = False):
+    """The meta arm (the dry run): the forward's outputs, empty. Work by
+    ``PERF.md`` section 6's rule: 4 hd operations a visible pair and
+    q-head; q, the valid keys and values read once, the output (and lse)
+    written once."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    pairs = visible_pairs(Sq, q_offset, valid, causal)
+    es = q.element_size()
+    nbytes = es * (2 * B * Sq * Hq * hd + 2 * B * valid * Hkv * hd) \
+        + (4 * B * Hq * Sq if return_lse else 0)
+    with meta_launch("flash_attention", ops=4 * hd * pairs * B * Hq,
+                     nbytes=nbytes):
+        out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+        if not return_lse:
+            return out
+        return out, torch.empty((B, Hq, Sq), dtype=torch.float32,
+                                device=q.device)
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, *,
+                             q_offset: Optional[int] = None,
+                             kv_valid_len: Optional[int] = None):
+    """The meta arm of the backward: ``(dq, dk, dv)``, empty. Work by
+    ``PERF.md`` section 6's rule: 10 hd operations a visible pair and
+    q-head; q, o, dout, dq and k, v, dk, dv each moved once, lse read."""
+    B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
+    q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    pairs = visible_pairs(Sq, q_offset, valid, causal)
+    es = q.element_size()
+    nbytes = es * (4 * B * Sq * Hq * hd + 4 * B * Skv * Hkv * hd) \
+        + 4 * B * Hq * Sq
+    with meta_launch("flash_attention_bwd", ops=10 * hd * pairs * B * Hq,
+                     nbytes=nbytes):
+        return (torch.empty_like(q, memory_format=torch.contiguous_format),
+                torch.empty_like(k, memory_format=torch.contiguous_format),
+                torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
 def bwd_route(group: int, hd: int, dtype: torch.dtype, vec: bool) -> str:
     """The backward's kernels for a GQA group of ``group`` q-heads a
     kv-head at head dim ``hd`` (``vec`` as for :func:`attention_route`):
@@ -458,12 +523,18 @@ def flash_attention_bwd(q, k, v, o, lse, dout, causal: bool = True, *,
                         kv_valid_len: Optional[int] = None,
                         arm: ArmLike = None):
     """``(dq, dk, dv)`` on the arm of the tensors' device: the CUDA kernel
-    for CUDA tensors, the plain backward for CPU tensors."""
-    fn = (flash_attention_bwd_cuda
-          if resolve_arm(q.device, arm) is KernelArm.CUDA
-          else flash_attention_bwd_ref)
+    for CUDA tensors, the plain backward for CPU tensors (and the meta
+    version for meta ones)."""
+    fn = {KernelArm.CUDA: flash_attention_bwd_cuda,
+          KernelArm.META: flash_attention_bwd_meta}.get(
+        resolve_arm(q.device, arm), flash_attention_bwd_ref)
     return fn(q, k, v, o, lse, dout, causal, q_offset=q_offset,
               kv_valid_len=kv_valid_len)
+
+
+# the forward of each arm that is not the plain version
+_FORWARD = {KernelArm.CUDA: flash_attention_cuda,
+            KernelArm.META: flash_attention_meta}
 
 
 class _Attention(torch.autograd.Function):
@@ -472,9 +543,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_valid_len):
-        fwd = (flash_attention_cuda
-               if resolve_arm(q.device) is KernelArm.CUDA
-               else flash_attention_ref)
+        fwd = _FORWARD.get(resolve_arm(q.device), flash_attention_ref)
         out, lse = fwd(q, k, v, causal, q_offset=q_offset,
                        kv_valid_len=kv_valid_len, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -507,8 +576,5 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, q_offset, kv_valid_len)
-    if chosen is KernelArm.CUDA:
-        return flash_attention_cuda(q, k, v, causal, q_offset=q_offset,
-                                    kv_valid_len=kv_valid_len)
-    return flash_attention_ref(q, k, v, causal, q_offset=q_offset,
-                               kv_valid_len=kv_valid_len)
+    return _FORWARD.get(chosen, flash_attention_ref)(
+        q, k, v, causal, q_offset=q_offset, kv_valid_len=kv_valid_len)

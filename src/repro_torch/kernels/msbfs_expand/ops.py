@@ -6,7 +6,8 @@ Counterpart of ``repro/kernels/msbfs_expand``: ``msbfs_step_ref`` and
 and ``msbfs_expand_cuda`` the wrappers of the CUDA kernels in
 ``csrc/msbfs_step.cu`` (which says what each replaces, what bounds it and
 how it is designed), and ``msbfs_step`` / ``msbfs_hop_packed`` pick the arm
-from the tensors' device (:mod:`repro_torch.kernels.registry`).
+from the tensors' device (:mod:`repro_torch.kernels.registry`;
+``msbfs_step_meta`` on ``meta`` tensors, for the dry run).
 
 Packed words are ``torch.int32`` with ``pack_bits``' bit layout (bit b of
 word w is column w*32+b, little endian within the word); the kernel reads
@@ -30,10 +31,11 @@ import torch
 
 from .. import build
 from ..registry import (ArmLike, KernelArm, check_tensor, count_launch,
-                        resolve_arm)
+                        meta_launch, resolve_arm)
 
 __all__ = ["pack_bits", "unpack_bits", "wrap_int32", "msbfs_step",
-           "msbfs_step_ref", "msbfs_step_cuda", "msbfs_hop_packed",
+           "msbfs_step_ref", "msbfs_step_cuda", "msbfs_step_meta",
+           "msbfs_hop_packed",
            "msbfs_expand_ref", "msbfs_expand_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -127,12 +129,31 @@ def msbfs_step_cuda(ell_idx: torch.Tensor, frontier: torch.Tensor,
     return out
 
 
+def msbfs_step_meta(ell_idx: torch.Tensor, frontier: torch.Tensor,
+                    visited: torch.Tensor, dist: torch.Tensor,
+                    hop: int) -> torch.Tensor:
+    """The meta arm (the dry run): the new (V+1, W) frontier, empty. Work
+    by ``PERF.md`` section 6's rule for the kernel: one OR a (vertex,
+    word, ELL entry); the ELL read, the frontier read and written, visited
+    read and written. The dist stamps (a byte a new bit) depend on the
+    data and are not counted."""
+    V, D = ell_idx.shape
+    W = frontier.shape[1]
+    with meta_launch("msbfs_step", ops=V * W * D,
+                     nbytes=V * D * 4 + (V + 1) * W * 4 * 2 + V * W * 4 * 2):
+        return torch.empty((V + 1, W), dtype=torch.int32,
+                           device=frontier.device)
+
+
 def msbfs_step(ell_idx: torch.Tensor, frontier: torch.Tensor,
                visited: torch.Tensor, dist: torch.Tensor, hop: int,
                arm: ArmLike = None) -> torch.Tensor:
     """One fused MS-BFS level on the arm of the tensors' device."""
-    if resolve_arm(frontier.device, arm) is KernelArm.CUDA:
+    chosen = resolve_arm(frontier.device, arm)
+    if chosen is KernelArm.CUDA:
         return msbfs_step_cuda(ell_idx, frontier, visited, dist, hop)
+    if chosen is KernelArm.META:
+        return msbfs_step_meta(ell_idx, frontier, visited, dist, hop)
     return msbfs_step_ref(ell_idx, frontier, visited, dist, hop)
 
 

@@ -7,8 +7,17 @@ Every ported op has two interchangeable implementations:
                interpret mode)
   ``cuda``  -- the hand-written CUDA C++ kernel in ``repro_torch/csrc``
 
+and the ops a step bundle reaches (``msbfs_step``, ``expand_level``,
+``flash_attention`` and ``flash_attention_bwd``) a third, for the dry run
+(``launch/dryrun.py``), which traces a step on ``meta`` tensors:
+
+  ``meta``  -- empty outputs of the kernel's shapes and types; nothing is
+               computed or launched. It tells the listeners of
+               :func:`meta_launch` (``launch/op_analysis.py``'s census) of
+               the call and its analytic operations and bytes.
+
 The arm follows the tensor's device: a CPU tensor takes ``torch``, a CUDA
-tensor takes ``cuda``. An explicit choice that contradicts the device
+tensor takes ``cuda``, a meta tensor ``meta``. An explicit choice that contradicts the device
 raises ``ValueError`` (``torch`` for a CUDA tensor, ``cuda`` for a CPU
 tensor), and so does an unknown name, listing the valid ones. There is no
 environment variable and no "auto" rule: nothing routes a CUDA tensor to
@@ -24,15 +33,17 @@ store) could lose a count.
 """
 from __future__ import annotations
 
+import contextlib
 import enum
 import threading
-from typing import Union
+from typing import Callable, Union
 
 import torch
 
 __all__ = ["KernelArm", "ArmLike", "resolve_arm", "resolve_device",
            "check_tensor", "KERNELS", "ROUTE_COUNTS", "LAUNCHES",
-           "count_launch", "reset_launches"]
+           "count_launch", "reset_launches", "meta_launch",
+           "add_meta_listener", "remove_meta_listener"]
 
 # the hand-written kernels; each wrapper adds one to its LAUNCHES entry
 # where it launches its kernel, and nowhere else, so a run can show that
@@ -72,6 +83,7 @@ class KernelArm(str, enum.Enum):
 
     TORCH = "torch"
     CUDA = "cuda"
+    META = "meta"
 
     @classmethod
     def coerce(cls, value: Union["KernelArm", str]) -> "KernelArm":
@@ -90,7 +102,32 @@ class KernelArm(str, enum.Enum):
 
 ArmLike = Union[KernelArm, str, None]
 
-_ARM_OF_DEVICE = {"cpu": KernelArm.TORCH, "cuda": KernelArm.CUDA}
+_ARM_OF_DEVICE = {"cpu": KernelArm.TORCH, "cuda": KernelArm.CUDA,
+                  "meta": KernelArm.META}
+
+# the listeners of kernel calls on the meta arm: callables taking
+# (name, operations, bytes) and returning a context manager that is open
+# while the meta version builds its outputs
+_META_LISTENERS: list[Callable] = []
+
+
+def add_meta_listener(listener: Callable) -> None:
+    _META_LISTENERS.append(listener)
+
+
+def remove_meta_listener(listener: Callable) -> None:
+    _META_LISTENERS.remove(listener)
+
+
+@contextlib.contextmanager
+def meta_launch(name: str, ops: float, nbytes: float):
+    """Open around a meta version's output allocation: one call of kernel
+    ``name`` whose work is ``ops`` operations and ``nbytes`` bytes moved
+    (the bound rules of ``PERF.md`` section 6, from the shapes alone)."""
+    with contextlib.ExitStack() as stack:
+        for listener in tuple(_META_LISTENERS):
+            stack.enter_context(listener(name, ops, nbytes))
+        yield
 
 
 def resolve_arm(device: Union[torch.device, str],

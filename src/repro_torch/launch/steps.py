@@ -8,27 +8,31 @@ and returns the parameter tree and the optimizer state (updated in
 place), a prefill step an :class:`~..models.transformer.LM` and tokens, a
 decode step the model, a token and its cache, a recsys serve step the
 parameters, histories and items, a retrieval step the parameters, one
-history and the padded candidates. ``StepBundle.inputs`` gives the
-batch's padded shapes where the JAX bundle's abstract inputs fix them
-(GNN, recsys). The engine's ``path-engine`` bundle is not ported
-(ROADMAP.md queue 1, item 13).
+history and the padded candidates, and the engine's step one superstep of
+the paper's engine (:class:`EngineSuperstep`). ``StepBundle.inputs`` gives
+the batch's padded shapes where the JAX bundle's abstract inputs fix them
+(GNN, recsys, engine).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Union
 
 import torch
 
 from .. import configs as config_registry
-from ..config import (GNNConfig, LMConfig, RecsysConfig, RunOptions,
-                      ShapeSpec)
+from ..config import (GNNConfig, LMConfig, PathEngineConfig, RecsysConfig,
+                      RunOptions, ShapeSpec)
+from ..core.enumerate import expand_level
+from ..kernels.msbfs_expand.ops import msbfs_step, pack_bits
 from ..models import gnn, recsys, transformer
 from ..optim import adamw_update, cosine_schedule
 from ..pytree import leaves, unflatten
 
 __all__ = ["StepBundle", "TRAIN_KINDS", "build_bundle", "lm_bundle",
-           "gnn_bundle", "recsys_bundle", "gnn_dims", "shape_of"]
+           "gnn_bundle", "recsys_bundle", "engine_bundle", "engine_dims",
+           "EngineSuperstep", "visited_words", "gnn_dims", "shape_of"]
 
 # the shape kinds whose bundle is a train step
 TRAIN_KINDS = ("train", "gnn_full", "gnn_mini", "gnn_mol", "recsys_train")
@@ -41,13 +45,14 @@ class StepBundle:
     kind: str                       # the shape's kind: train | prefill |
                                     # decode | gnn_full | gnn_mini | gnn_mol
                                     # | recsys_train | recsys_serve |
-                                    # recsys_retrieval
+                                    # recsys_retrieval | engine_batch
     step_fn: Callable
-    cfg: Union[LMConfig, GNNConfig, RecsysConfig]
+    cfg: Union[LMConfig, GNNConfig, RecsysConfig, PathEngineConfig]
     opts: RunOptions
     meta: dict                      # analytic roofline terms
     spec: ShapeSpec                 # the shape, overrides applied
-    # the batch's padded input shapes, name -> (shape, dtype) (GNN, recsys)
+    # the batch's padded input shapes, name -> (shape, dtype) (GNN,
+    # recsys, engine)
     inputs: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -71,8 +76,8 @@ def build_bundle(arch: str, shape_name: str, opts: RunOptions | None = None,
     mod = config_registry.get(arch)
     cfg = mod.REDUCED if reduced else mod.CONFIG
     shape = shape_of(mod, shape_name, overrides)
-    build = {"lm": lm_bundle, "gnn": gnn_bundle,
-             "recsys": recsys_bundle}[mod.FAMILY]
+    build = {"lm": lm_bundle, "gnn": gnn_bundle, "recsys": recsys_bundle,
+             "engine": engine_bundle}[mod.FAMILY]
     return build(arch, cfg, shape, opts)
 
 
@@ -235,7 +240,8 @@ def _gnn_meta(cfg: GNNConfig, shape: ShapeSpec) -> dict:
     flops = 6 * cfg.n_layers * (E * (6 * d * d) + N * (6 * d * d))
     return {"family": "gnn", "kind": shape.kind, "params": n_params,
             "edges": E, "nodes": N, "model_flops": flops,
-            "weight_bytes": n_params * 4, "n_layers": cfg.n_layers}
+            "weight_bytes": n_params * 4, "n_layers": cfg.n_layers,
+            "d_hidden": d}
 
 
 def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec,
@@ -320,3 +326,197 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec,
 
     return bundle(retrieval_step, {"hist_ids": ((1, H), I32),
                                    "cand_ids": ((Nc_pad,), I32)})
+
+
+# ======================================================================
+# the paper's engine: one superstep at billion scale
+# ======================================================================
+
+# the enumeration half's working set (the JAX bundle's): the index-pruned
+# subgraph's vertices at most, and the expand's output rows
+ENGINE_PRUNED_MAX = 1 << 22
+ENGINE_OUT_CAP = 1 << 20
+# rows of dist a pass when visited words are derived from it: a (V, 512)
+# bool temporary would be 34 GB at batch_1b
+VISITED_CHUNK = 1 << 20
+# a dist entry no BFS source has reached
+UNREACHED = 127
+
+
+def engine_dims(cfg: PathEngineConfig, shape: ShapeSpec) -> dict:
+    """The engine bundle's sizes: V vertices, Q queries of k hops, the
+    ELL capacity, W packed words, Vp pruned vertices, the expand's output
+    rows and path width."""
+    V, Q, k = shape.dim("n_vertices"), shape.dim("n_queries"), shape.dim("k")
+    return {"V": V, "Q": Q, "k": k, "cap": cfg.ell_cap, "W": -(-Q // 32),
+            "Vp": min(V, ENGINE_PRUNED_MAX), "out_cap": ENGINE_OUT_CAP,
+            "width": (k + 1) // 2 + 1,
+            "edges": V * shape.dim("avg_degree")}
+
+
+def visited_words(dist: torch.Tensor, chunk: int = VISITED_CHUNK
+                  ) -> torch.Tensor:
+    """``pack_bits(dist != 127)``: the (V, ceil(S/32)) int32 words of the
+    (V, S) int8 distances' reached entries, packed ``chunk`` rows a pass."""
+    V, S = dist.shape
+    out = torch.empty((V, -(-S // 32)), dtype=torch.int32, device=dist.device)
+    for r0 in range(0, V, chunk):
+        out[r0:r0 + chunk] = pack_bits(dist[r0:r0 + chunk] != UNREACHED)
+    return out
+
+
+class EngineSuperstep:
+    """The engine bundle's step: one index hop (bit-packed MS-BFS over the
+    whole graph) and one enumeration expand on the index-pruned subgraph,
+    the JAX ``engine_superstep``:
+
+        (ell_idx, frontier, dist, hop, pruned_ell, prune_tbl, paths,
+         count) -> (frontier, dist, verts, count)
+
+    ell_idx (V, cap) int32 in-neighbours, pad V; frontier (V, W) int32
+    words of the last hop (``pack_bits`` layout; JAX's uint32 words
+    bitcast); dist (V, Q) int8, 127 = unreached; hop a Python int;
+    pruned_ell (Vp + 1, cap) int32 and prune_tbl (Vp + 1, 2) int8
+    (``enumerate.prune_table``); paths (out_cap, width) int32 level-1
+    paths; count their number, a 0-d int64 tensor on the paths' device.
+
+    The hop is one ``msbfs_step`` (on the card one launch of
+    ``csrc/msbfs_step.cu``), the expand one ``enumerate.expand_level`` at
+    level 1 (on the card one fused ``expand_level_kernel``). Both need
+    state the JAX function rebuilds each call, kept here instead:
+
+    * the kernel's frontier has a zero sentinel row V. The returned
+      frontier is the ``[:V]`` view of the (V+1, W) buffer it made; given
+      back as the next superstep's input, that buffer is used as it is.
+      Any other frontier is copied into a new one (its bits past Q
+      cleared).
+    * the kernel takes visited words, ``pack_bits(dist != 127)``. They are
+      derived once from a dist (:func:`visited_words`) and carried while
+      the same dist comes back unchanged since the last superstep wrote it.
+      :meth:`prime` makes both ahead of the first superstep.
+    * the kernel's dist is (V, 32W) and is updated in place (at batch_1b
+      there is no room for a second 34 GB copy). Where Q == 32W and dist
+      is contiguous, the dist given is updated and returned; otherwise it
+      is copied once into a (V, 32W) buffer (pad columns unreached) and
+      the ``[:, :Q]`` view of that buffer returned and, given back,
+      carried.
+    """
+
+    def __init__(self, dims: dict):
+        self.Q, self.W = dims["Q"], dims["W"]
+        self.width, self.out_cap = dims["width"], dims["out_cap"]
+        self._frontier_buf = None       # the (V+1, W) buffer made last
+        self._dist_buf = None           # the padded (V, 32W) dist, if any
+        self._visited = None            # (dist buffer ref, version, words)
+
+    @staticmethod
+    def _carried(view: torch.Tensor, buf, shape: tuple) -> bool:
+        """Whether ``view`` is a leading slice of ``buf``, a ``shape``
+        buffer made here."""
+        return (buf is not None and view._base is buf
+                and tuple(buf.shape) == shape
+                and view.data_ptr() == buf.data_ptr()
+                and view.stride() == buf.stride())
+
+    def _frontier_buffer(self, frontier: torch.Tensor) -> torch.Tensor:
+        V, W = frontier.shape
+        buf = self._frontier_buf
+        if self._carried(frontier, buf, (V + 1, W)):
+            return buf
+        if frontier.dtype != torch.int32 or W != self.W:
+            raise TypeError(f"engine frontier: expected ({V}, {self.W}) "
+                            f"int32 words, got {tuple(frontier.shape)} "
+                            f"{frontier.dtype}")
+        buf = torch.empty((V + 1, W), dtype=torch.int32,
+                          device=frontier.device)
+        buf[:V] = frontier
+        buf[V] = 0
+        if self.Q % 32:          # the last word's bits past Q
+            # repro-lint: waive[RPL005] a mask of the last word's query bits, not shape math
+            buf[:V, -1] &= (1 << (self.Q % 32)) - 1
+        return buf
+
+    def _dist_buffer(self, dist: torch.Tensor) -> torch.Tensor:
+        V, Q = dist.shape
+        cols = 32 * self.W
+        if dist.dtype != torch.int8 or Q != self.Q:
+            raise TypeError(f"engine dist: expected ({V}, {self.Q}) int8, "
+                            f"got {tuple(dist.shape)} {dist.dtype}")
+        if Q == cols and dist.is_contiguous():
+            return dist
+        if self._carried(dist, self._dist_buf, (V, cols)):
+            return self._dist_buf
+        buf = torch.full((V, cols), UNREACHED, dtype=torch.int8,
+                         device=dist.device)
+        buf[:, :Q] = dist
+        self._dist_buf = buf
+        return buf
+
+    def _visited_words(self, buf: torch.Tensor) -> torch.Tensor:
+        held = self._visited
+        if held is not None and held[0]() is buf and held[1] == buf._version:
+            return held[2]
+        self._visited = None            # free the old words first
+        return visited_words(buf)
+
+    def _dist_view(self, buf: torch.Tensor) -> torch.Tensor:
+        return buf if buf.shape[1] == self.Q else buf[:, :self.Q]
+
+    def prime(self, frontier: torch.Tensor, dist: torch.Tensor) -> tuple:
+        """The state a first superstep on ``frontier`` and ``dist`` would
+        make, made now: the sentinel frontier buffer, the dist buffer
+        where one is needed, and the visited words. Returns the frontier
+        and dist to pass, which the next call carries."""
+        fr = self._frontier_buf = self._frontier_buffer(frontier)
+        buf = self._dist_buffer(dist)
+        vis = self._visited_words(buf)
+        self._visited = (weakref.ref(buf), buf._version, vis)
+        return fr[:frontier.shape[0]], self._dist_view(buf)
+
+    def __call__(self, ell_idx, frontier, dist, hop, pruned_ell, prune_tbl,
+                 paths, count):
+        V = ell_idx.shape[0]
+        fr = self._frontier_buffer(frontier)
+        buf = self._dist_buffer(dist)
+        vis = self._visited_words(buf)
+        new = self._frontier_buf = msbfs_step(ell_idx, fr, vis, buf,
+                                              int(hop))
+        self._visited = (weakref.ref(buf), buf._version, vis)
+        out = expand_level(paths, count, pruned_ell, prune_tbl, -2,
+                           level=1, budget=self.width - 1,
+                           out_cap=self.out_cap)
+        return new[:V], self._dist_view(buf), out.frontier.verts, \
+            out.frontier.count
+
+    @property
+    def visited(self):
+        """The visited words carried for the last dist, or None."""
+        return None if self._visited is None else self._visited[2]
+
+
+def _engine_meta(d: dict) -> dict:
+    P, cap, width = d["out_cap"], d["cap"], d["width"]
+    return {"family": "engine", "kind": "engine_batch",
+            "vertices": d["V"], "edges": d["edges"], "queries": d["Q"],
+            # one hop touches E edge-words + expand touches P_CAP*cap cells
+            "model_flops": float(d["edges"]) * d["W"]
+            + float(P) * cap * width,
+            "weight_bytes": d["V"] * cap * 4}
+
+
+def engine_bundle(arch: str, cfg: PathEngineConfig, shape: ShapeSpec,
+                  opts: RunOptions) -> StepBundle:
+    """The engine bundle at ``shape``: a fresh :class:`EngineSuperstep`
+    and its inputs' shapes (``hop``, a Python int, is not among them)."""
+    d = engine_dims(cfg, shape)
+    V, W, cap, Vp = d["V"], d["W"], d["cap"], d["Vp"]
+    I32, I8 = torch.int32, torch.int8
+    inputs = {"ell_idx": ((V, cap), I32), "frontier": ((V, W), I32),
+              "dist": ((V, d["Q"]), I8),
+              "pruned_ell": ((Vp + 1, cap), I32),
+              "prune_tbl": ((Vp + 1, 2), I8),
+              "paths": ((d["out_cap"], d["width"]), I32),
+              "count": ((), torch.int64)}
+    return StepBundle(arch=arch, shape=shape.name, kind=shape.kind,
+                      step_fn=EngineSuperstep(d), cfg=cfg, opts=opts,
+                      meta=_engine_meta(d), spec=shape, inputs=inputs)

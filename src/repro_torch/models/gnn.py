@@ -228,6 +228,8 @@ def init_gnn_params(cfg: GNNConfig, d_in: int, d_out: int, *,
     def make(s: _Init):
         if s.scale is None:
             t = torch.full(s.shape, s.fill, dtype=torch.float32, device=dev)
+        elif dev.type == "meta":                # the dry run: shapes only
+            t = torch.empty(s.shape, dtype=torch.float32, device=dev)
         else:
             t = torch.randn(s.shape, generator=generator, device=dev,
                             dtype=torch.float32).mul_(s.scale)

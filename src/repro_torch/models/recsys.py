@@ -63,6 +63,8 @@ def init_recsys_params(cfg: RecsysConfig, *, generator: torch.Generator,
     dev = resolve_device(device)
 
     def normal(shape, scale):
+        if dev.type == "meta":                  # the dry run: shapes only
+            return nn.Parameter(torch.empty(shape, device=dev))
         return nn.Parameter(torch.randn(shape, generator=generator,
                                         device=dev).mul_(scale))
 

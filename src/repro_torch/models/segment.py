@@ -73,6 +73,13 @@ class Segments:
     @cached_property
     def _sorted(self) -> tuple:
         keys, perm = torch.sort(self.idx, stable=True)
+        if keys.device.type == "meta":
+            # the dry run traces shapes only: as many runs as the indices
+            # allow, summed in one pass (their lengths are data)
+            m = min(keys.numel(), self.n)
+            runs = torch.empty(m, dtype=torch.int64, device=keys.device)
+            return perm, runs, runs, [torch.empty(
+                m + 1, dtype=torch.int64, device=keys.device)]
         ids, counts = torch.unique_consecutive(keys, return_counts=True)
         ids = ids.long()                  # index_copy takes int64 indices
         # the summing passes: each pass's offsets; a segment longer than

@@ -132,7 +132,8 @@ def init_lm_params(cfg: LMConfig, *, generator: torch.Generator,
     dimension), norms ones, biases zeros; layers stacked on a leading L
     axis. Drawn from ``generator`` in float32 one layer at a time, so the
     tree, in ``dtype`` (default the working type of ``cfg``; float32 for
-    training masters), is the only full-size copy."""
+    training masters), is the only full-size copy. On ``meta`` (the dry
+    run) nothing is drawn."""
     dev = resolve_device(device)
     dt = working_dtype(cfg) if dtype is None else dtype
     top, layers = _param_shapes(cfg)
@@ -141,6 +142,8 @@ def init_lm_params(cfg: LMConfig, *, generator: torch.Generator,
         out = torch.empty(shape, dtype=dt, device=dev)
         if fan_in is None:                      # norms ones, biases zeros
             return out.fill_(0.0 if name in BIAS_PARAMS else 1.0)
+        if dev.type == "meta":                  # the dry run: shapes only
+            return out
         for part in (out.unbind(0) if len(shape) >= 3 else (out,)):
             draw = torch.randn(part.shape, generator=generator, device=dev,
                                dtype=torch.float32)

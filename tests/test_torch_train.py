@@ -51,6 +51,7 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,  # noqa
 from repro_torch.config import RunOptions  # noqa: E402
 from repro_torch.ft import DriverConfig, FailureInjector, TrainDriver  # noqa
 from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.launch.dryrun import dryrun_cell  # noqa: E402
 from repro_torch.launch.train import (make_init_and_batches,  # noqa: E402
                                       run_training)
 from repro_torch.models import gnn as tg  # noqa: E402
@@ -518,8 +519,8 @@ def test_launchers_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training("granite-8b", "train_4k", 1, tmp_path, mesh_name="pod",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsteps.build_bundle("path-engine", "batch_1b")
+    with pytest.raises(NotImplementedError, match="mesh options"):
+        dryrun_cell("path-engine", "batch_1b", "pod")
     with pytest.raises(NotImplementedError, match="mesh options"):
         tg.ring_aggregate(None, None, None, None, "cells")
     with pytest.raises(NotImplementedError, match="remat_policy"):

@@ -89,11 +89,7 @@ def test_run_options_and_non_lm_archs():
         dataclasses.asdict(JaxRunOptions())
     assert set(tcr.ARCHS) == set(jcr.ARCHS) and tcr.ASSIGNED == jcr.ASSIGNED
     for arch in set(tcr.ARCHS) - set(LM_ARCHS):
-        if arch == "path-engine":           # the engine's dry-run config
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tcr.get(arch)
-            continue
-        got, want = tcr.get(arch), jcr.get(arch)   # the GNN and recsys
+        got, want = tcr.get(arch), jcr.get(arch)   # GNN, recsys, engine
         assert got.FAMILY == want.FAMILY
         for name in ("CONFIG", "REDUCED"):
             assert dataclasses.asdict(getattr(got, name)) == \
