@@ -22,9 +22,12 @@ CUDA stream); phase 12 the kernel ops API (``msbfs_hop_packed``,
 ``path_overlap`` and the join-validity matrices); phase 13 the
 transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
-kernel); phase 14 the MoE FFN on that path (olmoe-1b-7b); phase 15 LM
-training (loss, gradients through the ``flash_attention_bwd`` kernel,
-AdamW, checkpoints and the fault-tolerant driver); phases 16 and 17 the
+kernel, then into a float8 KV cache on its float8 split-K variant);
+phase 14 the MoE FFN on that path (olmoe-1b-7b); phase 14a
+moonshot-v1-16b-a3b at full width and depth with a float8 cache; phase
+15 LM training (loss, gradients through the ``flash_attention_bwd``
+kernel, AdamW, checkpoints and the fault-tolerant driver, under the
+``"nothing"`` and ``"dots"`` remat policies); phases 16 and 17 the
 GNN zoo and the two-tower recsys model at their published configs
 (their paths reach no Pallas kernel: gathers, segmented sums and cuBLAS
 matmuls in float32).
@@ -267,10 +270,25 @@ Phases, each printing one JSON line (``"phase": ...``, with
                exactly once per layer per ``prefill`` / ``lm_forward`` /
                ``decode_step``, each prefill and forward on the wgmma
                route and each decode step on the split-K route (check (a)
-               on the float32 route).
+               on the float32 route). Then the same model decodes again
+               into a float8 cache of 544 (``RunOptions(kv_cache_dtype=
+               "f8")``; 512 teacher-forced + 32 greedy steps): per-step
+               latency and tokens/s beside the bf16 cache's, the cache's
+               bytes (half), and the logits' divergence from the bf16
+               cache's over the 512 teacher-forced positions (median
+               relative L2, argmax agreement: a finding, no bound).
+               Checks: every step launches ``attn_splitk_f8`` once per
+               layer and nothing else; on every greedy step each layer's
+               attention output equals the plain float8 version on the
+               same q and cache at atol = rtol = 1e-2 elementwise and a
+               relative L2 error of at most 1e-2 in every row (one query,
+               one q-head); every logit finite.
 14. moe     -- olmoe-1b-7b ``CONFIG`` (arXiv:2409.02060: 16 layers,
                d_model 2048, 64 experts top-8 of d_ff 1024, vocab 50304:
-               6.9 G parameters) at full width and depth in bf16, random
+               6.9 G parameters) at full width in bf16, cut to 4 of its
+               16 layers (since phase ``moonshot`` runs the same MoE
+               serving path at full depth, to keep the script within its
+               time limit: 1.89 G parameters), random
                from seed 0, served as phase ``lm`` serves granite-8b:
                prefill 4 x 2048 twice (the first, cold, reports each MoE
                layer's share of dropped assignments at the default 16
@@ -284,7 +302,7 @@ Phases, each printing one JSON line (``"phase": ...``, with
                near ties, are counted: at most 20%); the teacher-forced
                decode logits against ``lm_forward`` + unembed over the
                same 512 tokens (one token a dispatch group, as at
-               decode): in bf16 at full depth a median relative L2 of at
+               decode): in bf16 at 4 layers a median relative L2 of at
                most 5e-2, at most 15% of positions above it and at least
                90% of positions with the same argmax token (the max
                reported: a near tie flips an expert where the two paths'
@@ -294,17 +312,39 @@ Phases, each printing one JSON line (``"phase": ...``, with
                finite; ``flash_attention`` launched once per layer per
                call, on wgmma for prefill and forward and split-K for
                decode (the float32 check on its float32 route).
+14a. moonshot -- moonshot-v1-16b-a3b ``CONFIG`` (48 layers, d_model 2048,
+               16 q- and 16 kv-heads, hd 128, 64 experts top-6 of d_ff
+               1408, vocab 163,840: 28.1 G parameters, 56.2 GB in bf16)
+               at full width and depth, drawn on the card from seed 0
+               one layer at a time (no float32 copy of the model), after
+               the earlier phases' state is freed; the phase first
+               requires the parameters, its float8 cache and 6 GiB of
+               headroom free (``torch.cuda.mem_get_info``) and fails with
+               a message otherwise (it is never cut or skipped). Prefill
+               4 x 2048 cold and warm; 128 teacher-forced and 32 greedy
+               decode steps into a float8 cache of 160. Checks: phase
+               ``moe``'s MoE check on every greedy step (its routing-flip
+               count and bound), phase ``lm``'s per-layer float8
+               attention check, every logit finite, one
+               ``flash_attention`` launch a layer a call: wgmma for
+               prefill, ``attn_splitk_f8`` for each decode step; the
+               peak of ``torch.cuda.max_memory_allocated``.
 15. train   -- LM training on the card. granite-8b ``CONFIG`` at full
                width cut to 4 of its 36 layers, ``train_4k`` cut to 2 x
                4096 tokens (about 130 GB of float32 masters, gradients
                and AdamW moments for the whole model; 20 GB for the cut),
                ``remat=True``, float32 masters cast to bf16 at use:
                three AdamW steps of the train step itself (step wall,
-               tokens/s, peak memory), then a ``TrainDriver`` run that
-               checkpoints after two steps and crashes at the third
+               tokens/s, peak memory). The same steps run again under
+               ``remat_policy="dots"`` (the matmul outputs kept): losses
+               and grad norms within 1e-6 relative of the ``"nothing"``
+               run's, the same launches, step walls and peak memory
+               beside it. Then a ``TrainDriver`` run that checkpoints
+               after two steps and crashes at the third
                (``FailureInjector``), and a resume from that checkpoint
                whose step equals the uninterrupted run's (loss and grad
-               norm, exactly). Then
+               norm, exactly) and whose parameters and AdamW state after
+               it equal the uninterrupted run's bit for bit. Then
                olmoe-1b-7b at full width, 2 of its 16 layers, for two
                steps (the MoE backward). Checks: (a) at the step's
                attention shape (Hq 32, Hkv 8, hd 128, causal, S 4096,
@@ -322,8 +362,9 @@ Phases, each printing one JSON line (``"phase": ...``, with
                at hd 96 on its mma.sync one, float32 on the CUDA-core
                one);
                (b) every loss and grad norm finite, and the loss of a
-               repeated batch falls over two more steps on it (the
-               schedule continued); (c) per layer and step, two
+               repeated batch falls over two more steps on it from the
+               resumed state (the schedule continued); (c) per layer and
+               step, two
                ``flash_attention`` launches on wgmma (forward and remat
                recompute) and one ``flash_attention_bwd`` on its wgmma
                route (``bwd_wgmma``), for granite-8b and for olmoe-1b-7b;
@@ -462,9 +503,22 @@ Phases, each printing one JSON line (``"phase": ...``, with
                TPU counterpart) at the training step's shape, beside its
                plain version, the backward of
                ``scaled_dot_product_attention`` and a bound of 10 hd
-               operations per visible pair at the bf16 peak.
+               operations per visible pair at the bf16 peak. Row 8',
+               ``flash_attention_f8``: the split-K kernel over a float8
+               cache (``attn_splitk_f8``) at granite-8b's decode, 4 x 1
+               over 544 keys and over 32,768 (``decode_32k``'s cache,
+               batch 128 -> 4), held to its plain version at the bf16
+               tolerance and bit for bit to the bf16 split-K route on the
+               cache's dequantised bf16 copy; at 544 keys a float32 q
+               over the same cache too (``attn_scalar`` on the float32
+               copies, p rounded to bf16 against each row's max: its
+               relative L2 error from the plain version at most 0.3 of
+               the error of leaving p unrounded, and within 1e-2
+               elementwise); ``device_ms`` beside the bf16 route's, the byte bound with k and v at one byte, and
+               SDPA on the bf16 copy as the library time (SDPA reads no
+               float8); its launches are phase ``lm``'s float8 decode's.
 
-Then a ``{"kernels": [...]}`` line, and last
+Then a ``{"kernels": [...]}`` line (thirteen rows), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once. It imports nothing of JAX and nothing of ``repro``.
@@ -623,6 +677,30 @@ ATTN_GRAPH_LAUNCHES = 50              # launches in a device_ms graph
 ATTN_BF16_TOL = 1e-2                  # atol = rtol, elementwise
 ATTN_BF16_ROW_REL_L2 = 1e-2
 ATTN_F32_TOL = (3e-5, 1e-4)           # atol, rtol
+# row 8': the split-K kernel over a float8 KV cache (route splitk_f8) at
+# granite-8b's decode shape over 544 keys and over decode_32k's cache
+# length (batch cut from 128 to 4): (name, B, Sq, Skv, Hq, Hkv, hd,
+# q_offset, kv_valid_len), k and v layer 1 of a two-layer float8 cache
+ATTN_F8_SHAPES = (("decode", 4, 1, 544, 32, 8, 128, 543, 544),
+                  ("decode_32k", 4, 1, 32768, 32, 8, 128, 32767, 32768))
+# and at "decode" a float32 q over the same cache (the float32 copies on
+# attn_scalar, p rounded to bf16 against each row's max as the plain
+# version does): the whole output's relative L2 error from the plain
+# version at most this share of the error of leaving p unrounded (a
+# score's last bit, summed in another order, can move p across a bf16
+# rounding boundary, so no elementwise float32 tolerance holds)
+ATTN_F8_F32_SHARE = 0.3
+# phase moonshot: moonshot-v1-16b-a3b at full width and depth in bf16,
+# prefill_32k cut to LM_BATCH x LM_PROMPT, a float8 cache of 160 slots:
+# 128 teacher-forced and 32 greedy decode steps; its need on the card is
+# the parameters and the cache plus MOONSHOT_HEADROOM (the prefill's
+# activations and the dense MoE oracle's float32 experts, under 3 GiB)
+MOONSHOT_ARCH = "moonshot-v1-16b-a3b"
+MOONSHOT_TEACHER, MOONSHOT_GREEDY = 128, 32
+MOONSHOT_HEADROOM = 6 << 30
+# phase train: the "dots" remat policy's losses and grad norms against
+# the "nothing" policy's, relative
+TRAIN_DOTS_REL = 1e-6
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -3518,9 +3596,103 @@ def latency(times) -> dict:
             "steps": len(ts)}
 
 
+class AttnRecorder:
+    """Wraps ``transformer.gqa_attention``: with ``check`` on, each call's
+    output is held to the plain version (``flash_attention_ref``: a float8
+    cache dequantised to bf16, p rounded to bf16) on the same q and cache
+    by ``check_bf16_attention`` (``ATTN_BF16_TOL`` elementwise,
+    ``ATTN_BF16_ROW_REL_L2`` a row); the largest error and relative L2
+    error of a row (one query, one q-head) are kept."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models import transformer
+        self.torch, self.ops, self.tm = torch, ops, transformer
+        self.fn = transformer.gqa_attention
+        self.check = False
+        self.checked = 0
+        self.max_abs_err = self.max_row_rel_l2 = 0.0
+
+    def __call__(self, q, k, v, causal=True, **kw):
+        out = self.fn(q, k, v, causal, **kw)
+        if self.check:
+            self.compare(q, k, v, causal, kw, out)
+        return out
+
+    def compare(self, q, k, v, causal, kw, out):
+        want = self.ops.flash_attention_ref(q, k, v, causal, **kw)
+        err, rel = check_bf16_attention(
+            self.torch, out, want,
+            f"decode attention over a {k.dtype} cache")
+        self.checked += 1
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.max_row_rel_l2 = max(self.max_row_rel_l2, rel)
+
+    def __enter__(self):
+        self.tm.gqa_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.gqa_attention = self.fn
+
+
+def decode_f8(torch, model, prompt, teacher: int, greedy: int,
+              checkers=()) -> dict:
+    """``decode_step`` into ``model.init_cache`` (float8: the model's
+    ``kv_cache_dtype`` is ``"f8"``): ``teacher`` teacher-forced steps on
+    ``prompt``, then ``greedy`` greedy ones, each ``checker``'s ``check``
+    on for the greedy steps. Every step's logits must be finite and its
+    ``attn_splitk_f8`` launches equal the layers. Returns the
+    teacher-forced logits (B, teacher, vocab), the cache, each step's
+    wall and launches, and the greedy tokens."""
+    from repro_torch.kernels import LAUNCHES
+    B = prompt.shape[0]
+    L = model.cfg.n_layers
+    cache = model.init_cache(B, teacher + greedy)
+    require(cache["k"].dtype == cache["v"].dtype == torch.float8_e4m3fn,
+            f"the f8 cache is {cache['k'].dtype}")
+    logits, t_teacher, t_greedy, per_step, tokens = [], [], [], [], []
+    tok = None
+    for i in range(teacher + greedy):
+        is_greedy = i >= teacher
+        for c in checkers:
+            c.check = is_greedy
+        inp = tok if is_greedy else prompt[:, i:i + 1]
+        n0 = LAUNCHES["attn_splitk_f8"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode_step(inp, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step.append(LAUNCHES["attn_splitk_f8"] - n0)
+        require(per_step[-1] == L,
+                f"decode step {i} into the f8 cache launched "
+                f"attn_splitk_f8 {per_step[-1]} times, not once per layer "
+                f"({L})")
+        require(bool(torch.isfinite(out).all()),
+                f"f8 decode step {i}: logits not finite")
+        tok = out[:, 0].argmax(-1, keepdim=True)
+        if is_greedy:
+            t_greedy.append(wall)
+            tokens.append(tok)
+        else:
+            t_teacher.append(wall)
+            logits.append(out[:, 0])
+    for c in checkers:
+        c.check = False
+    return {"logits": torch.stack(logits, 1), "cache": cache,
+            "t_teacher": t_teacher, "t_greedy": t_greedy,
+            "launches_per_step": per_step,
+            "greedy_tokens": torch.cat(tokens, 1)}
+
+
+def cache_bytes(cache) -> int:
+    return sum(cache[n].numel() * cache[n].element_size() for n in "kv")
+
+
 def phase_lm(torch) -> dict:
     """Phase 10 (see the module docstring): granite-8b served on the card,
-    with checks (a)-(d)."""
+    with checks (a)-(d), then into a float8 cache."""
     import dataclasses
     from repro_torch.configs import get
     from repro_torch.data.lm_data import TokenStream
@@ -3624,6 +3796,8 @@ def phase_lm(torch) -> dict:
                    "teacher_forced": latency(t_teacher),
                    "greedy": latency(t_greedy),
                    "tokens_per_s_greedy": B * len(t_greedy) / sum(t_greedy),
+                   "tokens_per_s_teacher": B * len(t_teacher)
+                   / sum(t_teacher),
                    "greedy_tokens": torch.cat(greedy, 1)[0, :8].tolist()},
         "profile": {"prefill": prof_prefill, "decode_step": prof_decode},
         "check_b": {"layers": cfg.n_layers, "dtype": "bfloat16",
@@ -3632,7 +3806,10 @@ def phase_lm(torch) -> dict:
                     "mean_rel_l2": float(rel.mean()),
                     "argmax_agreement": agree},
         "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    del model, cache, got, ref, rel, last
+    del ref, rel, last
+    f8 = lm_f8_decode(torch, model, prompt, got, cache)
+    out["f8"] = f8
+    del model, cache, got
     torch.cuda.empty_cache()
 
     # -- check (a): full width, float32, depth cut
@@ -3663,13 +3840,75 @@ def phase_lm(torch) -> dict:
     torch.cuda.empty_cache()
     emit(out)
     return {"launches": launches, "per_call": cfg.n_layers, "calls": calls,
-            "routes": routes}
+            "routes": routes, "f8_launches": f8["launches"],
+            "f8_steps": f8["steps"]}
 
 
-# phase moe: olmoe-1b-7b (arXiv:2409.02060) at full width and depth in
-# bf16, served as phase lm serves granite-8b (prefill_32k cut to 4 x 2048;
-# 512 teacher-forced + 32 greedy decode steps into a 544-slot cache)
+def lm_f8_decode(torch, model, prompt, got_bf16, cache_bf16) -> dict:
+    """Phase lm's float8 cache: ``RunOptions(kv_cache_dtype="f8")`` on the
+    same model, ``LM_TEACHER`` teacher-forced and ``LM_GREEDY`` greedy
+    steps into a float8 cache of the same slots, each step's
+    ``attn_splitk_f8`` launches counted and every greedy step's attention
+    held to its plain version (``AttnRecorder``); per-step latency,
+    tokens/s and the cache's bytes beside the bf16 run's, and the logits'
+    divergence from the bf16 cache's (a finding: no bound)."""
+    import dataclasses
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    B, L = prompt.shape[0], model.cfg.n_layers
+    model.opts = dataclasses.replace(model.opts, kv_cache_dtype="f8")
+    rec = AttnRecorder(torch)
+    reset_launches()
+    with rec:
+        run = decode_f8(torch, model, prompt, LM_TEACHER, LM_GREEDY, (rec,))
+    model.opts = dataclasses.replace(model.opts, kv_cache_dtype="bf16")
+    steps = LM_TEACHER + LM_GREEDY
+    routes = attn_counts(LAUNCHES, fops)
+    want = dict.fromkeys(fops.ROUTES, 0)
+    want["splitk_f8"] = L * steps
+    require(routes == want and LAUNCHES["flash_attention"] == L * steps,
+            f"lm f8: flash_attention routes {routes}, expected {want}")
+    require(rec.checked == L * LM_GREEDY,
+            f"lm f8: {rec.checked} attention calls held to the plain "
+            f"version, expected {L * LM_GREEDY}")
+    got = run["logits"]
+    rel = (got - got_bf16).norm(dim=-1) / got_bf16.norm(dim=-1)
+    agree = float((got.argmax(-1) == got_bf16.argmax(-1)).float().mean())
+    t_teacher = run["t_teacher"]
+    res = {"kv_cache_dtype": "f8", "max_len": steps,
+           "cache_bytes": cache_bytes(run["cache"]),
+           "cache_bytes_bf16": cache_bytes(cache_bf16),
+           "teacher_forced": latency(t_teacher),
+           "greedy_with_checks": latency(run["t_greedy"]),
+           "tokens_per_s_teacher": B * len(t_teacher) / sum(t_teacher),
+           "launches": LAUNCHES["flash_attention"], "steps": steps,
+           "routes": routes, "launches_per_step": sorted(set(
+               run["launches_per_step"])),
+           "attention_check": {"calls": rec.checked,
+                               "max_abs_err": rec.max_abs_err,
+                               "max_row_rel_l2": rec.max_row_rel_l2,
+                               "atol": ATTN_BF16_TOL,
+                               "rtol": ATTN_BF16_TOL,
+                               "row_rel_l2_bound": ATTN_BF16_ROW_REL_L2},
+           "vs_bf16_cache": {"positions": LM_TEACHER,
+                             "median_rel_l2": float(rel.median()),
+                             "max_rel_l2": float(rel.max()),
+                             "argmax_agreement": agree},
+           "greedy_tokens": run["greedy_tokens"][0, :8].tolist()}
+    del run, got, rel
+    torch.cuda.empty_cache()
+    return res
+
+
+# phase moe: olmoe-1b-7b (arXiv:2409.02060) at full width in bf16, cut
+# to MOE_LAYERS of its 16 layers, served as phase lm serves granite-8b
+# (prefill_32k cut to 4 x 2048; 512 teacher-forced + 32 greedy decode
+# steps into a 544-slot cache). The depth is cut to keep the script within
+# its time limit since phase moonshot, which runs the same MoE serving
+# path at full depth (48 layers)
 MOE_ARCH = "olmoe-1b-7b"
+MOE_LAYERS = 4
 # each greedy step's MoE layers against moe_ffn_dense_ref: the relative L2
 # error of a token's output row, bf16 expert products and combine against
 # float32 (about 2**-8 of a value each)
@@ -3681,12 +3920,15 @@ MOE_DENSE_REL_L2 = 3e-2
 MOE_ROUTING_FLIP_MAX = 0.2
 # decode against the teacher-forced forward: in float32 at full width and
 # MOE_CHECK_LAYERS layers at phase lm's LM_F32_TOL (router ties cannot
-# flip there); in bf16 at full depth a near tie flips an expert wherever
+# flip there); in bf16 at MOE_LAYERS a near tie flips an expert wherever
 # the two paths' hidden states differ in the last bit, so the relative L2
 # error's median is bounded by LM_BF16_REL_L2, the share of positions
 # above it by MOE_BF16_ABOVE_MAX, the share of positions whose argmax
-# token agrees from below by MOE_BF16_ARGMAX_MIN, and its max reported
-# (on the H100: 7.3% above, 95.1% agreeing, max 0.092)
+# token agrees from below by MOE_BF16_ARGMAX_MIN, and its max reported.
+# The bounds hold the readings at MOE_LAYERS (on the H100: median 0.0080,
+# 9.96% above, 95.17% agreeing, max 0.125) with a margin of 1.5x on the
+# share above and 5 points on the agreement; at all 16 layers the H100
+# read 7.3% above, 95.1% agreeing, max 0.092
 MOE_CHECK_LAYERS = 4
 MOE_BF16_ABOVE_MAX = 0.15
 MOE_BF16_ARGMAX_MIN = 0.9
@@ -3741,7 +3983,8 @@ class MoeRecorder:
 
 
 def phase_moe(torch) -> dict:
-    """Phase 14: olmoe-1b-7b served on the card at full width and depth."""
+    """Phase 14: olmoe-1b-7b served on the card at full width, cut to
+    ``MOE_LAYERS`` layers."""
     import dataclasses
     from repro_torch.configs import get
     from repro_torch.data.lm_data import TokenStream
@@ -3750,7 +3993,8 @@ def phase_moe(torch) -> dict:
     from repro_torch.models import moe
     from repro_torch.models.transformer import LM
 
-    cfg = get(MOE_ARCH).CONFIG
+    full = get(MOE_ARCH).CONFIG
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
     B = LM_BATCH
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3760,7 +4004,8 @@ def phase_moe(torch) -> dict:
     out = {"phase": "moe", "arch": cfg.name, "dtype": str(model.dtype),
            "config": dataclasses.asdict(cfg),
            "reduced": {"seq_len": [32768, LM_PROMPT],
-                       "global_batch": [32, LM_BATCH]},
+                       "global_batch": [32, LM_BATCH],
+                       "n_layers": [full.n_layers, MOE_LAYERS]},
            "params": model.param_count(), "param_bytes": model.param_bytes(),
            "moe_groups": model.opts.moe_groups,
            "t_init_s": time.perf_counter() - t0}
@@ -3840,7 +4085,8 @@ def phase_moe(torch) -> dict:
     agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     require(med_rel <= LM_BF16_REL_L2 and above <= MOE_BF16_ABOVE_MAX
             and agree >= MOE_BF16_ARGMAX_MIN,
-            f"moe: decode vs forward (bf16, full depth): median relative "
+            f"moe: decode vs forward (bf16, {cfg.n_layers} layers): median "
+            f"relative "
             f"L2 {med_rel} (bound {LM_BF16_REL_L2}), {above} of positions "
             f"above it (bound {MOE_BF16_ABOVE_MAX}), argmax agreement "
             f"{agree} (floor {MOE_BF16_ARGMAX_MIN})")
@@ -3913,6 +4159,131 @@ def phase_moe(torch) -> dict:
     return out
 
 
+def phase_moonshot(torch) -> dict:
+    """Phase 14a: moonshot-v1-16b-a3b at full width and depth in bf16,
+    served with a float8 KV cache (``RunOptions(kv_cache_dtype="f8")``)."""
+    import dataclasses
+    from repro_torch.config import RunOptions
+    from repro_torch.configs import get
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.transformer import LM
+
+    cfg = get(MOONSHOT_ARCH).CONFIG
+    B, L = LM_BATCH, cfg.n_layers
+    steps = MOONSHOT_TEACHER + MOONSHOT_GREEDY
+    kv = 2 * L * B * steps * cfg.n_kv_heads * cfg.hd          # one byte
+    need = 2 * cfg.param_count() + kv + MOONSHOT_HEADROOM
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    require(free >= need,
+            f"moonshot: {free} bytes free on the card of {total}, the "
+            f"phase needs {need} ({cfg.param_count()} bf16 parameters, a "
+            f"{kv}-byte f8 cache and {MOONSHOT_HEADROOM} of headroom); it "
+            f"is never cut")
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()   # earlier phases'
+    t0 = time.perf_counter()
+    model = LM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+               opts=RunOptions(kv_cache_dtype="f8"), device="cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "moonshot", "arch": cfg.name, "dtype": str(model.dtype),
+           "config": dataclasses.asdict(cfg), "kv_cache_dtype": "f8",
+           "reduced": {"seq_len": [32768, LM_PROMPT],
+                       "global_batch": [32, LM_BATCH]},
+           "params": model.param_count(), "param_bytes": model.param_bytes(),
+           "free_bytes_before": free, "need_bytes": need,
+           "allocated_before": allocated_before,
+           "moe_groups": model.opts.moe_groups,
+           "t_init_s": time.perf_counter() - t0}
+    tokens, _ = TokenStream(cfg.vocab, B, LM_PROMPT, seed=0).batch_at(0)
+    prompt = torch.from_numpy(tokens).to("cuda", torch.long)
+    moe_rec, attn_rec = MoeRecorder(torch), AttnRecorder(torch)
+    with moe_rec, attn_rec:
+        reset_launches()
+        t_prefill = []
+        for i in range(2):               # cold, then warm
+            moe_rec.drops = i == 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = model.prefill(prompt)
+            torch.cuda.synchronize()
+            t_prefill.append(time.perf_counter() - t0)
+            require(last.shape == (B, 1, cfg.vocab)
+                    and bool(torch.isfinite(last).all()),
+                    "moonshot prefill logits: wrong shape or not finite")
+        moe_rec.drops = False
+        prefill_routes = attn_counts(LAUNCHES, fops)
+        run = decode_f8(torch, model, prompt, MOONSHOT_TEACHER,
+                        MOONSHOT_GREEDY, (moe_rec, attn_rec))
+        torch.cuda.synchronize()
+    routes = attn_counts(LAUNCHES, fops)
+    want = dict.fromkeys(fops.ROUTES, 0)
+    want["wgmma"] = 2 * L
+    want["splitk_f8"] = L * steps
+    require(routes == want and LAUNCHES["flash_attention"] == L * (2 + steps)
+            and prefill_routes["wgmma"] == 2 * L,
+            f"moonshot: flash_attention routes {routes} (after the "
+            f"prefills {prefill_routes}), expected {want}: one launch a "
+            f"layer a call, prefill on wgmma, decode on splitk_f8")
+    require(moe_rec.calls == L * (2 + steps),
+            f"moonshot: moe_ffn ran {moe_rec.calls} times, expected "
+            f"{L * (2 + steps)}")
+    checked = MOONSHOT_GREEDY * L
+    require(moe_rec.compared + moe_rec.flipped == checked * B,
+            "moonshot: not every greedy step's MoE layers were held to the "
+            "oracle")
+    flip_share = moe_rec.flipped / (checked * B)
+    require(moe_rec.max_rel <= MOE_DENSE_REL_L2
+            and flip_share <= MOE_ROUTING_FLIP_MAX,
+            f"moonshot: decode MoE layers against moe_ffn_dense_ref: max "
+            f"row relative L2 {moe_rec.max_rel} (bound {MOE_DENSE_REL_L2}), "
+            f"routing flips {flip_share} (bound {MOE_ROUTING_FLIP_MAX})")
+    require(attn_rec.checked == checked,
+            f"moonshot: {attn_rec.checked} attention calls held to the "
+            f"plain version, expected {checked}")
+    t_teacher = run["t_teacher"]
+    out.update({
+        "calls": {"prefill": 2, "decode_step": steps},
+        "launches": {"flash_attention": LAUNCHES["flash_attention"],
+                     **routes},
+        "launches_per_step": sorted(set(run["launches_per_step"])),
+        "prefill": {"tokens": B * LM_PROMPT, "t_cold_s": t_prefill[0],
+                    "t_warm_s": t_prefill[1],
+                    "tokens_per_s_warm": B * LM_PROMPT / t_prefill[1],
+                    "dropped_share": sum(moe_rec.dropped)
+                    / len(moe_rec.dropped)},
+        "decode": {"max_len": steps,
+                   "cache_bytes": cache_bytes(run["cache"]),
+                   "cache_bytes_if_bf16": 2 * cache_bytes(run["cache"]),
+                   "teacher_forced": latency(t_teacher),
+                   "greedy_with_checks": latency(run["t_greedy"]),
+                   "tokens_per_s_teacher": B * len(t_teacher)
+                   / sum(t_teacher),
+                   "greedy_tokens": run["greedy_tokens"][0, :8].tolist()},
+        "check_dense_oracle": {"layers_checked": checked,
+                               "tokens_compared": moe_rec.compared,
+                               "routing_flips": moe_rec.flipped,
+                               "flip_share": flip_share,
+                               "flip_bound": MOE_ROUTING_FLIP_MAX,
+                               "max_row_rel_l2": moe_rec.max_rel,
+                               "bound": MOE_DENSE_REL_L2},
+        "attention_check": {"calls": attn_rec.checked,
+                            "max_abs_err": attn_rec.max_abs_err,
+                            "max_row_rel_l2": attn_rec.max_row_rel_l2,
+                            "atol": ATTN_BF16_TOL, "rtol": ATTN_BF16_TOL,
+                            "row_rel_l2_bound": ATTN_BF16_ROW_REL_L2},
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del model, run, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return {"launches": out["launches"]["splitk_f8"], "steps": steps,
+            "layers": L}
+
+
 # phase train: granite-8b at full width, cut to TRAIN_LAYERS of its 36
 # layers and train_4k cut to TRAIN_BATCH x TRAIN_SEQ (about 130 GB at 16
 # bytes a parameter for the whole model; 20 GB for the cut), three AdamW
@@ -3926,7 +4297,9 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
 # check (b): two more steps on batch 0, the schedule continued (counts 3
 # and 4 of its 100-step warm-up, lr 9e-6 and 1.2e-5); at its peak (3e-4)
 # the first step of a random 4096-wide model overshoots (7.38 -> 12.27 on
-# the H100)
+# the H100). Cut to 2 layers the same two steps raise the loss (7.49 ->
+# 8.86 on the H100) from the resumed and the uninterrupted state alike
+# (probes/train_resume_depth.py), so the check runs at 4 layers
 TRAIN_REPEATS = 2
 TRAIN_DIR = os.path.join(ROOT, "build", "smoke_train")
 # check (a): the forward's lse-writing instance (the one training runs)
@@ -3984,6 +4357,56 @@ def run_driver(torch, bundle, ckpt_dir, total, fail_at=None):
     except RuntimeError as e:
         driver.mgr.wait()
         return None, driver.step_times, str(e)
+
+
+def run_steps(torch, bundle, steps: int = TRAIN_STEPS):
+    """``steps`` steps of ``bundle`` from its seeded init on the card, no
+    driver and no checkpoint, the launch counts and the peak memory reset
+    first: (params, opt state, history, step walls, memory, batch_fn);
+    memory is ``max_memory_allocated`` and ``own_peak_bytes``, the peak
+    above what was allocated before the run (the state a caller holds
+    meanwhile, or an earlier phase's)."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.train import make_init_and_batches
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
+    params, opt = init_state()
+    history, walls = [], []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, *batch_fn(step))
+        history.append({"step": step,
+                        **{k: float(v) for k, v in m.items()}})
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (params, opt, history, walls, {"max_memory_allocated": peak,
+                                          "own_peak_bytes": peak - held},
+            batch_fn)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two trees (``repro_torch.pytree``) with equal key paths whose
+    tensor leaves are equal bit for bit (type, shape, bytes) and whose
+    other leaves are equal."""
+    from repro_torch.pytree import flatten
+    fa, fb = flatten(a), flatten(b)
+    if [k for k, _ in fa] != [k for k, _ in fb]:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for (_, x), (_, y) in zip(fa, fb):
+        if not torch.is_tensor(x):
+            if torch.is_tensor(y) or x != y:
+                return False
+        elif not (torch.is_tensor(y) and x.dtype == y.dtype
+                  and x.shape == y.shape and torch.equal(
+                      x.view(ints[x.element_size()]),
+                      y.view(ints[y.element_size()]))):
+            return False
+    return True
 
 
 def bwd_inputs(torch, gen, B, S, Hq, Hkv, hd, dt):
@@ -4122,6 +4545,40 @@ def check_grad_ref(torch, fops) -> dict:
     return out
 
 
+def train_dots(torch, opts, history, launches, want) -> dict:
+    """Phase train's ``remat_policy="dots"`` run: the uninterrupted steps
+    again from the same masters and batches under the selective
+    checkpoint that keeps the matmul outputs. Its losses and grad norms
+    must equal the ``"nothing"`` run's (``history``) within
+    ``TRAIN_DOTS_REL`` relative, and it launches what that run did (the
+    recompute launches the attention kernel again: it is not a matmul).
+    Step walls and the peak memory beside the other policy's."""
+    import dataclasses
+    from repro_torch.kernels import LAUNCHES
+
+    dopts = dataclasses.replace(opts, remat_policy="dots")
+    bundle = train_bundle(TRAIN_ARCH, TRAIN_LAYERS, dopts)
+    params, opt, hist, times, mem, _ = run_steps(torch, bundle)
+    got = {k: LAUNCHES[k] for k in launches}
+    require(got == want,
+            f"train dots: launches {got}, expected {want} (the recompute "
+            f"launches the attention forward again)")
+    worst = 0.0
+    for h, w in zip(hist, history):
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(h[key] - w[key]) / abs(w[key]))
+    require(worst <= TRAIN_DOTS_REL,
+            f"train dots: loss or grad norm {worst} relative from the "
+            f"'nothing' policy's (bound {TRAIN_DOTS_REL}): {hist} against "
+            f"{history}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"remat_policy": "dots", "history": hist, "step_wall_s": times,
+            "max_rel_diff_vs_nothing": worst, "bound": TRAIN_DOTS_REL,
+            "launches": got, **mem}
+
+
 def phase_train(torch) -> dict:
     """Phase 15: LM training on the card (granite-8b cut in depth through
     the fault-tolerant driver, then olmoe-1b-7b cut in depth), with checks
@@ -4129,9 +4586,8 @@ def phase_train(torch) -> dict:
     import math
     import shutil
     from repro_torch.config import RunOptions
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.launch.train import make_init_and_batches
     from repro_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4152,20 +4608,9 @@ def phase_train(torch) -> dict:
     # -- the uninterrupted run, the step itself with no driver and no
     # checkpoint, counted: forward + remat recompute + backward of every
     # layer each step
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     t0 = time.perf_counter()
-    init_state, batch_fn = make_init_and_batches(bundle, "cuda")
-    params, opt = init_state()
-    history, ref_times = [], []
-    for step in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params, opt, m = bundle.step_fn(params, opt, *batch_fn(step))
-        history.append({"step": step,
-                        **{k: float(v) for k, v in m.items()}})
-        ref_times.append(time.perf_counter() - t1)
-    torch.cuda.synchronize()
+    params, opt, history, ref_times, mem, batch_fn = run_steps(torch,
+                                                               bundle)
     t_ref = time.perf_counter() - t0
     launches = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
                                          "flash_attention_bwd", "bwd_wgmma")}
@@ -4178,10 +4623,11 @@ def phase_train(torch) -> dict:
             f"check (c): launches {launches}, expected {want} (forward and "
             f"remat recompute on wgmma, one backward on wgmma, per layer "
             f"and step)")
-    peak = torch.cuda.max_memory_allocated()
-    del params, opt, m
-    gc.collect()
-    torch.cuda.empty_cache()
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in history),
+            f"check (b): a loss or grad norm is not finite: {history}")
+    # the uninterrupted state is kept for the resumed one to equal
+    dots = train_dots(torch, opts, history, launches, want)
 
     # -- crash after the checkpoint of step 2, then resume
     crash_dir = os.path.join(TRAIN_DIR, "crash")
@@ -4206,11 +4652,15 @@ def phase_train(torch) -> dict:
     require(got == history[TRAIN_CKPT_EVERY:],
             f"train: resumed history {got} differs from the uninterrupted "
             f"{history[TRAIN_CKPT_EVERY:]}")
-    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-                for h in history),
-            f"check (b): a loss or grad norm is not finite: {history}")
+    params_equal = same_bits(torch, resumed["params"], params)
+    opt_equal = same_bits(torch, resumed["opt_state"], opt)
+    require(params_equal and opt_equal,
+            f"train: the resumed run's state after its step differs from "
+            f"the uninterrupted run's (parameters equal: {params_equal}, "
+            f"AdamW state equal: {opt_equal})")
+    del params, opt
 
-    # -- check (b): the repeated batch's loss falls
+    # -- check (b): the repeated batch's loss falls, from the resumed state
     params, opt = resumed["params"], resumed["opt_state"]
     del resumed
     tok, tgt = batch_fn(0)
@@ -4236,26 +4686,18 @@ def phase_train(torch) -> dict:
         "t_crash_run_s": t1 - t0, "t_resume_s": t_resume,
         "checkpoint": {"after_step": TRAIN_CKPT_EVERY - 1, "crashed_at":
                        TRAIN_CKPT_EVERY, "resumed_history": got,
-                       "resume_exact": True},
+                       "resume_exact": True,
+                       "resumed_state_equal_bitwise": True},
         "repeated_batch_loss": repeated,
         "launches": launches, "launches_per_step":
             {k: v // TRAIN_STEPS for k, v in launches.items()},
-        "max_memory_allocated": peak})
+        **mem, "remat_dots": dots})
 
     # -- olmoe-1b-7b at full width, 2 of 16 layers: the MoE backward
     mopts = RunOptions(remat=True, seq_parallel=False, moe_groups=4)
     mbundle = train_bundle(MOE_ARCH, MOE_TRAIN_LAYERS, mopts)
-    init_state, batch_fn = make_init_and_batches(mbundle, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    params, opt = init_state()
-    reset_launches()
-    mhist, mtimes = [], []
-    for step in range(MOE_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, m = mbundle.step_fn(params, opt, *batch_fn(step))
-        mhist.append({k: float(v) for k, v in m.items()})
-        mtimes.append(time.perf_counter() - t0)
+    params, opt, mhist, mtimes, mmem, _ = run_steps(torch, mbundle,
+                                                     MOE_TRAIN_STEPS)
     mlaunch = {k: LAUNCHES[k] for k in ("flash_attention", "attn_wgmma",
                                         "flash_attention_bwd", "bwd_wgmma")}
     Lm = MOE_TRAIN_LAYERS
@@ -4273,8 +4715,8 @@ def phase_train(torch) -> dict:
         "global_batch": [256, TRAIN_BATCH]}, "moe_groups": 4,
         "history": mhist, "step_wall_s": mtimes,
         "tokens_per_s": tokens / mtimes[-1], "launches": mlaunch,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    del params, opt, m
+        **mmem}
+    del params, opt
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5276,6 +5718,152 @@ def flash_attention_row(torch, lm) -> dict:
             **shapes}
 
 
+def f8_float32_q(torch, fops, q, k, v, kw) -> dict:
+    """A float32 q over a float8 cache: one ``attn_scalar`` launch on the
+    float32 copies, p rounded to bf16 against each row's max; its
+    relative L2 error from the plain version (which rounds p alike) at
+    most ``ATTN_F8_F32_SHARE`` of the plain version's own error when p is
+    left unrounded (over float32 copies), and within the bf16 tolerance
+    elementwise."""
+    from repro_torch.kernels import LAUNCHES
+    before = attn_counts(LAUNCHES, fops)
+    got = fops.flash_attention_cuda(q, k, v, True, **kw)
+    after = attn_counts(LAUNCHES, fops)
+    taken = [r for r in after if after[r] > before[r]]
+    require(taken == ["scalar"],
+            f"a float32 q over the f8 cache took {taken}")
+    want = fops.flash_attention_ref(q, k, v, True, **kw)
+    unrounded = fops.flash_attention_ref(q, k.float(), v.float(), True,
+                                         **kw)
+    err = float((got - want).norm() / want.norm())
+    gap = float((unrounded - want).norm() / want.norm())
+    max_abs = float((got - want).abs().max())
+    require(torch.allclose(got, want, atol=ATTN_BF16_TOL, rtol=ATTN_BF16_TOL)
+            and err <= ATTN_F8_F32_SHARE * gap,
+            f"attn_scalar over the f8 cache: relative L2 {err} from the "
+            f"plain version against {gap} unrounded (share bound "
+            f"{ATTN_F8_F32_SHARE}), max abs err {max_abs}")
+    return {"route": "scalar", "rel_l2": err, "rel_l2_p_unrounded": gap,
+            "share": err / gap, "share_bound": ATTN_F8_F32_SHARE,
+            "max_abs_err": max_abs,
+            "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
+                q, k, v, True, **kw))}
+
+
+def flash_attention_f8_row(torch, lm, moonshot) -> dict:
+    """Row 8': the split-K kernel over a float8 KV cache
+    (``attn_splitk_f8``) at ``ATTN_F8_SHAPES`` on seeded inputs (k and v
+    quantised with ``quantize_f8``, layer 1 of a two-layer cache whose
+    keys past the valid length are NaN): held to its plain version at the
+    bf16 tolerance and to the bf16 route on the dequantised bf16 copy of
+    the same cache (the same values in the same order: bit for bit), at
+    ``"decode"`` also a float32 q (``f8_float32_q``); timed beside both,
+    ``scaled_dot_product_attention`` on the bf16 copy (SDPA reads no
+    float8) and the bound with k and v at one byte. The
+    row's launches are phase lm's float8 decode's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.transformer import quantize_f8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = {}
+    for name, B, Sq, Skv, Hq, Hkv, hd, q_offset, valid in ATTN_F8_SHAPES:
+        q = torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda") \
+            .bfloat16()
+        cache = [quantize_f8(torch.randn((2, B, Skv, Hkv, hd),
+                                         generator=gen, device="cuda"))
+                 for _ in range(2)]
+        nan = quantize_f8(torch.full((1,), float("nan"), device="cuda"))
+        for c in cache:
+            c[:, :, valid:] = nan
+        k, v = cache[0][1], cache[1][1]
+        kb, vb = k.bfloat16(), v.bfloat16()          # the same values
+        kw = {"q_offset": q_offset, "kv_valid_len": valid}
+
+        def kernel(*a):
+            return fops.flash_attention_cuda(*a, True, **kw)
+
+        def plain(*a):
+            return fops.flash_attention_ref(*a, True, **kw)
+
+        route, chunk, splits = fops.attention_plan(q, k, v, True, **kw,
+                                                   sms=sms)
+        require(route == "splitk_f8",
+                f"flash_attention plans {route} over the f8 cache at {name}")
+        before = attn_counts(LAUNCHES, fops)
+        got = kernel(q, k, v)
+        after = attn_counts(LAUNCHES, fops)
+        taken = [r for r in after if after[r] > before[r]]
+        require(taken == ["splitk_f8"],
+                f"flash_attention over the f8 cache at {name} took {taken}")
+        err, rel = check_bf16_attention(torch, got, plain(q, k, v),
+                                        f"attn_splitk_f8 at {name}")
+        same = kernel(q, kb, vb)
+        require(torch.equal(got.view(torch.int16), same.view(torch.int16)),
+                f"attn_splitk_f8 at {name} differs from the bf16 split-K "
+                f"route on the dequantised copy (max abs "
+                f"{float((got.float() - same.float()).abs().max())})")
+        del got, same
+        f32 = f8_float32_q(torch, fops, q.float(), k, v, kw) \
+            if name == "decode" else None
+        qt, kt, vt = (q.transpose(1, 2), kb[:, :valid].transpose(1, 2),
+                      vb[:, :valid].transpose(1, 2))
+
+        def sdpa():      # one query over every valid key: no mask
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+
+        pairs, n_ops, _ = attention_work(B, Sq, Skv, Hq, Hkv, hd, q_offset,
+                                         valid)
+        nbytes = 2 * 2 * B * Sq * Hq * hd + 1 * 2 * B * valid * Hkv * hd
+        shapes[name] = {
+            "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
+                      "hd": hd, "q_offset": q_offset, "kv_valid_len": valid,
+                      "kv_dtype": "float8_e4m3fn"},
+            "chunk": chunk, "splits": splits,
+            "max_abs_err": err, "max_row_rel_l2": rel,
+            "bitwise_equal_to_bf16_route_on_copy": True,
+            "ms": cuda_ms(torch, kernel, lambda: (q, k, v)),
+            "plain_ms": cuda_ms(torch, plain, lambda: (q, k, v)),
+            "library_ms": cuda_ms(torch, sdpa),
+            "bf16_route_ms": cuda_ms(torch, kernel, lambda: (q, kb, vb)),
+            "device_ms": graph_ms(torch, lambda: kernel(q, k, v)),
+            "bf16_route_device_ms": graph_ms(torch,
+                                             lambda: kernel(q, kb, vb)),
+            "library_device_ms": graph_ms(torch, sdpa),
+            "device_ms_launches": ATTN_GRAPH_LAUNCHES,
+            **({"float32_q": f32} if f32 else {}),
+            "pairs_per_head": pairs, "ops": n_ops,
+            "bf16_route_bound_ms": bound(
+                nbytes + 2 * B * valid * Hkv * hd,
+                n_ops / BF16_OPS_PER_S * 1e3)["bound_ms"],
+            **bound(nbytes, n_ops / BF16_OPS_PER_S * 1e3)}
+        del q, k, v, kb, vb, cache, qt, kt, vt
+        torch.cuda.empty_cache()
+    head = shapes["decode"]
+    src, replaces = KERNEL_ROWS["flash_attention"]
+    return {"name": "flash_attention_f8", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": lm["f8_launches"],
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "kernel_route": "attn_splitk_f8",
+            "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                            " (enable_gqa, no mask: one query over every "
+                            "valid key) on a bf16 copy of the float8 cache, "
+                            "since SDPA reads no float8",
+            "tolerance": {"atol": ATTN_BF16_TOL, "rtol": ATTN_BF16_TOL,
+                          "row_rel_l2": ATTN_BF16_ROW_REL_L2},
+            "launches_from": "phase lm's float8 decode (decode_step into "
+                             "a float8 cache)",
+            "launch_steps": lm["f8_steps"],
+            "moonshot_launches": moonshot["launches"],
+            **shapes}
+
+
 def overlap_work(torch, a_v, b_v) -> dict:
     """The work ``path_overlap``'s kernel does on these rows
     (``csrc/path_join.cu``): per tile of 32 A rows, the distinct
@@ -5846,6 +6434,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm = phase_lm(torch)
     phase_moe(torch)
+    moonshot = phase_moonshot(torch)
     train = phase_train(torch)
     phase_gnn(torch)
     phase_recsys(torch)
@@ -5853,6 +6442,9 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,
                          ops, w1_rec, lm, main_index, engine)
+    r = flash_attention_f8_row(torch, lm, moonshot)
+    emit({"phase": "kernel", **r})
+    rows.append(r)
     r = flash_attention_bwd_row(torch, train)
     emit({"phase": "kernel", **r})
     rows.append(r)

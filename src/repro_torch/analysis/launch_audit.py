@@ -268,7 +268,8 @@ _LM = ("the LM path (models/transformer, its serving and training), not "
        "tests/test_torch_flash_attention.py")
 AUDIT_EXEMPT_KERNELS: Dict[str, str] = {
     "flash_attention": _LM, "flash_attention_bwd": _LM,
-    "attn_wgmma": _LM, "attn_splitk": _LM, "attn_mma": _LM,
+    "attn_wgmma": _LM, "attn_splitk": _LM, "attn_splitk_f8": _LM,
+    "attn_mma": _LM,
     "attn_scalar": _LM, "bwd_wgmma": _LM, "bwd_mma": _LM, "bwd_scalar": _LM,
     "msbfs_expand": "the ops API's single hop (msbfs_hop_packed), not the "
                     "engine's level: the fused msbfs_step carries the "

@@ -59,14 +59,26 @@
 //    double-buffered over 32-key tiles, and writes float32 partials (m,
 //    l, acc) to scratch; a second launch merges them by log-sum-exp. A
 //    chunk that sees no key writes m = -inf, l = 0 and adds nothing.
+//    The same kernel reads a float8 (e4m3) KV cache (route splitk_f8,
+//    bf16 q): a tile is staged as stored, one byte a value, so the
+//    cp.async copies and the shared memory halve, and each value is
+//    widened exactly to float where the products read it (cvt.rn.f16x2.
+//    e4m3x2); bound: half the bytes (4.5 MB at batch 4 and 544 keys).
 //  * attn_mma_kernel -- every other bf16 shape (rows > 16 at hd not 64 or
 //    128, or with unaligned strides): mma.sync m16n8k16, 4 warps x 16
 //    rows, 64-key tiles loaded then used.
 //  * attn_scalar_kernel -- float32: CUDA-core FMAs on 32 x 32 tiles staged
 //    in shared memory; exact f32 softmax (no rounding of p). It exists for
 //    the float32 model and for checks at the float32 tolerances; it is
-//    bounded by shared-memory traffic, far from the f32 peak.
+//    bounded by shared-memory traffic, far from the f32 peak. Over a
+//    float8 cache (round_p, the keys and values copied to float32 by the
+//    wrapper) it rounds p to bf16 before the PV product, as the reference
+//    does: a first pass over the key tiles finds each row's max, so that
+//    p = exp(s - max) is rounded against the row's max and not against a
+//    running one (the score products are done twice).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include <cmath>
 
@@ -90,6 +102,8 @@ struct AttnArgs {
   // (B, Hq, Sq) float32: each row's log-sum-exp m + log l (natural log;
   // -inf for a row that sees no key), for the backward; null to skip
   float* lse;
+  // attn_scalar_kernel over a float8 cache: p rounded to bf16 for PV
+  int round_p;
 };
 
 constexpr float LN2 = 0.6931471805599453f;
@@ -137,6 +151,53 @@ size_t scalar_smem_bytes(int hd) {
           3 * S_BM);
 }
 
+// keys [j0, j0 + nk) of the tile into sK (and the values into sV unless
+// it is null), zeros past nk
+__device__ __forceinline__ void scalar_load_kv(const AttnArgs& a,
+                                               const float* k,
+                                               const float* v, float* sK,
+                                               float* sV, int j0, int nk) {
+  const int hd = a.hd, ld = hd + 1;
+  for (int e = threadIdx.x; e < S_BN * hd; e += S_THREADS) {
+    const int c = e / hd, d = e - c * hd;
+    float kx = 0.0f, vx = 0.0f;
+    if (c < nk) {
+      const long long j = j0 + c;
+      kx = k[j * a.k_ss + d];
+      if (sV != nullptr) vx = v[j * a.v_ss + d];
+    }
+    sK[c * ld + d] = kx;
+    if (sV != nullptr) sV[c * ld + d] = vx;
+  }
+}
+
+// the tile's scaled scores into sS, -inf where a key is hidden: thread
+// owns row tid / 4, columns tid % 4 + 4u
+__device__ __forceinline__ void scalar_scores(const AttnArgs& a,
+                                              const float* sQ,
+                                              const float* sK, float* sS,
+                                              int r0, int j0, int nk) {
+  const int hd = a.hd, ld = hd + 1;
+  const int rr = threadIdx.x >> 2, c0 = threadIdx.x & 3;
+  float s[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) s[u] = 0.0f;
+  for (int d = 0; d < hd; ++d) {
+    const float qd = sQ[rr * ld + d];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      s[u] = fmaf(qd, sK[(c0 + 4 * u) * ld + d], s[u]);
+  }
+  const long long lim = static_cast<long long>(a.q_offset) +
+                        (r0 + rr) / a.group;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = c0 + 4 * u, j = j0 + c;
+    const bool vis = c < nk && (!a.causal || j <= lim);
+    sS[rr * S_LDS + c] = vis ? s[u] * a.scale : -INFINITY;
+  }
+}
+
 // KD = ceil(hd / 32): each thread owns 8 rows x KD columns of acc
 template <int KD>
 __global__ void __launch_bounds__(S_THREADS)
@@ -181,41 +242,29 @@ __global__ void __launch_bounds__(S_THREADS)
     for (int c = 0; c < KD; ++c) acc[j][c] = 0.0f;
 
   const int kend = tile_key_end(a, r0, nr);
+  if (a.round_p) {
+    // first pass: each row's max over all its keys into sM, so that the
+    // second pass's running max is final from its first tile (alpha 1)
+    for (int j0 = 0; j0 < kend; j0 += S_BN) {
+      __syncthreads();  // the previous tile is used up (first: sQ, sM)
+      const int nk = min(S_BN, kend - j0);
+      scalar_load_kv(a, k, v, sK, nullptr, j0, nk);
+      __syncthreads();
+      scalar_scores(a, sQ, sK, sS, r0, j0, nk);
+      __syncthreads();
+      for (int t = 0; t < 8; ++t) {
+        const int rr = warp * 8 + t;
+        const float m = warp_max(sS[rr * S_LDS + lane]);
+        if (lane == 0) sM[rr] = fmaxf(sM[rr], m);
+      }
+    }
+  }
   for (int j0 = 0; j0 < kend; j0 += S_BN) {
     __syncthreads();  // the previous tile is used up (first: sQ written)
     const int nk = min(S_BN, kend - j0);
-    for (int e = tid; e < S_BN * hd; e += S_THREADS) {
-      const int c = e / hd, d = e - c * hd;
-      float kx = 0.0f, vx = 0.0f;
-      if (c < nk) {
-        const long long j = j0 + c;
-        kx = k[j * a.k_ss + d];
-        vx = v[j * a.v_ss + d];
-      }
-      sK[c * ld + d] = kx;
-      sV[c * ld + d] = vx;
-    }
+    scalar_load_kv(a, k, v, sK, sV, j0, nk);
     __syncthreads();
-    {  // scores: thread owns row tid / 4, columns tid % 4 + 4u
-      const int rr = tid >> 2, c0 = tid & 3;
-      float s[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) s[u] = 0.0f;
-      for (int d = 0; d < hd; ++d) {
-        const float qd = sQ[rr * ld + d];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          s[u] = fmaf(qd, sK[(c0 + 4 * u) * ld + d], s[u]);
-      }
-      const long long lim = static_cast<long long>(a.q_offset) +
-                            (r0 + rr) / a.group;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int c = c0 + 4 * u, j = j0 + c;
-        const bool vis = c < nk && (!a.causal || j <= lim);
-        sS[rr * S_LDS + c] = vis ? s[u] * a.scale : -INFINITY;
-      }
-    }
+    scalar_scores(a, sQ, sK, sS, r0, j0, nk);
     __syncthreads();
     // online softmax: warp w updates rows 8w..8w+7, one column per lane
     for (int t = 0; t < 8; ++t) {
@@ -225,8 +274,9 @@ __global__ void __launch_bounds__(S_THREADS)
       const float m_new = fmaxf(m_old, warp_max(x));
       const float m_use = m_new == -INFINITY ? 0.0f : m_new;
       const float p = expf(x - m_use);
-      const float psum = warp_sum(p);
-      sS[rr * S_LDS + lane] = p;
+      const float psum = warp_sum(p);  // the row sum adds p unrounded
+      sS[rr * S_LDS + lane] =
+          a.round_p ? __bfloat162float(__float2bfloat16_rn(p)) : p;
       if (lane == 0) {
         const float alpha = expf(m_old - m_use);
         sA[rr] = alpha;
@@ -757,7 +807,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------
-// bf16 decode: split-K over the cache, then a log-sum-exp merge
+// decode: split-K over the cache, then a log-sum-exp merge
 // ---------------------------------------------------------------------
 
 // 32-key tiles keep a block's shared memory near 45 KB at hd 128, so the
@@ -771,9 +821,18 @@ struct SplitArgs {
   float* part_ml;     // (B, Hkv, splits, rows, 2): m (log2 units), l
 };
 
-template <int HDP>
+// The cache's element: KVB bytes a value, 2 for bf16, 1 for float8 e4m3
+// (a KV cache made with kv_cache_dtype="f8"). A 16-byte copy carries
+// kv_per16<KVB>() values; a staged row holds HDP values and one such
+// copy of padding (so consecutive rows start 4 banks apart).
+template <int KVB>
+__host__ __device__ constexpr int kv_per16() {
+  return 16 / KVB;
+}
+
+template <int HDP, int KVB>
 constexpr size_t splitk_smem_bytes() {
-  return sizeof(bf16) * 4 * K_TK * (HDP + 8) +
+  return static_cast<size_t>(KVB) * 4 * K_TK * (HDP + kv_per16<KVB>()) +
          sizeof(float) * (K_ROWS * HDP + K_ROWS * K_LDS + 3 * K_ROWS);
 }
 
@@ -791,43 +850,92 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows c < nk of a K or V tile (keys j0 + c) into shared memory rows of
-// HDP + 8 values: cp.async when 16-byte loads are allowed, else plain
-// loads. Columns past hd and rows past nk keep the zeros the kernel
-// wrote first (or, at a chunk's end, a finite earlier row whose p is 0).
-template <int HDP>
-__device__ __forceinline__ void splitk_stage(bf16* dst, const bf16* src,
-                                             long long ss, int j0, int nk,
-                                             int hd, int vec, int tid) {
-  constexpr int LD = HDP + 8, CH = HDP / 8;
-  for (int e = tid; e < K_TK * CH; e += K_THREADS) {
-    const int c = e / CH, ch = e - c * CH;
-    if (c >= nk || ch * 8 >= hd) continue;
-    const bf16* p = src + (j0 + c) * ss + ch * 8;
-    bf16* d = dst + c * LD + ch * 8;
-    if (vec) {
-      cp_async16(d, p);
-    } else {
+// Two float8 e4m3 values (the low byte first) as floats: through f16
+// (cvt.rn.f16x2.e4m3x2 on sm_90), which holds every e4m3 value exactly,
+// subnormals and NaN included, then to f32. The same values as the bf16
+// the plain version dequantises to.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// the 16 / KVB values of a 16-byte staged chunk as floats
+template <int KVB>
+__device__ __forceinline__ void unpack16(const uint4 raw, float* f) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        d[u] = ch * 8 + u < hd ? p[u] : __ushort_as_bfloat16(0);
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (KVB == 2) {  // a bf16 is the top half of its float
+      f[2 * e] = __uint_as_float(w[e] << 16);
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    } else {
+      const float2 lo = e4m3x2_to_float2(w[e]);
+      const float2 hi = e4m3x2_to_float2(w[e] >> 16);
+      f[4 * e] = lo.x;
+      f[4 * e + 1] = lo.y;
+      f[4 * e + 2] = hi.x;
+      f[4 * e + 3] = hi.y;
     }
   }
 }
 
-template <int HDP>
+// two neighbouring values of a staged row as floats
+template <int KVB>
+__device__ __forceinline__ float2 load2(const unsigned char* p) {
+  if constexpr (KVB == 2) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  } else {
+    return e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(p));
+  }
+}
+
+// rows c < nk of a K or V tile (keys j0 + c) into shared memory rows of
+// HDP + kv_per16 values: cp.async when 16-byte loads are allowed, else
+// plain loads. Columns past hd and rows past nk keep the zeros the kernel
+// wrote first (or, at a chunk's end, a finite earlier row whose p is 0).
+// ss is the source's key stride in values.
+template <int HDP, int KVB>
+__device__ __forceinline__ void splitk_stage(unsigned char* dst,
+                                             const unsigned char* src,
+                                             long long ss, int j0, int nk,
+                                             int hd, int vec, int tid) {
+  constexpr int VPC = kv_per16<KVB>(), LD = HDP + VPC, CH = HDP / VPC;
+  for (int e = tid; e < K_TK * CH; e += K_THREADS) {
+    const int c = e / CH, ch = e - c * CH;
+    if (c >= nk || ch * VPC >= hd) continue;
+    const unsigned char* p = src + ((j0 + c) * ss + ch * VPC) * KVB;
+    unsigned char* d = dst + (c * LD + ch * VPC) * KVB;
+    if (vec) {
+      cp_async16(d, p);
+    } else {
+#pragma unroll
+      for (int u = 0; u < VPC * KVB; ++u)
+        d[u] = ch * VPC + u / KVB < hd ? p[u] : 0;
+    }
+  }
+}
+
+// KVB 2: the bf16 cache (route splitk); KVB 1: the float8 e4m3 cache
+// (route splitk_f8), staged as it is stored -- a tile's shared memory
+// halves, each cp.async carries 16 values -- and widened to float where
+// the products read it (unpack16, load2). Q, the scores, p (rounded to
+// bf16) and the partials are the same for both.
+template <int HDP, int KVB>
 __global__ void __launch_bounds__(K_THREADS)
     attn_splitk_kernel(const AttnArgs a, const SplitArgs sp) {
-  constexpr int LD = HDP + 8;
+  constexpr int VPC = kv_per16<KVB>(), LD = HDP + VPC;
+  constexpr int TILE = K_TK * LD * KVB;  // bytes of one staged tile
   // P V: TPG threads across hd (two columns each) x NRG row groups
   constexpr int TPG = HDP / 2 < K_THREADS ? HDP / 2 : K_THREADS;
   constexpr int NRG = K_THREADS / TPG;
   constexpr int RPT = K_ROWS / NRG;
   static_assert(NRG <= K_ROWS, "HDP too small");
+  static_assert(HDP % VPC == 0, "a row is whole 16-byte chunks");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // 2 x K_TK x LD
-  bf16* sV = sK + 2 * K_TK * LD;                  // 2 x K_TK x LD
-  float* sQ = reinterpret_cast<float*>(sV + 2 * K_TK * LD);  // rows x HDP
+  unsigned char* sK = smem_raw;                    // 2 tiles
+  unsigned char* sV = sK + 2 * TILE;               // 2 tiles
+  float* sQ = reinterpret_cast<float*>(sV + 2 * TILE);  // rows x HDP
   float* sS = sQ + K_ROWS * HDP;  // K_ROWS x K_LDS: scores, then p
   float* sM = sS + K_ROWS * K_LDS;
   float* sL = sM + K_ROWS;
@@ -837,10 +945,12 @@ __global__ void __launch_bounds__(K_THREADS)
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int R = a.Sq * a.group, hd = a.hd;
   const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const unsigned char* k = static_cast<const unsigned char*>(a.k) +
+                           (b * a.k_sb + kvh * a.k_sh) * KVB;
+  const unsigned char* v = static_cast<const unsigned char*>(a.v) +
+                           (b * a.v_sb + kvh * a.v_sh) * KVB;
 
-  for (int e = tid; e < K_TK * LD / 2; e += K_THREADS)
+  for (int e = tid; e < 4 * TILE / 16; e += K_THREADS)
     reinterpret_cast<uint4*>(sK)[e] = make_uint4(0u, 0u, 0u, 0u);
   // Q as float32, 8 values a thread (one 16-byte load where allowed), so
   // the block waits for one round trip, not one per value
@@ -852,15 +962,7 @@ __global__ void __launch_bounds__(K_THREADS)
       const int h = kvh * a.group + (r - i * a.group);
       const bf16* src = q + i * a.q_ss + h * a.q_sh + d0;
       if (a.vec) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src);
-        const __nv_bfloat162* q2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 f = __bfloat1622float2(q2[u]);
-          x[2 * u] = f.x;
-          x[2 * u + 1] = f.y;
-        }
+        unpack16<2>(*reinterpret_cast<const uint4*>(src), x);
       } else {
 #pragma unroll
         for (int u = 0; u < 8; ++u)
@@ -885,9 +987,11 @@ __global__ void __launch_bounds__(K_THREADS)
   __syncthreads();  // the zeros land before any cp.async
 
   if (nt > 0) {
-    splitk_stage<HDP>(sK, k, a.k_ss, c0, min(K_TK, c1 - c0), hd, a.vec, tid);
+    splitk_stage<HDP, KVB>(sK, k, a.k_ss, c0, min(K_TK, c1 - c0), hd, a.vec,
+                           tid);
     cp_async_commit();
-    splitk_stage<HDP>(sV, v, a.v_ss, c0, min(K_TK, c1 - c0), hd, a.vec, tid);
+    splitk_stage<HDP, KVB>(sV, v, a.v_ss, c0, min(K_TK, c1 - c0), hd, a.vec,
+                           tid);
     cp_async_commit();
   }
   for (int n = 0; n < nt; ++n) {
@@ -895,11 +999,11 @@ __global__ void __launch_bounds__(K_THREADS)
     const bool more = n + 1 < nt;
     if (more) {  // the next tile's K and V, in flight during this one
       const int j1 = j0 + K_TK, nk1 = min(K_TK, c1 - j1);
-      splitk_stage<HDP>(sK + (buf ^ 1) * K_TK * LD, k, a.k_ss, j1, nk1, hd,
-                        a.vec, tid);
+      splitk_stage<HDP, KVB>(sK + (buf ^ 1) * TILE, k, a.k_ss, j1, nk1, hd,
+                             a.vec, tid);
       cp_async_commit();
-      splitk_stage<HDP>(sV + (buf ^ 1) * K_TK * LD, v, a.v_ss, j1, nk1, hd,
-                        a.vec, tid);
+      splitk_stage<HDP, KVB>(sV + (buf ^ 1) * TILE, v, a.v_ss, j1, nk1, hd,
+                             a.vec, tid);
       cp_async_commit();
       cp_async_wait<3>();  // this tile's K has landed
     } else {
@@ -913,36 +1017,25 @@ __global__ void __launch_bounds__(K_THREADS)
       float sacc[RS];
 #pragma unroll
       for (int u = 0; u < RS; ++u) sacc[u] = 0.0f;
-      const bf16* kr = sK + (buf * K_TK + c) * LD;
+      const unsigned char* kr = sK + buf * TILE + c * LD * KVB;
 #pragma unroll 4
-      for (int d0 = 0; d0 < HDP; d0 += 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(kr + d0);
-        const __nv_bfloat162* k2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(k2[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
-        }
+      for (int d0 = 0; d0 < HDP; d0 += VPC) {
+        float kf[VPC];
+        unpack16<KVB>(*reinterpret_cast<const uint4*>(kr + d0 * KVB), kf);
 #pragma unroll
         for (int u = 0; u < RS; ++u) {
           const int r = rh + (K_THREADS / K_TK) * u;
           if (r < R) {
-            const float4 qa = *reinterpret_cast<const float4*>(
-                sQ + r * HDP + d0);
-            const float4 qb = *reinterpret_cast<const float4*>(
-                sQ + r * HDP + d0 + 4);
             float x = sacc[u];
-            x = fmaf(qa.x, kf[0], x);
-            x = fmaf(qa.y, kf[1], x);
-            x = fmaf(qa.z, kf[2], x);
-            x = fmaf(qa.w, kf[3], x);
-            x = fmaf(qb.x, kf[4], x);
-            x = fmaf(qb.y, kf[5], x);
-            x = fmaf(qb.z, kf[6], x);
-            x = fmaf(qb.w, kf[7], x);
+#pragma unroll
+            for (int e = 0; e < VPC; e += 4) {
+              const float4 qa = *reinterpret_cast<const float4*>(
+                  sQ + r * HDP + d0 + e);
+              x = fmaf(qa.x, kf[e], x);
+              x = fmaf(qa.y, kf[e + 1], x);
+              x = fmaf(qa.z, kf[e + 2], x);
+              x = fmaf(qa.w, kf[e + 3], x);
+            }
             sacc[u] = x;
           }
         }
@@ -994,11 +1087,10 @@ __global__ void __launch_bounds__(K_THREADS)
           acc[u][1] *= al;
         }
       }
-      const bf16* vc = sV + buf * K_TK * LD + 2 * cp;
+      const unsigned char* vc = sV + buf * TILE + 2 * cp * KVB;
 #pragma unroll 4
       for (int c = 0; c < K_TK; ++c) {
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vc + c * LD));
+        const float2 vv = load2<KVB>(vc + c * LD * KVB);
 #pragma unroll
         for (int u = 0; u < RPT; ++u) {
           const int r = rg + NRG * u;
@@ -1111,12 +1203,12 @@ int launch_mma(const AttnArgs& a, dim3 grid, cudaStream_t s) {
                       mma_smem_bytes<HDP>(), s, a);
 }
 
-template <int HDP>
+template <int HDP, int KVB>
 int launch_splitk(const AttnArgs& a, const SplitArgs& sp, int B, int Hkv,
                   cudaStream_t s) {
-  const int rc = launch(attn_splitk_kernel<HDP>,
+  const int rc = launch(attn_splitk_kernel<HDP, KVB>,
                         dim3(sp.splits, Hkv, B), K_THREADS,
-                        splitk_smem_bytes<HDP>(), s, a, sp);
+                        splitk_smem_bytes<HDP, KVB>(), s, a, sp);
   if (rc != 0) return rc;
   attn_combine_kernel<<<dim3(a.Sq * a.group, Hkv, B), 128, 0, s>>>(a, sp);
   return static_cast<int>(cudaGetLastError());
@@ -1148,13 +1240,17 @@ int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
 
 // q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd): last dimension contiguous,
 // strides in elements; out contiguous (B, Sq, Hq, hd), same type.
-// dtype: 0 = float32, 1 = bfloat16. 1 <= hd <= 256, Hq % Hkv == 0,
-// 0 <= kv_end <= Skv. vec: 1 if 16-byte loads are allowed (bf16 only).
-// route (the wrapper's choice by shape): 0 attn_scalar_kernel (float32),
-// 1 attn_mma_kernel, 2 attn_wgmma_kernel (hd 64 or 128, vec), 3
-// attn_splitk_kernel + attn_combine_kernel (Sq * Hq / Hkv <= 16), which
-// takes `splits` chunks of `chunk` keys and float32 scratch part_o
-// (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml (..., 2). lse: null, or
+// dtype: 0 = float32, 1 = bfloat16 (q's; k and v the same, except at
+// route 4). 1 <= hd <= 256, Hq % Hkv == 0, 0 <= kv_end <= Skv. vec: 1 if
+// 16-byte loads are allowed (bf16 q; at route 4 also hd and the k / v
+// strides multiples of 16). route (the wrapper's choice by shape): 0
+// attn_scalar_kernel (float32), 1 attn_mma_kernel, 2 attn_wgmma_kernel
+// (hd 64 or 128, vec), 3 attn_splitk_kernel + attn_combine_kernel
+// (Sq * Hq / Hkv <= 16), 4 the same with float8 e4m3 k and v (a float8
+// KV cache); 3 and 4 take `splits` chunks of `chunk` keys and float32
+// scratch part_o (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml
+// (..., 2). round_p: 1 only at route 0 over the float32 copies of a
+// float8 cache (p rounded to bf16 against the row's max). lse: null, or
 // float32 (B, Hq, Sq) that every route fills with each row's log-sum-exp
 // (the backward's input; the output is the same either way).
 REPRO_EXPORT int flash_attention_launch(
@@ -1162,16 +1258,16 @@ REPRO_EXPORT int flash_attention_launch(
     int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int q_offset, int kv_end,
-    int dtype, int vec, int route, int chunk, int splits, void* part_o,
-    void* part_ml, void* lse, void* stream) {
+    int dtype, int vec, int route, int chunk, int splits, int round_p,
+    void* part_o, void* part_ml, void* lse, void* stream) {
   if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
-      (dtype == 0) != (route == 0))
+      (dtype == 0) != (route == 0) || (round_p != 0 && route != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs a{q,      k,        v,      out,  Sq,   Hq,   hd,
                    Hq / Hkv, q_sb,   q_ss,     q_sh,   k_sb, k_ss, k_sh,
                    v_sb,   v_ss,     v_sh,   causal, q_offset, kv_end,
                    1.0f / sqrtf(static_cast<float>(hd)), vec,
-                   static_cast<float*>(lse)};
+                   static_cast<float*>(lse), round_p};
   auto s = static_cast<cudaStream_t>(stream);
   const long long rows = static_cast<long long>(Sq) * a.group;
   if (route == 2) {
@@ -1180,17 +1276,24 @@ REPRO_EXPORT int flash_attention_launch(
     return hd == 64 ? launch_wgmma<64>(a, B, Hkv, s)
                     : launch_wgmma<128>(a, B, Hkv, s);
   }
-  if (route == 3) {
+  if (route == 3 || route == 4) {
     if (rows > K_ROWS || splits < 1 || splits > K_MAX_SPLITS || chunk < 1 ||
         part_o == nullptr || part_ml == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     const SplitArgs sp{chunk, splits, static_cast<float*>(part_o),
                        static_cast<float*>(part_ml)};
-    if (hd <= 16) return launch_splitk<16>(a, sp, B, Hkv, s);
-    if (hd <= 32) return launch_splitk<32>(a, sp, B, Hkv, s);
-    if (hd <= 64) return launch_splitk<64>(a, sp, B, Hkv, s);
-    if (hd <= 128) return launch_splitk<128>(a, sp, B, Hkv, s);
-    return launch_splitk<256>(a, sp, B, Hkv, s);
+    if (route == 4) {  // float8 e4m3 keys and values
+      if (hd <= 16) return launch_splitk<16, 1>(a, sp, B, Hkv, s);
+      if (hd <= 32) return launch_splitk<32, 1>(a, sp, B, Hkv, s);
+      if (hd <= 64) return launch_splitk<64, 1>(a, sp, B, Hkv, s);
+      if (hd <= 128) return launch_splitk<128, 1>(a, sp, B, Hkv, s);
+      return launch_splitk<256, 1>(a, sp, B, Hkv, s);
+    }
+    if (hd <= 16) return launch_splitk<16, 2>(a, sp, B, Hkv, s);
+    if (hd <= 32) return launch_splitk<32, 2>(a, sp, B, Hkv, s);
+    if (hd <= 64) return launch_splitk<64, 2>(a, sp, B, Hkv, s);
+    if (hd <= 128) return launch_splitk<128, 2>(a, sp, B, Hkv, s);
+    return launch_splitk<256, 2>(a, sp, B, Hkv, s);
   }
   if (route == 1) {
     const dim3 grid(static_cast<unsigned>((rows + M_BM - 1) / M_BM), Hkv, B);

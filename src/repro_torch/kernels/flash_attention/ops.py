@@ -15,6 +15,22 @@ The wrapper picks one of four kernels by shape alone
 ``scalar`` for float32. ``LAUNCHES["flash_attention"]`` counts its calls and
 ``LAUNCHES["attn_<route>"]`` each route's.
 
+A float8 KV cache (``torch.float8_e4m3fn`` k and v beside a bf16 or
+float32 q): the plain version dequantises the keys and values to bf16 and
+rounds p to bf16 before the PV product, as the JAX ``chunked_attention``
+does with such a cache (its ``"jnp"`` arm, whatever q's type). On the
+card a bf16 q with decode rows takes ``splitk_f8``, the split-K kernel
+reading the one-byte cache itself; any other pair (more rows, or a
+float32 q) first converts the visible keys and values to q's type (an
+explicit copy of ``[:kv_valid_len]``, exact: every e4m3 value is a bf16
+and a float32 value) and takes that type's route. The bf16 routes round p
+to bf16 for their tensor cores anyway; the float32 route (``scalar``) is
+told to (``round_p``): it finds each row's max in a first pass over the
+keys and rounds ``p = exp(s - max)`` as the plain version does, so a
+float32 model over a float8 cache keeps the reference's rounding on the
+card too. The two then differ only where a score's last bit, summed in
+another order, moves p across a bf16 rounding boundary.
+
 Both arms keep the model's layout, ``q (B, Sq, Hq, hd)`` and
 ``k, v (B, Skv, Hkv, hd)`` in and ``(B, Sq, Hq, hd)`` out, and index
 kv-head ``h // (Hq // Hkv)`` for q-head ``h``: K and V are never expanded
@@ -70,11 +86,11 @@ __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
            "flash_attention_meta", "flash_attention_bwd_meta",
            "visible_pairs", "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
            "bwd_plan", "bwd_row_tiles", "ROUTES", "BWD_ROUTES",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "F8"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch":
-               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 8 + [_P] * 4}
+               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 9 + [_P] * 4}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch":
                    [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 6 + [_L, _P]}
 # the backward's kernels by their number in flash_attention_bwd_launch
@@ -84,8 +100,11 @@ BWD_TILE_ROWS = 64
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
-# the kernel of each route, by its number in flash_attention_launch
-ROUTES = ("scalar", "mma", "wgmma", "splitk")
+# the float8 KV cache's type (RunOptions(kv_cache_dtype="f8"))
+F8 = torch.float8_e4m3fn
+# the kernel of each route, by its number in flash_attention_launch;
+# splitk_f8 is attn_splitk_kernel reading float8 keys and values
+ROUTES = ("scalar", "mma", "wgmma", "splitk", "splitk_f8")
 # attn_wgmma_kernel: its head dims
 WGMMA_HEAD_DIMS = (64, 128)
 # attn_splitk_kernel: the most rows (Sq * G) of one (kv-head, batch), the
@@ -103,18 +122,18 @@ def _sm_count(device: torch.device) -> int:
 
 
 def attention_route(rows: int, hd: int, dtype: torch.dtype,
-                    vec: bool) -> str:
+                    vec: bool, kv_f8: bool = False) -> str:
     """The kernel for ``rows = Sq * Hq / Hkv`` GQA rows of head dim ``hd``
     (``vec``: 16-byte loads allowed, i.e. hd and every batch / sequence /
     head stride a multiple of 8 and the tensors 16-byte aligned):
     ``scalar`` for float32; in bf16 ``splitk`` for decode rows
-    (``rows <= 16``), ``wgmma`` for more rows at hd 64 or 128 with
-    ``vec``, ``mma`` for the rest (other head dims, unaligned inputs).
-    By shape only."""
+    (``rows <= 16``; ``splitk_f8`` with a float8 cache, ``kv_f8``),
+    ``wgmma`` for more rows at hd 64 or 128 with ``vec``, ``mma`` for the
+    rest (other head dims, unaligned inputs). By shape only."""
     if dtype == torch.float32:
         return "scalar"
     if rows <= SPLITK_MAX_ROWS:
-        return "splitk"
+        return "splitk_f8" if kv_f8 else "splitk"
     if hd in WGMMA_HEAD_DIMS and vec:
         return "wgmma"
     return "mma"
@@ -134,9 +153,12 @@ def splitk_chunks(B: int, Hkv: int, key_end: int,
 
 def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """16-byte loads allowed: bf16, hd and every batch / sequence / head
-    stride a multiple of 8 values, each tensor 16-byte aligned."""
-    return (q.dtype == torch.bfloat16 and q.shape[3] % 8 == 0
-            and all(s % 8 == 0 for x in (q, k, v) for s in x.stride()[:3])
+    stride a multiple of 8 values (of 16 for float8 keys and values, 16 of
+    which a load carries), each tensor 16-byte aligned."""
+    per16 = 16 // k.element_size()
+    return (q.dtype == torch.bfloat16 and q.shape[3] % per16 == 0
+            and all(s % 8 == 0 for s in q.stride()[:3])
+            and all(s % per16 == 0 for x in (k, v) for s in x.stride()[:3])
             and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
 
 
@@ -149,9 +171,15 @@ def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whose chunks cut the keys up to the last one any row sees."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
+    kv_f8 = k.dtype == F8
     route = attention_route(Sq * (Hq // Hkv), hd, q.dtype,
-                            _aligned(q, k, v))
-    if route != "splitk":
+                            _aligned(q, k, v), kv_f8)
+    if kv_f8 and route != "splitk_f8":
+        # the route of the copies _f8_to_q_type makes: contiguous, fresh
+        # (aligned), in q's type, so 16-byte loads follow q's own layout
+        route = attention_route(Sq * (Hq // Hkv), hd, q.dtype,
+                                _aligned(q, q, q))
+    if not route.startswith("splitk"):
         return route, 0, 0
     key_end = max(0, min(valid, q_offset + Sq)) if causal else valid
     return (route, *splitk_chunks(B, Hkv, key_end, sms))
@@ -205,13 +233,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version: exact softmax attention in float32 over the first
     ``kv_valid_len`` keys (the ``(B, Hkv, G, Sq, kv_valid_len)`` scores
     are materialised), cast to ``q``'s type; with ``return_lse`` also each
-    row's log-sum-exp, float32 (B, Hq, Sq), -inf where no key is seen."""
+    row's log-sum-exp, float32 (B, Hq, Sq), -inf where no key is seen.
+    Float8 k and v (a float8 KV cache) are dequantised to bf16 and p is
+    rounded to bf16 before the PV product, as the JAX
+    ``chunked_attention`` does over such a cache; the row sums add the
+    unrounded p."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
-    s = _scores(q, k[:, :valid], Hkv, causal, q_offset)  # the tail unread
-    # a row with no visible key: softmax gives NaN, the kernel gives 0
-    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v[:, :valid].float())
+    kv_f8 = k.dtype == F8
+    k, v = k[:, :valid], v[:, :valid]                      # the tail unread
+    if kv_f8:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    s = _scores(q, k, Hkv, causal, q_offset)
+    if kv_f8 and valid:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m.nan_to_num(0.0, neginf=0.0))   # 0 where masked
+        l = p.sum(-1)[..., None].permute(0, 3, 1, 2, 4)    # (B, Sq, Hkv, G)
+        acc = torch.einsum("bhgqk,bkhd->bqhgd", p.bfloat16().float(),
+                           v.float())
+        out = torch.where(l > 0, acc / l.clamp_min(
+            torch.finfo(torch.float32).tiny), torch.zeros_like(acc))
+    else:
+        # a row with no visible key: softmax gives NaN, the kernel gives 0
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     out = out.reshape(B, Sq, Hq, hd).to(q.dtype)
     if not return_lse:
         return out
@@ -272,12 +317,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` (contract of
     :func:`flash_attention_ref`). q, k, v: float32 or bfloat16, one type,
-    one CUDA device, the last dimension contiguous (any other strides, e.g.
-    a layer of the KV cache), ``hd <= 256``."""
+    or float8 k and v (``F8``) beside either, one CUDA device, the last
+    dimension contiguous (any other strides, e.g. a layer of the KV cache),
+    ``hd <= 256``."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != v.dtype \
+            or k.dtype not in (q.dtype, F8):
         raise TypeError(f"flash_attention: q, k, v must share one type of "
-                        f"{_DTYPES}, got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"{_DTYPES}, or k and v be {F8}; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"flash_attention: the CUDA kernel needs q, k, v on "
@@ -296,12 +344,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     route, chunk, splits = attention_plan(
         q, k, v, causal, q_offset=q_offset, kv_valid_len=valid,
         sms=_sm_count(q.device))
+    round_p = k.dtype == F8 and route == "scalar"
+    if k.dtype == F8 and route != "splitk_f8":
+        k, v = _f8_to_q_type(q, k, v, valid)
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     part_o = part_ml = None
-    if route == "splitk":
+    if route.startswith("splitk"):
         # the partials (B, Hkv, splits, rows, hd), then their (m, l)
         n = B * Hkv * splits * Sq * (Hq // Hkv)
         scratch = torch.empty(n * (hd + 2), dtype=torch.float32,
@@ -314,11 +365,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Hq, Hkv, hd, *strides, int(bool(causal)), q_offset, valid,
         _DTYPES.index(q.dtype), int(_aligned(q, k, v)), ROUTES.index(route),
-        chunk, splits,
+        chunk, splits, int(round_p),
         part_o, part_ml, None if lse is None else lse.data_ptr(), stream)
     build.check(lib, rc, "flash_attention")
     count_launch("flash_attention", f"attn_{route}")
     return (out, lse) if return_lse else out
+
+
+def _f8_to_q_type(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The visible keys and values ``[:, :valid]`` of a float8 cache as
+    contiguous copies in q's type (exact: every e4m3 value is a bf16 and a
+    float32 value), for the routes that read one type: more than
+    ``SPLITK_MAX_ROWS`` rows, or a float32 q. The decode route never takes
+    this copy: it reads the float8 cache in place (``splitk_f8``)."""
+    return (k[:, :valid].to(q.dtype, memory_format=torch.contiguous_format),
+            v[:, :valid].to(q.dtype, memory_format=torch.contiguous_format))
 
 
 def visible_pairs(Sq: int, q_offset: int, valid: int, causal: bool) -> int:
@@ -343,13 +405,13 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """The meta arm (the dry run): the forward's outputs, empty. Work by
     ``PERF.md`` section 6's rule: 4 hd operations a visible pair and
-    q-head; q, the valid keys and values read once, the output (and lse)
-    written once."""
+    q-head; q, the valid keys and values read once (one byte a value from
+    a float8 cache), the output (and lse) written once."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
     pairs = visible_pairs(Sq, q_offset, valid, causal)
-    es = q.element_size()
-    nbytes = es * (2 * B * Sq * Hq * hd + 2 * B * valid * Hkv * hd) \
+    nbytes = q.element_size() * 2 * B * Sq * Hq * hd \
+        + k.element_size() * 2 * B * valid * Hkv * hd \
         + (4 * B * Hq * Sq if return_lse else 0)
     with meta_launch("flash_attention", ops=4 * hd * pairs * B * Hq,
                      nbytes=nbytes):

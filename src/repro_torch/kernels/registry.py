@@ -53,13 +53,14 @@ KERNELS = ("msbfs_step", "pairwise_popcount", "gamma_pack", "path_member",
            "flash_attention", "flash_attention_bwd")
 # the routes of flash_attention (``attn_`` and a name of its ops.ROUTES;
 # one count per launch of the route's kernel, or of its pair for
-# attn_splitk) and of flash_attention_bwd (``bwd_`` and a name of
-# ops.BWD_ROUTES), ell_spmm's F = 1 kernel, and the fused passes that carry
-# path_member (one expand level) and rowwise_overlap (one join) on the
-# engine's path (each also counted under its kernel's name)
-ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_mma", "attn_scalar",
-                "bwd_wgmma", "bwd_mma", "bwd_scalar", "ell_gather_f1",
-                "level_fused", "join_fused")
+# attn_splitk and attn_splitk_f8, the split-K kernel on a float8 KV cache)
+# and of flash_attention_bwd (``bwd_`` and a name of ops.BWD_ROUTES),
+# ell_spmm's F = 1 kernel, and the fused passes that carry path_member
+# (one expand level) and rowwise_overlap (one join) on the engine's path
+# (each also counted under its kernel's name)
+ROUTE_COUNTS = ("attn_wgmma", "attn_splitk", "attn_splitk_f8", "attn_mma",
+                "attn_scalar", "bwd_wgmma", "bwd_mma", "bwd_scalar",
+                "ell_gather_f1", "level_fused", "join_fused")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS + ROUTE_COUNTS, 0)
 _LAUNCHES_LOCK = threading.Lock()
 

@@ -6,7 +6,9 @@ A port of ``repro/launch/steps.py``'s LM, GNN and recsys bundles
 device, so no shardings, abstract inputs or donation: a train step takes
 and returns the parameter tree and the optimizer state (updated in
 place), a prefill step an :class:`~..models.transformer.LM` and tokens, a
-decode step the model, a token and its cache, a recsys serve step the
+decode step the model, a token and its cache (``LM.init_cache``, which
+follows ``RunOptions.kv_cache_dtype``: float8 under ``"f8"``, as the JAX
+bundle's abstract cache), a recsys serve step the
 parameters, histories and items, a retrieval step the parameters, one
 history and the padded candidates, and the engine's step one superstep of
 the paper's engine (:class:`EngineSuperstep`). ``StepBundle.inputs`` gives
@@ -88,6 +90,8 @@ def _lm_meta(cfg: LMConfig, shape: ShapeSpec) -> dict:
     mult = 6 if shape.kind == "train" else 2
     kv_read = 0
     if shape.kind == "decode":
+        # 2 bytes a value whatever kv_cache_dtype is: the JAX meta's
+        # formula, kept for parity (ROADMAP.md queue 3)
         kv_read = (cfg.n_layers * B * S * cfg.n_kv_heads * cfg.hd * 2) * 2
     return {
         "family": "lm", "kind": shape.kind,

@@ -132,8 +132,10 @@ def run_training(arch: str, shape_name: str, steps: int,
     """Train ``arch`` for ``steps`` steps through :class:`TrainDriver`
     (resuming from ``ckpt_dir``'s latest checkpoint), on ``device``
     (default ``"cuda"``). ``params``: starting weights in the JAX layout
-    (default: random from ``opts.seed``). Returns the driver's result:
-    params, opt_state, history, stragglers."""
+    (default: random from ``opts.seed``). ``opts`` reaches the step
+    bundle whole, its ``remat_policy`` (``"nothing"`` or ``"dots"``)
+    included. Returns the driver's result: params, opt_state, history,
+    stragglers."""
     if mesh_name != "host":
         raise NotImplementedError(
             f"mesh {mesh_name!r}: the port trains on one device (the "

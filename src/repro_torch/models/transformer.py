@@ -24,21 +24,36 @@ Training: as the JAX ``lm_forward`` does, float32 masters (a parameter
 tree in the JAX layout, layers stacked on L: :func:`train_params`, whose
 leaves are ``nn.Parameter`` objects) cast to the working type at each use.
 ``RunOptions.remat`` checkpoints each group of ``layer_group`` layers
-(``torch.utils.checkpoint``, non-reentrant; the JAX ``nothing_saveable``
-policy: ``remat_policy="dots"`` is refused), ``cast_params_early`` casts
-the stacked layers once before the loop, ``loss_chunk`` cuts the
-cross-entropy into checkpointed chunks so that the (B, S, vocab) logits
-never exist, and ``moe_groups`` is the MoE dispatch's group count.
-``seq_parallel`` shards the residual stream over a mesh in the JAX
-package; on one device it changes nothing, and is ignored.
+(``torch.utils.checkpoint``, non-reentrant) under ``remat_policy``:
+``"nothing"`` (the JAX ``nothing_saveable``: the backward recomputes the
+whole group) or ``"dots"`` (the JAX ``dots_with_no_batch_dims_saveable``:
+a selective checkpoint that keeps the outputs of the products without a
+batch dimension, ``aten.mm`` / ``aten.addmm`` -- the projections, the
+SwiGLU and the router -- and recomputes the rest, the attention and the
+MoE experts' batched products included; the same values, more memory).
+``cast_params_early`` casts the stacked layers once before the loop,
+``loss_chunk`` cuts the cross-entropy into checkpointed chunks so that
+the (B, S, vocab) logits never exist, and ``moe_groups`` is the MoE
+dispatch's group count. ``seq_parallel`` shards the residual stream over
+a mesh in the JAX package; on one device it changes nothing, and is
+ignored.
+
+The KV cache (``init_cache``) is in the working type, or in float8
+(``torch.float8_e4m3fn``) under ``RunOptions(kv_cache_dtype="f8")`` as
+the JAX decode bundle makes it: each step's keys and values go in through
+:func:`quantize_f8`, which rounds as the JAX ``astype(float8_e4m3fn)``
+does (to nearest even, NaN past the largest finite value, where torch's
+own cast saturates), and the attention reads the float8 cache directly
+(``gqa_attention``: a float8 variant of the decode kernel on the card,
+the values dequantised to bf16 in the plain version).
 
 One device, so no sharding constraints and no tensor-parallel head
 padding (the JAX ``padded_heads`` at tp = 1 is ``cfg.n_heads``). Refused
-with ``NotImplementedError``: ``flash_decode`` (needs a mesh), a float8 KV
-cache (``kv_cache_dtype="f8"``) and ``remat_policy="dots"``.
+with ``NotImplementedError``: ``flash_decode`` (needs a mesh).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
@@ -47,19 +62,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..config import LMConfig, RunOptions
-from ..kernels.flash_attention.ops import gqa_attention
+from ..kernels.flash_attention.ops import F8, gqa_attention
 from ..kernels.registry import resolve_device
 from .moe import moe_ffn
 
 __all__ = ["LM", "init_lm_params", "params_from_jax", "train_params",
            "lm_forward", "forward_hidden", "lm_loss", "prefill",
-           "decode_step", "init_cache", "working_dtype", "rmsnorm", "rope",
-           "rope_tables", "swiglu"]
+           "decode_step", "init_cache", "quantize_f8", "working_dtype",
+           "rmsnorm", "rope", "rope_tables", "swiglu"]
 
 BIAS_PARAMS = ("bq", "bk", "bv")
+REMAT_POLICIES = ("nothing", "dots")
+KV_CACHE_DTYPES = ("bf16", "f8")
+# float8_e4m3fn: its largest finite value is 448 = 1.75 * 2**8; the next
+# step, 480, is its NaN pattern, so rounding to nearest (ties to even)
+# gives 448 up to 464 and NaN above
+F8_LARGEST_ROUNDED = 464.0
 
 DeviceLike = Union[torch.device, str, None]
 
@@ -77,20 +100,50 @@ def check_supported(cfg: LMConfig, opts: Optional[RunOptions] = None) -> None:
         raise NotImplementedError(
             "flash_decode shards the KV cache over a mesh; the port runs on "
             "one device (ROADMAP.md queue 1, the substrate's mesh options)")
-    if opts.kv_cache_dtype == "f8":
-        raise NotImplementedError(
-            "kv_cache_dtype='f8' (a float8 KV cache) is not ported yet "
-            "(ROADMAP.md queue 1, the substrate's mesh options)")
+    if opts.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype={opts.kv_cache_dtype!r}: one of "
+                         f"{KV_CACHE_DTYPES}")
 
 
 def check_trainable(opts: RunOptions) -> None:
-    """Refuse the training options whose code is not ported."""
-    if opts.remat and opts.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={opts.remat_policy!r} (saving the matmul outputs "
-            f"under remat) is not ported; the port rematerialises with the "
-            f"'nothing' policy (ROADMAP.md queue 1, the substrate's mesh "
-            f"options)")
+    """Refuse a remat policy that is not one of :data:`REMAT_POLICIES`."""
+    if opts.remat and opts.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={opts.remat_policy!r}: one of "
+                         f"{REMAT_POLICIES}")
+
+
+def quantize_f8(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32 or bf16) as ``torch.float8_e4m3fn`` with the JAX
+    ``astype`` semantics: rounded to the nearest value, ties to even
+    (subnormals included), and NaN where ``|x| > 464`` (it rounds past
+    448, the largest finite value), at +-inf and at NaN; torch's own cast
+    saturates those to +-448, so they are made NaN first (four ops: a
+    decode step writes its keys and values through this)."""
+    keep = x.abs() <= F8_LARGEST_ROUNDED              # NaN compares False
+    return torch.where(keep, x, float("nan")).to(F8)
+
+
+def _remat_context(policy: str):
+    """The ``context_fn`` of ``checkpoint`` for a remat policy."""
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_saveable)
+    return noop_context_fn
+
+
+# the products without a batch dimension: x @ W with x (B, S, D) folds to
+# mm; the attention's and the MoE experts' products are bmm (batched), as
+# their JAX dot_generals have batch dimensions
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The JAX ``dots_with_no_batch_dims_saveable`` policy: keep the
+    outputs of mm / addmm, recompute every other op. The attention
+    kernel, launched into a ``torch.empty`` buffer the policy never saves,
+    is launched again by the recompute."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 # ----------------------------------------------------------------------
@@ -244,8 +297,11 @@ class LM(nn.Module):
         return decode_step(self, self._tokens(token), cache)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """An empty KV cache in the model's type on its device."""
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+        """An empty KV cache on the model's device: float8 under
+        ``opts.kv_cache_dtype == "f8"``, else in the model's type."""
+        dtype = F8 if self.opts.kv_cache_dtype == "f8" else None
+        return init_cache(self.cfg, batch, max_len, dtype=dtype,
+                          device=self.device)
 
 
 def params_from_jax(tree: dict, cfg: LMConfig, *, device: DeviceLike = None,
@@ -333,6 +389,8 @@ def _layer(x: torch.Tensor, lp, cfg: LMConfig, tables, cache=None,
         attn = gqa_attention(q, k, v, causal=True, q_offset=0)
     else:
         ck, cv, pos = cache
+        if ck.dtype == F8:          # not torch's saturating cast
+            k, v = quantize_f8(k), quantize_f8(v)
         ck[:, pos:pos + S] = k
         cv[:, pos:pos + S] = v
         attn = gqa_attention(q, ck, cv, causal=True, q_offset=pos,
@@ -434,9 +492,11 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LMConfig,
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    context_fn = _remat_context(opts.remat_policy)
     for first in range(0, L, g):
         if opts.remat:
-            x, aux = checkpoint(group, x, aux, first, use_reentrant=False)
+            x, aux = checkpoint(group, x, aux, first, use_reentrant=False,
+                                context_fn=context_fn)
         else:
             x, aux = group(x, aux, first)
     return rmsnorm(x, params["final_norm"]), aux
@@ -486,13 +546,15 @@ def prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
+               dtype: Optional[torch.dtype] = None,
                device: DeviceLike = None) -> dict:
-    """``{"k", "v": (L, batch, max_len, Hkv, hd) zeros, "pos": 0}`` in the
-    working type of ``cfg`` (the JAX function takes the type as an
-    argument; a float8 cache, ``RunOptions(kv_cache_dtype="f8")``, is not
-    ported)."""
+    """``{"k", "v": (L, batch, max_len, Hkv, hd) zeros, "pos": 0}`` in
+    ``dtype``: the working type of ``cfg`` by default, or
+    ``torch.float8_e4m3fn`` (the cache of ``RunOptions(kv_cache_dtype=
+    "f8")``, one byte a value), as the JAX function takes its type."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    dev, dt = resolve_device(device), working_dtype(cfg)
+    dev = resolve_device(device)
+    dt = working_dtype(cfg) if dtype is None else dtype
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
 
@@ -506,16 +568,18 @@ def decode_step(model: LM, token: torch.Tensor, cache: dict):
     array with ``dynamic_update_slice``): the returned dict holds the same
     ``k`` / ``v`` tensors with ``pos`` advanced by one, and the dict passed
     in must not be used again. Attention reads only the first ``pos + 1``
-    cache positions (``kv_valid_len``).
+    cache positions (``kv_valid_len``). The cache is in the model's type
+    or float8 (``torch.float8_e4m3fn``: the step's keys and values go in
+    through :func:`quantize_f8`).
     """
     B, S = token.shape
     pos = int(cache["pos"])
     ck, cv = cache["k"], cache["v"]
     if S != 1:
         raise ValueError(f"decode_step takes one token per row, got {S}")
-    if ck.dtype != model.dtype or cv.dtype != model.dtype:
-        raise ValueError(f"KV cache type {ck.dtype} differs from the "
-                         f"model's {model.dtype}")
+    if ck.dtype != cv.dtype or ck.dtype not in (model.dtype, F8):
+        raise ValueError(f"KV cache type {ck.dtype} / {cv.dtype} differs "
+                         f"from the model's {model.dtype} and from {F8}")
     if ck.shape[:2] != (model.cfg.n_layers, B) or pos + S > ck.shape[2]:
         raise ValueError(f"cache of shape {tuple(ck.shape)} at pos {pos} "
                          f"cannot take a ({B}, {S}) step")

@@ -6,8 +6,11 @@ granite-8b (dense), olmoe-1b-7b and moonshot-v1-16b-a3b (MoE), in
 float32. Held to the JAX package:
 
 * ``lm_loss`` and every gradient (``jax.value_and_grad``), remat on and
-  off, ``layer_group`` 2 and ``cast_params_early``: 1e-5 relative to each
-  leaf's largest gradient, the loss at 1e-6 relative;
+  off, ``remat_policy="dots"``, ``layer_group`` 2 and
+  ``cast_params_early``: 1e-5 relative to each leaf's largest gradient,
+  the loss at 1e-6 relative; the ``"dots"`` policy's loss and gradients
+  equal the ``"nothing"`` policy's and no remat's bit for bit, and an op
+  count shows its backward recompute no ``aten.mm``;
 * one train step of the step bundle (loss, grad norm, updated parameters
   and AdamW state), ``grad_accum`` 1 and 2, and ``adamw_update`` over
   three steps: 1e-5;
@@ -30,6 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jcr  # noqa: E402
@@ -125,8 +129,9 @@ def _jax_value_and_grad(arch, opt):
 
 @pytest.mark.parametrize("opt", [
     {"remat": False}, {"remat": True},
-    {"remat": True, "layer_group": 2, "cast_params_early": True}],
-    ids=["remat-off", "remat-on", "grouped-early-cast"])
+    {"remat": True, "layer_group": 2, "cast_params_early": True},
+    {"remat": True, "remat_policy": "dots"}],
+    ids=["remat-off", "remat-on", "grouped-early-cast", "remat-dots"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_loss_and_every_gradient_match_jax(arch, opt):
     jcfg, tcfg = jcr.get(arch).REDUCED, tcr.get(arch).REDUCED
@@ -140,6 +145,81 @@ def test_lm_loss_and_every_gradient_match_jax(arch, opt):
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-6)
     _assert_tree_close(pytree.unflatten(params, grads), jgrads,
                        what=(arch, opt))
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the ATen ops that reach the dispatcher while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func] = self.n.get(func, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _loss_grads_and_backward_ops(arch, **opt):
+    """lm_loss of the seed-0 tree on ``_batch`` under ``opt``: (loss,
+    gradients, the backward's op counts)."""
+    cfg = tcr.get(arch).REDUCED
+    params = tt.train_params(cfg, _tree(arch), device="cpu")
+    tok, tgt = map(torch.from_numpy, _batch(cfg))
+    loss = tt.lm_loss(params, tok, tgt, cfg, _opts(RunOptions, **opt))
+    with _OpCount() as ops:
+        grads = torch.autograd.grad(loss, pytree.leaves(params))
+    return loss.detach(), grads, ops.n
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dots_policy_equals_nothing_and_no_remat_bitwise(arch):
+    """``remat_policy="dots"`` changes what the backward keeps, not what
+    it computes: the loss and every gradient equal those of the
+    ``"nothing"`` policy and of no remat, bit for bit."""
+    want_loss, want, _ = _loss_grads_and_backward_ops(arch, remat=False)
+    for policy in ("nothing", "dots"):
+        loss, grads, _ = _loss_grads_and_backward_ops(
+            arch, remat=True, remat_policy=policy)
+        assert torch.equal(loss, want_loss), policy
+        assert all(torch.equal(g, w) for g, w in zip(grads, want)), policy
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "moonshot-v1-16b-a3b"])
+def test_dots_policy_saves_every_mm_and_recomputes_the_rest(arch):
+    """JAX's ``dots_with_no_batch_dims_saveable`` on the port: the
+    backward under ``"dots"`` runs as many ``aten.mm`` as without remat
+    (it recomputes none: the projections, the SwiGLU and the router are
+    saved), under ``"nothing"`` it runs the forward's again (all but the
+    last of a layer where nothing after it is needed: the non-reentrant
+    checkpoint stops its recompute there), and both recompute the batched
+    products (``aten.bmm``: the attention and the MoE experts, which JAX's
+    policy does not save either)."""
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    cfg = tcr.get(arch).REDUCED
+    params = tt.train_params(cfg, _tree(arch), device="cpu")
+    tok = torch.from_numpy(_batch(cfg)[0])
+    with _OpCount() as fwd:
+        tt.forward_hidden(params, tok, cfg, _opts(RunOptions, remat=False))
+    n = {policy: _loss_grads_and_backward_ops(arch, **opt)[2]
+         for policy, opt in (("off", dict(remat=False)),
+                             ("nothing", dict(remat=True)),
+                             ("dots", dict(remat=True, remat_policy="dots")))}
+    assert fwd.n[mm] > 0 and fwd.n[bmm] > 0
+    assert n["dots"][mm] == n["off"][mm]
+    again = n["nothing"][mm] - n["off"][mm]
+    assert fwd.n[mm] - cfg.n_layers <= again <= fwd.n[mm]
+    assert n["dots"][bmm] == n["nothing"][bmm] > n["off"][bmm]
+
+
+def test_remat_policy_is_checked():
+    cfg = tcr.get("granite-8b").REDUCED
+    params = tt.train_params(cfg, _tree("granite-8b"), device="cpu")
+    tok = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(ValueError, match="remat_policy"):
+        tt.forward_hidden(params, tok, cfg, RunOptions(remat_policy="all"))
+    # remat off: the policy is not read, as in the JAX package
+    tt.forward_hidden(params, tok, cfg,
+                      RunOptions(remat=False, remat_policy="all"))
 
 
 def test_train_params_are_float32_masters():
@@ -515,6 +595,27 @@ def test_run_training_matches_jax(tmp_path):
     assert latest_step(tmp_path / "port") == 3
 
 
+def test_build_bundle_and_run_training_under_dots(tmp_path):
+    """The train bundle and the driver under ``remat_policy="dots"``: the
+    same history as under ``"nothing"``, bit for bit."""
+    over = {"seq_len": 32, "global_batch": 4}
+    hist = {}
+    for policy in ("nothing", "dots"):
+        opts = RunOptions(seq_parallel=False, loss_chunk=16, attn_chunk=32,
+                          moe_groups=4, remat=True, remat_policy=policy)
+        bundle = tsteps.build_bundle("olmoe-1b-7b", "train_4k", opts,
+                                     reduced=True, overrides=over)
+        assert bundle.opts.remat_policy == policy
+        out = run_training("olmoe-1b-7b", "train_4k", steps=3,
+                           ckpt_dir=tmp_path / policy, reduced=True,
+                           overrides=over, opts=opts, device="cpu",
+                           params=_tree("olmoe-1b-7b"))
+        hist[policy] = out["history"]
+    assert [h["step"] for h in hist["dots"]] == [0, 1, 2]
+    assert [(h["loss"], h["grad_norm"]) for h in hist["dots"]] == \
+        [(h["loss"], h["grad_norm"]) for h in hist["nothing"]]
+
+
 def test_launchers_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_training("granite-8b", "train_4k", 1, tmp_path, mesh_name="pod",
@@ -523,9 +624,16 @@ def test_launchers_refuse_what_is_not_ported(tmp_path):
         dryrun_cell("path-engine", "batch_1b", "pod")
     with pytest.raises(NotImplementedError, match="mesh options"):
         tg.ring_aggregate(None, None, None, None, "cells")
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tsteps.build_bundle("granite-8b", "train_4k",
-                            RunOptions(remat_policy="dots"), reduced=True)
+    # ported now: the "dots" remat policy and the float8 KV cache
+    assert tsteps.build_bundle("granite-8b", "train_4k",
+                               RunOptions(remat_policy="dots"),
+                               reduced=True).opts.remat_policy == "dots"
+    assert tsteps.build_bundle("granite-8b", "decode_32k",
+                               RunOptions(kv_cache_dtype="f8"),
+                               reduced=True).kind == "decode"
+    with pytest.raises(NotImplementedError, match="flash_decode"):
+        tsteps.build_bundle("granite-8b", "decode_32k",
+                            RunOptions(flash_decode=True), reduced=True)
     with pytest.raises(ValueError, match="train shape"):
         run_training("granite-8b", "decode_32k", 1, tmp_path, device="cpu")
     assert tsteps.build_bundle("olmoe-1b-7b", "decode_32k").kind == "decode"

@@ -219,17 +219,18 @@ def test_unported_options_raise():
     for arch in ("olmoe-1b-7b", "moonshot-v1-16b-a3b"):     # ported now
         assert tt.LM(tcr.get(arch).REDUCED, generator=gen,
                      device="cpu").layers[0].e_gate.dim() == 3
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        tt.lm_loss(tt.train_params(cfg, generator=gen, device="cpu"),
-                   torch.zeros((1, 4), dtype=torch.long),
-                   torch.zeros((1, 4), dtype=torch.long), cfg,
-                   RunOptions(remat_policy="dots"))
+    # ported now: remat_policy="dots" trains, kv_cache_dtype="f8" serves
+    loss = tt.lm_loss(tt.train_params(cfg, generator=gen, device="cpu"),
+                      torch.zeros((1, 4), dtype=torch.long),
+                      torch.zeros((1, 4), dtype=torch.long), cfg,
+                      RunOptions(remat_policy="dots"))
+    assert bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="flash_decode"):
         tt.LM(cfg, generator=gen, device="cpu",
               opts=RunOptions(flash_decode=True))
-    with pytest.raises(NotImplementedError, match="f8"):
-        tt.LM(cfg, generator=gen, device="cpu",
-              opts=RunOptions(kv_cache_dtype="f8"))
+    f8 = tt.LM(cfg, generator=gen, device="cpu",
+               opts=RunOptions(kv_cache_dtype="f8"))
+    assert f8.init_cache(1, 8)["k"].dtype == torch.float8_e4m3fn
     model = tt.LM(cfg, generator=gen, device="cpu")
     assert model.init_cache(1, 8)["k"].dtype == torch.float32
     bf16 = tt.init_cache(dataclasses.replace(cfg, dtype="bfloat16"), 1, 8,
