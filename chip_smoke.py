@@ -507,14 +507,19 @@ Phases, each printing one JSON line (``"phase": ...``, with
                ``flash_attention_f8``: the split-K kernel over a float8
                cache (``attn_splitk_f8``) at granite-8b's decode, 4 x 1
                over 544 keys and over 32,768 (``decode_32k``'s cache,
-               batch 128 -> 4), held to its plain version at the bf16
+               batch 128 -> 4), and at moonshot's (G 1: Hq = Hkv = 16)
+               over 160 keys, each shape's plan (chunk, splits, ring
+               stages, warps) printed on a line of its own, held to its
+               plain version at the bf16
                tolerance and bit for bit to the bf16 split-K route on the
                cache's dequantised bf16 copy; at 544 keys a float32 q
                over the same cache too (``attn_scalar`` on the float32
                copies, p rounded to bf16 against each row's max: its
                relative L2 error from the plain version at most 0.3 of
                the error of leaving p unrounded, and within 1e-2
-               elementwise); ``device_ms`` beside the bf16 route's, the byte bound with k and v at one byte, and
+               elementwise); ``device_ms`` beside the bf16 route's
+               (row 8's decode at 32,768 keys), the byte bound with k
+               and v at one byte, and
                SDPA on the bf16 copy as the library time (SDPA reads no
                float8); its launches are phase ``lm``'s float8 decode's.
 
@@ -679,10 +684,12 @@ ATTN_BF16_ROW_REL_L2 = 1e-2
 ATTN_F32_TOL = (3e-5, 1e-4)           # atol, rtol
 # row 8': the split-K kernel over a float8 KV cache (route splitk_f8) at
 # granite-8b's decode shape over 544 keys and over decode_32k's cache
-# length (batch cut from 128 to 4): (name, B, Sq, Skv, Hq, Hkv, hd,
-# q_offset, kv_valid_len), k and v layer 1 of a two-layer float8 cache
+# length (batch cut from 128 to 4), and at moonshot-v1-16b-a3b's (G 1)
+# over its phase's 160 keys: (name, B, Sq, Skv, Hq, Hkv, hd, q_offset,
+# kv_valid_len), k and v layer 1 of a two-layer float8 cache
 ATTN_F8_SHAPES = (("decode", 4, 1, 544, 32, 8, 128, 543, 544),
-                  ("decode_32k", 4, 1, 32768, 32, 8, 128, 32767, 32768))
+                  ("decode_32k", 4, 1, 32768, 32, 8, 128, 32767, 32768),
+                  ("decode_moonshot", 4, 1, 160, 16, 16, 128, 159, 160))
 # and at "decode" a float32 q over the same cache (the float32 copies on
 # attn_scalar, p rounded to bf16 against each row's max as the plain
 # version does): the whole output's relative L2 error from the plain
@@ -5792,6 +5799,11 @@ def flash_attention_f8_row(torch, lm, moonshot) -> dict:
                                                    sms=sms)
         require(route == "splitk_f8",
                 f"flash_attention plans {route} over the f8 cache at {name}")
+        plan = {"chunk": chunk, "splits": splits, "blocks": B * Hkv * splits,
+                "warps": fops.SPLITK_WARPS, "tile_keys": fops.SPLITK_TILE,
+                "stages": fops.splitk_stages(hd, 1, chunk),
+                "bf16_route_stages": fops.splitk_stages(hd, 2, chunk)}
+        emit({"splitk_plan": name, **plan})
         before = attn_counts(LAUNCHES, fops)
         got = kernel(q, k, v)
         after = attn_counts(LAUNCHES, fops)
@@ -5822,7 +5834,7 @@ def flash_attention_f8_row(torch, lm, moonshot) -> dict:
             "shape": {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq, "Hkv": Hkv,
                       "hd": hd, "q_offset": q_offset, "kv_valid_len": valid,
                       "kv_dtype": "float8_e4m3fn"},
-            "chunk": chunk, "splits": splits,
+            "plan": plan,
             "max_abs_err": err, "max_row_rel_l2": rel,
             "bitwise_equal_to_bf16_route_on_copy": True,
             "ms": cuda_ms(torch, kernel, lambda: (q, k, v)),

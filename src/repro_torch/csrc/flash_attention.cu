@@ -49,21 +49,26 @@
 //    tiles are scheduled first.
 //  * attn_splitk_kernel + attn_combine_kernel -- bf16, rows <= 16, any hd:
 //    decode. Bound: bytes (the valid cache's K and V, 8.9 MB at batch 4
-//    and 544 positions, 0.0027 ms at 3.35 TB/s). One block per (kv-head,
-//    batch) left 100 of 132 SMs idle and walked the cache's tiles in
-//    order; here the key range [0, kv_end) is cut into chunks (a multiple
-//    of 64 keys, as many as make B * Hkv * splits >= 2 x 132 blocks),
-//    each block reads its chunk once for the whole GQA group on the CUDA
-//    cores (at most 16 rows: the work is bytes, not operations; a 16-row
-//    mma.sync tile is untried), K and V by cp.async in separate groups,
-//    double-buffered over 32-key tiles, and writes float32 partials (m,
-//    l, acc) to scratch; a second launch merges them by log-sum-exp. A
-//    chunk that sees no key writes m = -inf, l = 0 and adds nothing.
-//    The same kernel reads a float8 (e4m3) KV cache (route splitk_f8,
+//    and 544 positions, 0.0027 ms at 3.35 TB/s; 268 MB at 32,768, 0.160
+//    ms). The key range [0, kv_end) is cut into chunks of whole rounds of
+//    the block's four warps' 32-key tiles, about one wave of blocks (two
+//    an SM); each block reads its chunk once for the whole GQA group.
+//    Each warp owns every fourth tile of the chunk and streams its tiles
+//    through a ring of its own (1-4 stages by cp.async, zeros past the
+//    chunk's end), so the key loop never waits on the block; the scores
+//    and P V run on the tensor cores (mma.sync m16n8k16, the group's rows
+//    padded to 16), the online-softmax state stays in the warp's
+//    registers, and the warps' states are merged by log-sum-exp at the
+//    block's end into float32 partials (m, l, acc); a second launch, a
+//    programmatic dependent of the first (its blocks start while the
+//    first grid runs and wait for its end), merges the chunks' partials.
+//    A chunk of one round (a short cache) gets a one-stage ring: more
+//    blocks an SM. A chunk that sees no key writes m = -inf, l = 0 and
+//    adds nothing. The same kernel reads a float8 (e4m3) KV cache (route splitk_f8,
 //    bf16 q): a tile is staged as stored, one byte a value, so the
-//    cp.async copies and the shared memory halve, and each value is
-//    widened exactly to float where the products read it (cvt.rn.f16x2.
-//    e4m3x2); bound: half the bytes (4.5 MB at batch 4 and 544 keys).
+//    copies and the rings halve, and each byte is widened once, exactly,
+//    to bf16 where its fragment is built (cvt.rn.f16x2.e4m3x2); bound:
+//    half the bytes (4.5 MB at batch 4 and 544 keys, 134 MB at 32,768).
 //  * attn_mma_kernel -- every other bf16 shape (rows > 16 at hd not 64 or
 //    128, or with unaligned strides): mma.sync m16n8k16, 4 warps x 16
 //    rows, 64-key tiles loaded then used.
@@ -810,36 +815,59 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 // decode: split-K over the cache, then a log-sum-exp merge
 // ---------------------------------------------------------------------
 
-// 32-key tiles keep a block's shared memory near 45 KB at hd 128, so the
-// 288 blocks of a granite-8b decode step fit on the card in one wave
-constexpr int K_TK = 32, K_THREADS = 128, K_ROWS = 16, K_LDS = K_TK + 1;
-constexpr int K_MAX_SPLITS = 1024;  // attn_combine_kernel's weights
+// A block is K_WARPS warps over one chunk of the keys of one (kv-head,
+// batch). The chunk is cut into 32-key tiles and warp w owns tiles w,
+// w + K_WARPS, ...: it streams them through a ring of its own and keeps
+// its rows' online-softmax state in registers, so the key loop waits on
+// nothing but the warp's own copies (__syncwarp, never __syncthreads).
+constexpr int K_TK = 32, K_WARPS = 4, K_THREADS = 32 * K_WARPS, K_ROWS = 16;
+constexpr int K_MAX_SPLITS = 1024;  // the most splits a launch takes
+// the rings' shared memory: as many stages (2..4) as let two blocks share
+// an SM, else (long bf16 rows) as many as one block can hold
+constexpr int K_RING_TWO = 96 * 1024, K_RING_ONE = 200 * 1024;
 
 struct SplitArgs {
-  int chunk, splits;  // keys of a split (a multiple of K_TK), splits
+  int chunk, splits;  // keys of a split, splits
   float* part_o;      // (B, Hkv, splits, rows, hd): unnormalised acc
   float* part_ml;     // (B, Hkv, splits, rows, 2): m (log2 units), l
 };
 
+__host__ __device__ constexpr int cmin(int x, int y) { return x < y ? x : y; }
+__host__ __device__ constexpr int cmax(int x, int y) { return x > y ? x : y; }
+
 // The cache's element: KVB bytes a value, 2 for bf16, 1 for float8 e4m3
-// (a KV cache made with kv_cache_dtype="f8"). A 16-byte copy carries
-// kv_per16<KVB>() values; a staged row holds HDP values and one such
-// copy of padding (so consecutive rows start 4 banks apart).
-template <int KVB>
-__host__ __device__ constexpr int kv_per16() {
-  return 16 / KVB;
-}
-
+// (a KV cache made with kv_cache_dtype="f8"). A tile is staged as stored
+// (a float8 tile is half a bf16 one): K_TK rows of HDP values, K then V.
 template <int HDP, int KVB>
-constexpr size_t splitk_smem_bytes() {
-  return static_cast<size_t>(KVB) * 4 * K_TK * (HDP + kv_per16<KVB>()) +
-         sizeof(float) * (K_ROWS * HDP + K_ROWS * K_LDS + 3 * K_ROWS);
-}
+struct SplitGeom {
+  static constexpr int ROWB = HDP * KVB;     // bytes of a staged row
+  static constexpr int CPR = ROWB / 16;      // its 16-byte chunks
+  static constexpr int TILEB = K_TK * ROWB;  // a K or a V tile
+  static constexpr int STAGEB = 2 * TILEB;
+  static constexpr int FIT2 = K_RING_TWO / (K_WARPS * STAGEB);
+  static constexpr int STAGES =
+      FIT2 >= 2 ? cmin(FIT2, 4)
+                : cmax(1, cmin(4, K_RING_ONE / (K_WARPS * STAGEB)));
+  // the warps' states side by side for the block's merge (the rings'
+  // memory, once every warp is done with its ring)
+  static constexpr int OLD = HDP + HDP / 32;  // a merge row, padded
+  static constexpr int MERGE = K_WARPS * K_ROWS * (OLD + 2) * 4;
+  static constexpr int QLD = HDP + 8;        // sQ's row stride (bf16)
+  // with ns stages a ring: the rings (or the merge), then Q
+  __host__ __device__ static constexpr int scratch(int ns) {
+    return cmax(K_WARPS * ns * STAGEB, MERGE);
+  }
+  __host__ __device__ static constexpr size_t smem(int ns) {
+    return static_cast<size_t>(scratch(ns)) + K_ROWS * QLD * 2;
+  }
+};
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  // bytes < 16: the rest of the 16 arrive as zeros (0: no read at all)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
-               "l"(src)
+               "l"(src), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -850,330 +878,454 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Two float8 e4m3 values (the low byte first) as floats: through f16
-// (cvt.rn.f16x2.e4m3x2 on sm_90), which holds every e4m3 value exactly,
-// subnormals and NaN included, then to f32. The same values as the bf16
-// the plain version dequantises to.
-__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t two) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
-  return __half22float2(__half2(h));
-}
+// A staged tile's 16-byte chunk L (row r, chunk c: L = r * CPR + c) lies
+// at chunk L ^ ((L >> 3) & 7): the chunks of each 128-byte line are
+// permuted by the line's index, so that a warp's fragment reads (8 rows
+// at 4 offsets, or 4 rows at 8 offsets) fall on distinct banks.
+__device__ __forceinline__ int swz(int L) { return L ^ ((L >> 3) & 7); }
 
-// the 16 / KVB values of a 16-byte staged chunk as floats
-template <int KVB>
-__device__ __forceinline__ void unpack16(const uint4 raw, float* f) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+// NB bytes (2 .. 64, a power of two) of staged row r from byte o (a
+// multiple of min(NB, 16)) into w, low bytes first
+template <int CPR, int NB>
+__device__ __forceinline__ void lds_row(const unsigned char* tile, int r,
+                                        int o, uint32_t* w) {
+  if constexpr (NB >= 16) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if constexpr (KVB == 2) {  // a bf16 is the top half of its float
-      f[2 * e] = __uint_as_float(w[e] << 16);
-      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    for (int c = 0; c < NB / 16; ++c) {
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          tile + swz(r * CPR + (o >> 4) + c) * 16);
+      w[4 * c] = x.x;
+      w[4 * c + 1] = x.y;
+      w[4 * c + 2] = x.z;
+      w[4 * c + 3] = x.w;
+    }
+  } else {
+    const unsigned char* p = tile + swz(r * CPR + (o >> 4)) * 16 + (o & 15);
+    if constexpr (NB == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x;
+      w[1] = x.y;
+    } else if constexpr (NB == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
     } else {
-      const float2 lo = e4m3x2_to_float2(w[e]);
-      const float2 hi = e4m3x2_to_float2(w[e] >> 16);
-      f[4 * e] = lo.x;
-      f[4 * e + 1] = lo.y;
-      f[4 * e + 2] = hi.x;
-      f[4 * e + 3] = hi.y;
+      w[0] = *reinterpret_cast<const uint16_t*>(p);
     }
   }
 }
 
-// two neighbouring values of a staged row as floats
-template <int KVB>
-__device__ __forceinline__ float2 load2(const unsigned char* p) {
-  if constexpr (KVB == 2) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  } else {
-    return e4m3x2_to_float2(*reinterpret_cast<const uint16_t*>(p));
-  }
+// Two float8 e4m3 values (the low byte first) as a bf16 pair, exactly:
+// through f16 (cvt.rn.f16x2.e4m3x2), which holds every e4m3 value,
+// subnormals and NaN included, and f32; every e4m3 value is a bf16 value,
+// so the rounding to bf16 changes none. The same bits as the bf16 copy
+// the plain version dequantises to.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  return pack_bf16(f.x, f.y);
 }
 
-// rows c < nk of a K or V tile (keys j0 + c) into shared memory rows of
-// HDP + kv_per16 values: cp.async when 16-byte loads are allowed, else
-// plain loads. Columns past hd and rows past nk keep the zeros the kernel
-// wrote first (or, at a chunk's end, a finite earlier row whose p is 0).
-// ss is the source's key stride in values.
+// keys [j0, j0 + K_TK) of K or V into a staged tile, zeros from key c1
+// on: cp.async where 16-byte loads are allowed (columns past hd keep the
+// zeros the kernel wrote first), else plain loads that write every column
+// (zeros past hd). ss is the source's key stride in values.
 template <int HDP, int KVB>
 __device__ __forceinline__ void splitk_stage(unsigned char* dst,
                                              const unsigned char* src,
-                                             long long ss, int j0, int nk,
-                                             int hd, int vec, int tid) {
-  constexpr int VPC = kv_per16<KVB>(), LD = HDP + VPC, CH = HDP / VPC;
-  for (int e = tid; e < K_TK * CH; e += K_THREADS) {
-    const int c = e / CH, ch = e - c * CH;
-    if (c >= nk || ch * VPC >= hd) continue;
-    const unsigned char* p = src + ((j0 + c) * ss + ch * VPC) * KVB;
-    unsigned char* d = dst + (c * LD + ch * VPC) * KVB;
-    if (vec) {
-      cp_async16(d, p);
-    } else {
-#pragma unroll
-      for (int u = 0; u < VPC * KVB; ++u)
-        d[u] = ch * VPC + u / KVB < hd ? p[u] : 0;
+                                             long long ss, int j0, int c1,
+                                             int hd, int vec, int lane) {
+  using G = SplitGeom<HDP, KVB>;
+  constexpr int VPC = 16 / KVB;  // values a chunk
+  if (vec) {
+#pragma unroll 4
+    for (int e = lane; e < K_TK * G::CPR; e += 32) {
+      const int r = e / G::CPR, c = e - r * G::CPR;
+      if (c * VPC >= hd) continue;
+      const int j = j0 + r;
+      const bool ok = j < c1;
+      cp_async16(dst + swz(e) * 16, ok ? src + (j * ss + c * VPC) * KVB : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = lane; e < K_TK * HDP; e += 32) {
+      const int r = e / HDP, d = e - r * HDP;
+      const int j = j0 + r;
+      const bool ok = j < c1 && d < hd;
+      const unsigned char* p = src + (j * ss + d) * KVB;
+      unsigned char* o =
+          dst + swz(r * G::CPR + d * KVB / 16) * 16 + (d * KVB) % 16;
+      if constexpr (KVB == 2) {
+        *reinterpret_cast<uint16_t*>(o) =
+            ok ? *reinterpret_cast<const uint16_t*>(p) : 0;
+      } else {
+        *o = ok ? *p : 0;
+      }
     }
   }
 }
 
-// KVB 2: the bf16 cache (route splitk); KVB 1: the float8 e4m3 cache
-// (route splitk_f8), staged as it is stored -- a tile's shared memory
-// halves, each cp.async carries 16 values -- and widened to float where
-// the products read it (unpack16, load2). Q, the scores, p (rounded to
-// bf16) and the partials are the same for both.
-template <int HDP, int KVB>
+// tile i of a warp (keys from c0 + (warp + i K_WARPS) K_TK) into slot i %
+// NS of its ring, K and V one commit group (empty past the warp's nw
+// tiles, so that every lane counts the same groups)
+template <int HDP, int KVB, int NS>
+__device__ __forceinline__ void splitk_fetch(unsigned char* ring,
+                                             const unsigned char* k,
+                                             const unsigned char* v,
+                                             const AttnArgs& a, int c0,
+                                             int c1, int warp, int lane,
+                                             int i, int nw) {
+  using G = SplitGeom<HDP, KVB>;
+  unsigned char* st = ring + (i % NS) * G::STAGEB;
+  const int j0 = c0 + (warp + i * K_WARPS) * K_TK;
+  if (i < nw) {
+    splitk_stage<HDP, KVB>(st, k, a.k_ss, j0, c1, a.hd, a.vec, lane);
+    splitk_stage<HDP, KVB>(st + G::TILEB, v, a.v_ss, j0, c1, a.hd, a.vec,
+                           lane);
+  }
+  cp_async_commit();
+}
+
+// The decode kernel for both caches: KVB 2 the bf16 cache (route splitk),
+// KVB 1 the float8 e4m3 cache (route splitk_f8). Both stage the cache as
+// it is stored, hand the tensor cores the same bf16 values (a float8
+// byte widened once, exactly, where its fragment is built) and run the
+// same mma.sync m16n8k16 in the same order, so the float8 route equals
+// the bf16 route on the dequantised copy bit for bit.
+//
+// A warp's 16 MMA rows are the (query, q-head) rows of the kv-head's
+// group, R <= 16, padded with zero rows. Per 32-key tile:
+//   S = Q K^T (4 n-tiles of 8 keys, HDP / 16 k-steps). Within a k-step,
+//     lane t's four values are hd positions t * HDP / 4 + 4 kk .. + 3 (the
+//     A and B fragments permute hd alike, so the sum is unchanged): a lane
+//     reads a contiguous run of its K row, and a float8 pair widens to
+//     one bf16x2 register with no shuffling.
+//   the tile's scores masked (keys at or past the chunk's end c1, and
+//     causal), the running max and sum updated, p = 2^(s - m) rounded to
+//     bf16 into the A fragments of O += P V straight from the score
+//     registers; the sum adds the unrounded p.
+//   O += P V (2 k-steps of 16 keys, HDP / 8 n-tiles). Lane g's B column
+//     of n-tile n is hd position g * HDP / 8 + n, so a lane reads a
+//     contiguous run of each of its four key rows and pairs two keys of a
+//     column with one byte permute.
+// Keys at or past c1 are staged as zeros (a stale cache tail may be NaN,
+// and 0 * NaN is NaN on the tensor cores). At the end the warps' states
+// are merged by log-sum-exp in a fixed order and written as the block's
+// float32 partial. NS: the ring's stages (1 where no warp has a second
+// tile: less shared memory, more blocks an SM).
+template <int HDP, int KVB, int NS>
 __global__ void __launch_bounds__(K_THREADS)
     attn_splitk_kernel(const AttnArgs a, const SplitArgs sp) {
-  constexpr int VPC = kv_per16<KVB>(), LD = HDP + VPC;
-  constexpr int TILE = K_TK * LD * KVB;  // bytes of one staged tile
-  // P V: TPG threads across hd (two columns each) x NRG row groups
-  constexpr int TPG = HDP / 2 < K_THREADS ? HDP / 2 : K_THREADS;
-  constexpr int NRG = K_THREADS / TPG;
-  constexpr int RPT = K_ROWS / NRG;
-  static_assert(NRG <= K_ROWS, "HDP too small");
-  static_assert(HDP % VPC == 0, "a row is whole 16-byte chunks");
+  using G = SplitGeom<HDP, KVB>;
+  constexpr int NT = HDP / 8;                   // O's n-tiles
+  constexpr int KGE = cmin(HDP / 4, 16);        // K values read at once
+  constexpr int KGW = KGE * KVB / 4;            // ... as 32-bit words
+  constexpr int NVG = cmin(NT, 16);             // V columns read at once
+  constexpr int VGW = cmax(1, NVG * KVB / 4);   // ... as 32-bit words
+  static_assert(HDP >= 16 && HDP % 16 == 0, "whole k-steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sK = smem_raw;                    // 2 tiles
-  unsigned char* sV = sK + 2 * TILE;               // 2 tiles
-  float* sQ = reinterpret_cast<float*>(sV + 2 * TILE);  // rows x HDP
-  float* sS = sQ + K_ROWS * HDP;  // K_ROWS x K_LDS: scores, then p
-  float* sM = sS + K_ROWS * K_LDS;
-  float* sL = sM + K_ROWS;
-  float* sA = sL + K_ROWS;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw + G::scratch(NS));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int R = a.Sq * a.group, hd = a.hd;
+  unsigned char* ring = smem_raw + warp * NS * G::STAGEB;
   const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb;
   const unsigned char* k = static_cast<const unsigned char*>(a.k) +
                            (b * a.k_sb + kvh * a.k_sh) * KVB;
   const unsigned char* v = static_cast<const unsigned char*>(a.v) +
                            (b * a.v_sb + kvh * a.v_sh) * KVB;
 
-  for (int e = tid; e < 4 * TILE / 16; e += K_THREADS)
-    reinterpret_cast<uint4*>(sK)[e] = make_uint4(0u, 0u, 0u, 0u);
-  // Q as float32, 8 values a thread (one 16-byte load where allowed), so
-  // the block waits for one round trip, not one per value
+  const int kend = tile_key_end(a, 0, R);
+  const int c0 = split * sp.chunk;
+  const int c1 = min(kend, c0 + sp.chunk);
+  const int nt = c1 > c0 ? (c1 - c0 + K_TK - 1) / K_TK : 0;
+  const int nw = nt > warp ? (nt - warp + K_WARPS - 1) / K_WARPS : 0;
+  if (a.vec && hd < HDP) {  // the columns past hd that cp.async skips
+    for (int e = lane; e < NS * G::STAGEB / 16; e += 32)
+      reinterpret_cast<uint4*>(ring)[e] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();  // before any lane's copies land on them
+  }
+  // the first NS tiles in flight while Q is staged
+#pragma unroll 1
+  for (int i = 0; i < NS; ++i)
+    splitk_fetch<HDP, KVB, NS>(ring, k, v, a, c0, c1, warp, lane, i, nw);
+
+  // Q as bf16 rows, zeros past R and hd
   for (int e = tid; e < K_ROWS * HDP / 8; e += K_THREADS) {
     const int r = e / (HDP / 8), d0 = (e - r * (HDP / 8)) * 8;
-    float x[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r < R && d0 < hd) {
       const int i = r / a.group;
       const int h = kvh * a.group + (r - i * a.group);
       const bf16* src = q + i * a.q_ss + h * a.q_sh + d0;
       if (a.vec) {
-        unpack16<2>(*reinterpret_cast<const uint4*>(src), x);
+        x = *reinterpret_cast<const uint4*>(src);
       } else {
+        uint32_t u[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (d0 + u < hd) x[u] = __bfloat162float(src[u]);
+        for (int c = 0; c < 8; ++c)
+          u[c] = d0 + c < hd ? __bfloat16_as_ushort(src[c]) : 0u;
+        x = make_uint4(u[0] | (u[1] << 16), u[2] | (u[3] << 16),
+                       u[4] | (u[5] << 16), u[6] | (u[7] << 16));
       }
     }
+    *reinterpret_cast<uint4*>(sQ + r * G::QLD + d0) = x;
+  }
+  // the last key each of this lane's rows (g, g + 8) sees
+  int lim[2];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) sQ[r * HDP + d0 + u] = x[u];
+  for (int h = 0; h < 2; ++h) {
+    long long x = c1 - 1;
+    if (a.causal) {
+      const long long c = static_cast<long long>(a.q_offset) +
+                          (g + 8 * h) / a.group;
+      x = c < x ? c : x;
+    }
+    lim[h] = static_cast<int>(x);
   }
-  if (tid < K_ROWS) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.0f;
-  }
-  const int kend = tile_key_end(a, 0, R);
-  const int c0 = split * sp.chunk;
-  const int c1 = min(kend, c0 + sp.chunk);
-  const int nt = c1 > c0 ? (c1 - c0 + K_TK - 1) / K_TK : 0;
   const float sl2 = a.scale * 1.4426950408889634f;
-  float acc[RPT][2];
-#pragma unroll
-  for (int u = 0; u < RPT; ++u) acc[u][0] = acc[u][1] = 0.0f;
-  __syncthreads();  // the zeros land before any cp.async
 
-  if (nt > 0) {
-    splitk_stage<HDP, KVB>(sK, k, a.k_ss, c0, min(K_TK, c1 - c0), hd, a.vec,
-                           tid);
-    cp_async_commit();
-    splitk_stage<HDP, KVB>(sV, v, a.v_ss, c0, min(K_TK, c1 - c0), hd, a.vec,
-                           tid);
-    cp_async_commit();
-  }
-  for (int n = 0; n < nt; ++n) {
-    const int buf = n & 1, j0 = c0 + n * K_TK, nk = min(K_TK, c1 - j0);
-    const bool more = n + 1 < nt;
-    if (more) {  // the next tile's K and V, in flight during this one
-      const int j1 = j0 + K_TK, nk1 = min(K_TK, c1 - j1);
-      splitk_stage<HDP, KVB>(sK + (buf ^ 1) * TILE, k, a.k_ss, j1, nk1, hd,
-                             a.vec, tid);
-      cp_async_commit();
-      splitk_stage<HDP, KVB>(sV + (buf ^ 1) * TILE, v, a.v_ss, j1, nk1, hd,
-                             a.vec, tid);
-      cp_async_commit();
-      cp_async_wait<3>();  // this tile's K has landed
-    } else {
-      cp_async_wait<1>();
-    }
-    __syncthreads();
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  __syncthreads();  // sQ written
 
-    {  // scores: thread owns key c and rows rh, rh + 4, ...
-      constexpr int RS = K_ROWS * K_TK / K_THREADS;  // rows of a thread
-      const int c = tid & (K_TK - 1), rh = tid / K_TK;
-      float sacc[RS];
+#pragma unroll 1
+  for (int i = 0; i < nw; ++i) {
+    cp_async_wait<NS - 1>();  // this lane's copies of tile i
+    __syncwarp();                 // ... and the other lanes'
+    const unsigned char* sK = ring + (i % NS) * G::STAGEB;
+    const unsigned char* sV = sK + G::TILEB;
+    const int j0 = c0 + (warp + i * K_WARPS) * K_TK;
+
+    // S = Q K^T: n-tile n holds keys j0 + 8n .. + 7 (lane g loads key 8n
+    // + g); s[n][0..1] rows g, s[n][2..3] row g + 8, keys 2t, 2t + 1
+    float s[4][4];
 #pragma unroll
-      for (int u = 0; u < RS; ++u) sacc[u] = 0.0f;
-      const unsigned char* kr = sK + buf * TILE + c * LD * KVB;
-#pragma unroll 4
-      for (int d0 = 0; d0 < HDP; d0 += VPC) {
-        float kf[VPC];
-        unpack16<KVB>(*reinterpret_cast<const uint4*>(kr + d0 * KVB), kf);
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int u = 0; u < RS; ++u) {
-          const int r = rh + (K_THREADS / K_TK) * u;
-          if (r < R) {
-            float x = sacc[u];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-            for (int e = 0; e < VPC; e += 4) {
-              const float4 qa = *reinterpret_cast<const float4*>(
-                  sQ + r * HDP + d0 + e);
-              x = fmaf(qa.x, kf[e], x);
-              x = fmaf(qa.y, kf[e + 1], x);
-              x = fmaf(qa.z, kf[e + 2], x);
-              x = fmaf(qa.w, kf[e + 3], x);
-            }
-            sacc[u] = x;
+    for (int kg = 0; kg < HDP / 4 / KGE; ++kg) {
+      uint32_t kw[4][KGW];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        lds_row<G::CPR, KGE * KVB>(sK, 8 * n + g,
+                                   (t * (HDP / 4) + kg * KGE) * KVB, kw[n]);
+#pragma unroll
+      for (int kq = 0; kq < KGE / 4; ++kq) {
+        const int d = t * (HDP / 4) + kg * KGE + 4 * kq;
+        const uint2 qa = *reinterpret_cast<const uint2*>(sQ + g * G::QLD + d);
+        const uint2 qb =
+            *reinterpret_cast<const uint2*>(sQ + (g + 8) * G::QLD + d);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t b0, b1;
+          if constexpr (KVB == 2) {
+            b0 = kw[n][2 * kq];
+            b1 = kw[n][2 * kq + 1];
+          } else {
+            b0 = e4m3x2_to_bf16x2(kw[n][kq]);
+            b1 = e4m3x2_to_bf16x2(kw[n][kq] >> 16);
           }
-        }
-      }
-      const int j = j0 + c;
-#pragma unroll
-      for (int u = 0; u < RS; ++u) {
-        const int r = rh + (K_THREADS / K_TK) * u;
-        if (r < R) {
-          const long long lim =
-              static_cast<long long>(a.q_offset) + r / a.group;
-          const bool vis = c < nk && (!a.causal || j <= lim);
-          sS[r * K_LDS + c] = vis ? sacc[u] * sl2 : -INFINITY;
+          mma_bf16(s[n], qa.x, qb.x, qa.y, qb.y, b0, b1);
         }
       }
     }
-    __syncthreads();
-    // online softmax: warp w takes rows w, w + 4, ...; a key a lane
-    static_assert(K_TK == 32, "one key a lane");
-    for (int r = warp; r < R; r += K_THREADS / 32) {
-      const float x = sS[r * K_LDS + lane];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(x));
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;
-      const float p = exp2f(x - m_use);
-      const float psum = warp_sum(p);
-      sS[r * K_LDS + lane] = __bfloat162float(__float2bfloat16_rn(p));
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_use);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + psum;
-        sM[r] = m_new;
-      }
-    }
-    if (more) {
-      cp_async_wait<2>();  // this tile's V has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    {  // acc = acc * alpha + P V: columns 2cp, 2cp + 1, rows rg + NRG u
-      const int cp = tid % TPG, rg = tid / TPG;
-#pragma unroll
-      for (int u = 0; u < RPT; ++u) {
-        const int r = rg + NRG * u;
-        if (r < R) {
-          const float al = sA[r];
-          acc[u][0] *= al;
-          acc[u][1] *= al;
-        }
-      }
-      const unsigned char* vc = sV + buf * TILE + 2 * cp * KVB;
-#pragma unroll 4
-      for (int c = 0; c < K_TK; ++c) {
-        const float2 vv = load2<KVB>(vc + c * LD * KVB);
-#pragma unroll
-        for (int u = 0; u < RPT; ++u) {
-          const int r = rg + NRG * u;
-          if (r < R) {
-            const float p = sS[r * K_LDS + c];
-            acc[u][0] = fmaf(p, vv.x, acc[u][0]);
-            acc[u][1] = fmaf(p, vv.y, acc[u][1]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the buffer and sS are free again
-  }
 
+    // mask, scale to log2 units, the online softmax of rows g, g + 8
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + 8 * n + 2 * t + (e & 1);
+        s[n][e] = key <= lim[e >> 1] ? s[n][e] * sl2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float al[2], mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(~0u, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(~0u, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      mu[h] = mn == -INFINITY ? 0.0f : mn;
+      al[h] = exp2f(m[h] - mu[h]);
+      m[h] = mn;
+    }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mu[e >> 1]);
+        ps[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * al[h] + ps[h];  // lane's part
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= al[0];
+      acc[n][1] *= al[0];
+      acc[n][2] *= al[1];
+      acc[n][3] *= al[1];
+    }
+
+    // O += P V: k-step kk takes keys j0 + 16 kk .. + 15 from n-tiles 2kk
+    // and 2kk + 1 of S; lane (g, t) reads key rows 2t, 2t + 1, 2t + 8,
+    // 2t + 9 of the step at columns g NT .. g NT + NT - 1
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t pa0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      const uint32_t pa1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      const uint32_t pa2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      const uint32_t pa3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const int ra = 16 * kk + 2 * t;
+#pragma unroll
+      for (int vg = 0; vg < NT / NVG; ++vg) {
+        uint32_t w[4][VGW];
+        const int o = (g * NT + vg * NVG) * KVB;
+        lds_row<G::CPR, NVG * KVB>(sV, ra, o, w[0]);
+        lds_row<G::CPR, NVG * KVB>(sV, ra + 1, o, w[1]);
+        lds_row<G::CPR, NVG * KVB>(sV, ra + 8, o, w[2]);
+        lds_row<G::CPR, NVG * KVB>(sV, ra + 9, o, w[3]);
+#pragma unroll
+        for (int jj = 0; jj < NVG; ++jj) {
+          uint32_t b0, b1;
+          if constexpr (KVB == 2) {  // the jj-th bf16 of two rows
+            const uint32_t sel = jj & 1 ? 0x7632u : 0x5410u;
+            b0 = __byte_perm(w[0][jj >> 1], w[1][jj >> 1], sel);
+            b1 = __byte_perm(w[2][jj >> 1], w[3][jj >> 1], sel);
+          } else {  // the jj-th byte of two rows, widened
+            const uint32_t sel = (jj & 3) | (((jj & 3) + 4) << 4);
+            b0 = e4m3x2_to_bf16x2(
+                __byte_perm(w[0][jj >> 2], w[1][jj >> 2], sel));
+            b1 = e4m3x2_to_bf16x2(
+                __byte_perm(w[2][jj >> 2], w[3][jj >> 2], sel));
+          }
+          mma_bf16(acc[vg * NVG + jj], pa0, pa1, pa2, pa3, b0, b1);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with the slot: tile i + NS into it
+    splitk_fetch<HDP, KVB, NS>(ring, k, v, a, c0, c1, warp, lane, i + NS,
+                               nw);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(~0u, l[h], 1);
+    l[h] += __shfl_xor_sync(~0u, l[h], 2);
+  }
+  // the merge's blocks may launch once every block is past its keys (they
+  // wait for this grid's end to read, and take no SM from its loads)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the block's merge: each warp's rows < R into shared memory (acc[n][e]
+  // is row g (e < 2) or g + 8, hd position c = (2t + e % 2) NT + n, kept
+  // at c + c / 32 so that the lanes t of a store fall on distinct banks),
+  // then the log-sum-exp of the K_WARPS states, warp 0 first, as the
+  // partial
+  cp_async_wait<0>();
+  __syncthreads();  // the rings are free
+  float* sO = reinterpret_cast<float*>(smem_raw);  // K_WARPS x K_ROWS x OLD
+  float* sML = sO + K_WARPS * K_ROWS * G::OLD;     // K_WARPS x K_ROWS x 2
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + 8 * h;
+    if (r >= R) continue;
+    float* o = sO + (warp * K_ROWS + r) * G::OLD;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = 2 * t * NT + n;
+      o[c + c / 32] = acc[n][2 * h];
+      o[c + NT + (c + NT) / 32] = acc[n][2 * h + 1];
+    }
+    if (t == 0) {
+      sML[(warp * K_ROWS + r) * 2] = m[h];
+      sML[(warp * K_ROWS + r) * 2 + 1] = l[h];
+    }
+  }
+  __syncthreads();
   const long long pbase =
       ((static_cast<long long>(b) * gridDim.y + kvh) * sp.splits + split) * R;
-  {
-    const int cp = tid % TPG, rg = tid / TPG;
+  for (int e = tid; e < R * hd; e += K_THREADS) {
+    const int r = e / hd, d = e - r * hd;
+    float M = -INFINITY;
 #pragma unroll
-    for (int u = 0; u < RPT; ++u) {
-      const int r = rg + NRG * u;
-      if (r >= R) continue;
-      float* po = sp.part_o + (pbase + r) * hd;
-      if (2 * cp < hd) po[2 * cp] = acc[u][0];
-      if (2 * cp + 1 < hd) po[2 * cp + 1] = acc[u][1];
+    for (int w = 0; w < K_WARPS; ++w)
+      M = fmaxf(M, sML[(w * K_ROWS + r) * 2]);
+    float x = 0.0f, L = 0.0f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < K_WARPS; ++w) {
+        const float wt = exp2f(sML[(w * K_ROWS + r) * 2] - M);
+        x = fmaf(wt, sO[(w * K_ROWS + r) * G::OLD + d + d / 32], x);
+        L = fmaf(wt, sML[(w * K_ROWS + r) * 2 + 1], L);
+      }
     }
-  }
-  if (tid < R) {
-    sp.part_ml[(pbase + tid) * 2] = sM[tid];
-    sp.part_ml[(pbase + tid) * 2 + 1] = sL[tid];
+    sp.part_o[(pbase + r) * hd + d] = x;
+    if (d == 0) {
+      sp.part_ml[(pbase + r) * 2] = M;
+      sp.part_ml[(pbase + r) * 2 + 1] = L;
+    }
   }
 }
 
 // one block per (row, kv-head, batch): out = sum_s w_s acc_s / sum_s w_s
-// l_s with w_s = 2^(m_s - max m); zeros where no split saw a key. The
-// splits' (m, l) are read by the block's threads side by side, and the
-// weights kept in shared memory, so the merge waits for few round trips.
+// l_s with w_s = 2^(m_s - max m); zeros where no split saw a key. Each
+// thread merges the splits for its columns, K_MERGE splits' (m, l) and acc
+// loaded at once, rescaling when the max grows, so the merge waits for
+// one round trip of loads a K_MERGE splits. It is launched as the split
+// kernel's programmatic dependent: its blocks may start before that grid
+// ends, and wait here for its partials.
+constexpr int K_MERGE = 8;
+
 __global__ void __launch_bounds__(128)
     attn_combine_kernel(const AttnArgs a, const SplitArgs sp) {
-  __shared__ float sw[K_MAX_SPLITS];
-  __shared__ float red[4];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int r = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = a.Sq * a.group, hd = a.hd, S = sp.splits;
   const long long base =
       (static_cast<long long>(b) * gridDim.y + kvh) * S * R + r;
-  float M = -INFINITY;
-  for (int s = tid; s < S; s += 128)
-    M = fmaxf(M, sp.part_ml[(base + static_cast<long long>(s) * R) * 2]);
-  M = warp_max(M);
-  if (lane == 0) red[warp] = M;
-  __syncthreads();
-  M = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
   const int i = r / a.group, h = kvh * a.group + (r - i * a.group);
   bf16* orow = static_cast<bf16*>(a.o) +
                ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * hd;
-  if (M == -INFINITY) {
-    for (int d = tid; d < hd; d += 128) orow[d] = __ushort_as_bfloat16(0);
-    if (a.lse != nullptr && tid == 0) store_lse_log2(a, b, i, h, M, 0.0f);
-    return;
-  }
-  float L = 0.0f;
-  for (int s = tid; s < S; s += 128) {
-    const float* ml = sp.part_ml + (base + static_cast<long long>(s) * R) * 2;
-    const float w = exp2f(ml[0] - M);  // 0 for a split that saw no key
-    sw[s] = w;
-    L = fmaf(w, ml[1], L);
-  }
-  L = warp_sum(L);
-  __syncthreads();  // red[] read above; sw[] written
-  if (lane == 0) red[warp] = L;
-  __syncthreads();
-  const float L_all = red[0] + red[1] + red[2] + red[3];
-  const float inv = 1.0f / L_all;
-  if (a.lse != nullptr && tid == 0) store_lse_log2(a, b, i, h, M, L_all);
-  for (int d = tid; d < hd; d += 128) {
-    float x = 0.0f;
-#pragma unroll 8
-    for (int s = 0; s < S; ++s)
-      x = fmaf(sw[s], sp.part_o[(base + static_cast<long long>(s) * R) * hd +
-                                d],
-               x);
-    orow[d] = __float2bfloat16_rn(x * inv);
+  for (int d0 = 0; d0 < hd; d0 += 128) {
+    const int d = d0 + threadIdx.x;
+    float M = -INFINITY, L = 0.0f, x = 0.0f;
+    for (int s0 = 0; s0 < S; s0 += K_MERGE) {
+      float ms[K_MERGE], ls[K_MERGE], os[K_MERGE];
+#pragma unroll
+      for (int u = 0; u < K_MERGE; ++u) {
+        const long long at = base + static_cast<long long>(s0 + u) * R;
+        const bool ok = s0 + u < S;
+        ms[u] = ok ? sp.part_ml[at * 2] : -INFINITY;
+        ls[u] = ok ? sp.part_ml[at * 2 + 1] : 0.0f;
+        os[u] = ok && d < hd ? sp.part_o[at * hd + d] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < K_MERGE; ++u) {
+        if (ms[u] == -INFINITY) continue;  // a split that saw no key
+        if (ms[u] > M) {  // a new max: rescale the sums so far
+          const float c = exp2f(M - ms[u]);
+          x = fmaf(x, c, os[u]);
+          L = fmaf(L, c, ls[u]);
+          M = ms[u];
+        } else {
+          const float w = exp2f(ms[u] - M);
+          x = fmaf(w, os[u], x);
+          L = fmaf(w, ls[u], L);
+        }
+      }
+    }
+    if (d < hd)
+      orow[d] = M == -INFINITY ? __ushort_as_bfloat16(0)
+                               : __float2bfloat16_rn(x / L);
+    if (a.lse != nullptr && d == 0) store_lse_log2(a, b, i, h, M, L);
   }
 }
 
@@ -1203,15 +1355,40 @@ int launch_mma(const AttnArgs& a, dim3 grid, cudaStream_t s) {
                       mma_smem_bytes<HDP>(), s, a);
 }
 
+template <int HDP, int KVB, int NS>
+int launch_splitk_ns(const AttnArgs& a, const SplitArgs& sp, int B, int Hkv,
+                     cudaStream_t s) {
+  // all of the SM's 228 KB as shared memory: two float8 blocks an SM
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_splitk_kernel<HDP, KVB, NS>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch(attn_splitk_kernel<HDP, KVB, NS>, dim3(sp.splits, Hkv, B),
+                K_THREADS, SplitGeom<HDP, KVB>::smem(NS), s, a, sp);
+}
+
 template <int HDP, int KVB>
 int launch_splitk(const AttnArgs& a, const SplitArgs& sp, int B, int Hkv,
                   cudaStream_t s) {
-  const int rc = launch(attn_splitk_kernel<HDP, KVB>,
-                        dim3(sp.splits, Hkv, B), K_THREADS,
-                        splitk_smem_bytes<HDP, KVB>(), s, a, sp);
+  // a chunk of one round of the warps' tiles gives no warp a second tile:
+  // a ring of one stage
+  const int rc =
+      sp.chunk <= K_TK * K_WARPS
+          ? launch_splitk_ns<HDP, KVB, 1>(a, sp, B, Hkv, s)
+          : launch_splitk_ns<HDP, KVB, SplitGeom<HDP, KVB>::STAGES>(
+                a, sp, B, Hkv, s);
   if (rc != 0) return rc;
-  attn_combine_kernel<<<dim3(a.Sq * a.group, Hkv, B), 128, 0, s>>>(a, sp);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Sq * a.group, Hkv, B);
+  cfg.blockDim = dim3(128);
+  cfg.stream = s;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, attn_combine_kernel, a, sp));
 }
 
 template <int HD>

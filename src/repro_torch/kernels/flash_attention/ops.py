@@ -84,7 +84,8 @@ __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
            "flash_attention_cuda", "flash_attention_bwd",
            "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
            "flash_attention_meta", "flash_attention_bwd_meta",
-           "visible_pairs", "attention_route", "attention_plan", "splitk_chunks", "bwd_route",
+           "visible_pairs", "attention_route", "attention_plan", "splitk_chunks",
+           "splitk_stages", "bwd_route",
            "bwd_plan", "bwd_row_tiles", "ROUTES", "BWD_ROUTES",
            "MAX_HEAD_DIM", "F8"]
 
@@ -108,12 +109,18 @@ ROUTES = ("scalar", "mma", "wgmma", "splitk", "splitk_f8")
 # attn_wgmma_kernel: its head dims
 WGMMA_HEAD_DIMS = (64, 128)
 # attn_splitk_kernel: the most rows (Sq * G) of one (kv-head, batch), the
-# step of a chunk's keys (two of the kernel's 32-key tiles), and the
-# blocks per SM to aim for
+# keys of a warp's tile, the warps of a block (a chunk is whole rounds of
+# their tiles), the blocks an SM holds with a float8 hd-128 ring (a wave)
 SPLITK_MAX_ROWS = 16
-SPLITK_CHUNK = 64
+SPLITK_TILE = 32
+SPLITK_WARPS = 4
+SPLITK_ROUND = SPLITK_TILE * SPLITK_WARPS
 SPLITK_BLOCKS_PER_SM = 2
 H100_SMS = 132
+# the shared memory of a block's rings (csrc/flash_attention.cu,
+# SplitGeom): as many stages (2..4) as let two blocks share an SM, else as
+# many (at least 1) as one block holds
+_SPLITK_RING_TWO, _SPLITK_RING_ONE = 96 * 1024, 200 * 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,7 +136,10 @@ def attention_route(rows: int, hd: int, dtype: torch.dtype,
     ``scalar`` for float32; in bf16 ``splitk`` for decode rows
     (``rows <= 16``; ``splitk_f8`` with a float8 cache, ``kv_f8``),
     ``wgmma`` for more rows at hd 64 or 128 with ``vec``, ``mma`` for the
-    rest (other head dims, unaligned inputs). By shape only."""
+    rest (other head dims, unaligned inputs). By shape only. The decode
+    routes are bound by the cache's bytes (one read of the valid keys and
+    values): their rows ride padded in a 16-row tensor-core tile, whose
+    operations stay far below the bytes' time."""
     if dtype == torch.float32:
         return "scalar"
     if rows <= SPLITK_MAX_ROWS:
@@ -142,13 +152,44 @@ def attention_route(rows: int, hd: int, dtype: torch.dtype,
 def splitk_chunks(B: int, Hkv: int, key_end: int,
                   sms: int = H100_SMS) -> tuple[int, int]:
     """``(chunk, splits)`` of the decode route: the keys ``[0, key_end)``
-    cut into ``splits`` chunks of ``chunk`` keys (a multiple of 64, the
-    last one shorter), as few keys a chunk as make
-    ``B * Hkv * splits >= 2 * sms`` blocks where the cache is long enough.
-    At B 4, Hkv 8 and 544 keys: 9 chunks of 64 keys, 288 blocks."""
-    want = -(-SPLITK_BLOCKS_PER_SM * sms // max(1, B * Hkv))
-    chunk = max(SPLITK_CHUNK, key_end // want // SPLITK_CHUNK * SPLITK_CHUNK)
-    return chunk, max(1, -(-key_end // chunk))
+    cut into ``splits`` chunks of ``chunk`` keys (the last one shorter), a
+    chunk whole rounds of the block's ``SPLITK_WARPS`` warps' 32-key tiles
+    (``SPLITK_ROUND`` keys a round). As many splits as keep the ``B * Hkv
+    * splits`` blocks within one wave of ``SPLITK_BLOCKS_PER_SM * sms``,
+    and no more than give every warp a tile; then the fewest rounds a
+    chunk that cover the keys in that many, and the fewest splits that
+    take those chunks. A short cache (granite-8b's decode over 544 keys,
+    B 4, Hkv 8) thus gets one tile a warp in 5 chunks of 128 keys (160
+    blocks: a latency of one tile and the merge, not bytes); a long one
+    (32,768 keys) 8 chunks of 4,096 keys (256 blocks, 32 tiles a warp:
+    bytes). The plan is the same for the bf16 and the float8 cache, so
+    both routes merge the same partials in the same order."""
+    tiles = max(1, -(-key_end // SPLITK_TILE))
+    pairs = max(1, B * Hkv)
+    wave = SPLITK_BLOCKS_PER_SM * sms
+    splits = max(1, min(-(-tiles // SPLITK_WARPS), wave // pairs))
+    rounds = -(-tiles // (splits * SPLITK_WARPS))      # a chunk's rounds
+    chunk = rounds * SPLITK_ROUND
+    return chunk, -(-max(key_end, 1) // chunk)
+
+
+def splitk_stages(hd: int, kv_bytes: int,
+                  chunk: Optional[int] = None) -> int:
+    """The ring stages of each warp of the decode kernel at head dim
+    ``hd`` over a cache of ``kv_bytes`` bytes a value (2 bf16, 1 float8):
+    its ``SplitGeom<HDP, KVB>::STAGES`` (HDP = hd rounded up to 16, 32, 64,
+    128 or 256), or 1 for a ``chunk`` of at most one round of the warps'
+    tiles (no warp has a second tile; the smaller ring lets more blocks
+    share an SM). They set the bytes in flight, not the arithmetic: the
+    plan and the result do not depend on them."""
+    if chunk is not None and chunk <= SPLITK_ROUND:
+        return 1
+    hdp = next(p for p in (16, 32, 64, 128, 256) if hd <= p)
+    per_stage = SPLITK_WARPS * 2 * SPLITK_TILE * hdp * kv_bytes
+    fit2 = _SPLITK_RING_TWO // per_stage
+    if fit2 >= 2:
+        return min(fit2, 4)
+    return max(1, min(4, _SPLITK_RING_ONE // per_stage))
 
 
 def _aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -267,7 +308,7 @@ def flash_attention_splitk_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, causal: bool = True, *,
                                q_offset: Optional[int] = None,
                                kv_valid_len: Optional[int] = None,
-                               chunk: int = SPLITK_CHUNK) -> torch.Tensor:
+                               chunk: int = SPLITK_ROUND) -> torch.Tensor:
     """Plain version of the decode route: the key axis cut into chunks of
     ``chunk`` (keys at or past ``kv_valid_len`` masked and never read);
     each chunk's partial softmax state (row max ``m``, row sum ``l``,

@@ -694,6 +694,19 @@ ROUTE_CASES = [
     ("splitk", (1, 2, 50, 8, 2, 12, False, None, 40)),
     ("splitk", (1, 4, 64, 4, 1, 64, True, -2, 64)),
     ("splitk", (1, 1, 16, 4, 1, 64, True, 0, 0)),
+    # the valid length at 1, one key before, at and past the kernel's
+    # 32-key tile, at and past a round of its four warps' tiles (128), at
+    # and past the reach of a warp's ring at hd 128 (384), G 1, 4 and 5,
+    # and decode_32k's cache at batch 4
+    ("splitk", (2, 1, 64, 32, 8, 128, True, 0, 1)),
+    ("splitk", (2, 1, 64, 32, 8, 128, True, 30, 31)),
+    ("splitk", (2, 1, 64, 40, 8, 128, True, 31, 32)),
+    ("splitk", (2, 1, 64, 16, 16, 128, True, 32, 33)),
+    ("splitk", (1, 1, 200, 32, 8, 128, True, 127, 128)),
+    ("splitk", (1, 1, 200, 40, 8, 96, True, 128, 129)),
+    ("splitk", (1, 1, 400, 8, 2, 128, True, 383, 384)),
+    ("splitk", (1, 1, 400, 8, 8, 128, True, 384, 385)),
+    ("splitk", (4, 1, 32768, 32, 8, 128, True, 32767, 32768)),
     ("wgmma", (1, 7, 50, 5, 1, 128, True, 20, 27)),
     ("mma", (1, 7, 50, 5, 1, 96, True, 20, 27)),
     ("mma", (2, 40, 90, 8, 2, 256, True, None, None)),

@@ -210,20 +210,50 @@ def test_attention_route_thresholds(rows, hd, dtype, vec, route):
 
 
 @pytest.mark.parametrize("B,Hkv,key_end,want", [
-    (4, 8, 544, (64, 9)),        # granite-8b decode: 288 blocks
-    (4, 8, 300, (64, 5)),        # mid-cache: the chunk stays at 64 keys
-    (1, 8, 32768, (960, 35)),    # a long cache: 280 blocks
-    (4, 8, 0, (64, 1)),          # an empty cache still writes its zeros
-    (2, 2, 71, (64, 2)),
-    (1, 1, 10 ** 6, (3776, 265)),
+    (4, 8, 544, (128, 5)),       # granite-8b decode: a tile a warp, 160 blocks
+    (4, 8, 300, (128, 3)),       # mid-cache: one round of the warps a chunk
+    (1, 8, 32768, (1024, 32)),   # a long cache: 256 blocks
+    (4, 8, 0, (128, 1)),         # an empty cache still writes its zeros
+    (2, 2, 71, (128, 1)),
+    (1, 1, 10 ** 6, (3840, 261)),
+    (4, 16, 160, (128, 2)),      # moonshot's decode (G 1): 128 blocks
+    (4, 8, 513, (128, 5)),       # one key past 16 tiles
+    (4, 8, 32768, (4096, 8)),    # decode_32k's cache at batch 4
 ])
 def test_splitk_chunks(B, Hkv, key_end, want):
     chunk, splits = ops.splitk_chunks(B, Hkv, key_end, sms=132)
     assert (chunk, splits) == want
-    assert chunk % 64 == 0 and splits >= 1
+    assert chunk % ops.SPLITK_ROUND == 0 and splits >= 1
     assert (splits - 1) * chunk < max(key_end, 1) <= splits * chunk
-    if key_end >= 64 * -(-264 // (B * Hkv)):
-        assert B * Hkv * splits >= 2 * 132
+    # at most one wave of blocks (two an SM), unless one split a (kv-head,
+    # batch) already exceeds it
+    wave = ops.SPLITK_BLOCKS_PER_SM * 132
+    assert B * Hkv * splits <= max(wave, B * Hkv)
+    tiles = -(-key_end // ops.SPLITK_TILE)
+    if tiles <= ops.SPLITK_WARPS * (wave // (B * Hkv)):
+        # a short cache: every warp has at most one tile
+        assert chunk == ops.SPLITK_ROUND
+    else:
+        # a long one fills the wave to within a round of each split
+        assert B * Hkv * splits >= 0.9 * wave
+
+
+@pytest.mark.parametrize("hd,kv_bytes,stages", [
+    (16, 1, 4), (16, 2, 4), (24, 1, 4), (64, 1, 4), (64, 2, 3),
+    (96, 1, 3), (128, 1, 3), (128, 2, 3), (256, 1, 3), (256, 2, 1)])
+def test_splitk_stages_fit_the_card(hd, kv_bytes, stages):
+    """The decode kernel's ring stages (csrc SplitGeom): a block's rings and
+    Q fit its 227 KB; float8 hd 128 (granite-8b, moonshot) keeps two
+    blocks an SM (96 KB of rings each)."""
+    assert ops.splitk_stages(hd, kv_bytes) == stages
+    hdp = next(p for p in (16, 32, 64, 128, 256) if hd <= p)
+    ring = ops.SPLITK_WARPS * stages * 2 * ops.SPLITK_TILE * hdp * kv_bytes
+    assert ring + 16 * (hdp + 8) * 2 <= 227 * 1024
+    if (hd, kv_bytes) == (128, 1):
+        assert ring <= 96 * 1024
+    # a chunk of one round of the warps' tiles: one stage
+    assert ops.splitk_stages(hd, kv_bytes, ops.SPLITK_ROUND) == 1
+    assert ops.splitk_stages(hd, kv_bytes, 2 * ops.SPLITK_ROUND) == stages
 
 
 def _bf16_qkv(B, Sq, Skv, Hq, Hkv, hd):
@@ -235,9 +265,9 @@ def test_attention_plan_follows_shape_and_layout():
     # granite-8b decode and prefill, qwen2.5-14b (G 5) decode
     q, k, v = _bf16_qkv(4, 1, 544, 32, 8, 128)
     assert ops.attention_plan(q, k, v, q_offset=543, kv_valid_len=544) \
-        == ("splitk", 64, 9)
+        == ("splitk", 128, 5)
     assert ops.attention_plan(q, k, v, q_offset=299, kv_valid_len=300) \
-        == ("splitk", 64, 5)
+        == ("splitk", 128, 3)
     q, k, v = _bf16_qkv(1, 1, 40, 40, 8, 128)
     assert ops.attention_plan(q, k, v)[0] == "splitk"
     q, k, v = _bf16_qkv(1, 13, 40, 40, 8, 128)        # 65 rows at G 5
@@ -246,8 +276,8 @@ def test_attention_plan_follows_shape_and_layout():
     assert ops.attention_plan(q, k, v) == ("wgmma", 0, 0)
     # a causal split-K cuts only up to the last key a row sees
     q, k, v = _bf16_qkv(1, 2, 500, 8, 2, 64)
-    assert ops.attention_plan(q, k, v, q_offset=100)[1:] == (64, 2)
-    assert ops.attention_plan(q, k, v, False, q_offset=100)[1:] == (64, 8)
+    assert ops.attention_plan(q, k, v, q_offset=100)[1:] == (128, 1)
+    assert ops.attention_plan(q, k, v, False, q_offset=100)[1:] == (128, 4)
     # unaligned: a head stride of 12 values, a pointer 2 bytes in
     q, k, v = _bf16_qkv(2, 64, 64, 32, 8, 128)
     wide = torch.zeros((2, 64, 8, 140), dtype=torch.bfloat16)[..., :128]

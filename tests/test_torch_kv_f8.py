@@ -17,11 +17,16 @@ JAX package's, on the CPU, and its decode kernel on the card.
   arm) on ``init_cache(dtype=float8_e4m3fn)``: the cache bytes equal, the
   logits within ``test_torch_transformer.py``'s decode tolerance (1e-4);
 * the meta arm's byte count (keys and values at one byte) and the routes;
+* ``flash_attention_splitk_ref`` cut at the decode kernel's plan over
+  float8 caches with NaN tails, against the JAX ``chunked_attention``
+  (valid lengths around the kernel's tile and its warps' round, G 1, 4
+  and 5, hd 64 to 256);
 * on the card (marked ``gpu``, skipped here with the reason): the
   ``attn_splitk_f8`` route against its plain version at the bf16
   tolerance of ``tests/test_torch_cuda.py``, and a float32 q's scalar
   route, which rounds p to bf16 as the plain version does, held closer
-  to it than the unrounded function is.
+  to it than the unrounded function is; and ``attn_splitk_f8`` equal bit
+  for bit to ``attn_splitk`` on the cache's dequantised bf16 copy.
 
 JAX is imported inside the CPU tests, so the card's test runs where JAX
 is not installed.
@@ -167,6 +172,54 @@ def test_plain_f8_attention_rounds_p_to_bf16():
     assert empty.shape == tq.shape and not empty.any()
 
 
+# (B, Hq, Hkv, hd, Skv, kv_valid_len): one decode query over a float8
+# cache whose keys past kv_valid_len are NaN. kv_valid_len at 1, one key
+# before, at and past the decode kernel's 32-key tile, at and past a round
+# of its four warps' tiles (128 keys, a chunk's step), at and past the
+# reach of a warp's ring at hd 128 (3 stages x 4 warps x 32 keys); G 1, 4
+# and 5; hd 64, 96, 128 and 256
+SPLITK_F8_CASES = [(2, 8, 2, 64, 40, 1), (1, 16, 16, 128, 48, 31),
+                   (1, 10, 2, 96, 48, 32), (2, 4, 1, 256, 48, 33),
+                   (1, 10, 2, 128, 160, 128), (1, 16, 16, 64, 160, 129),
+                   (1, 8, 2, 128, 400, 384), (1, 5, 1, 256, 420, 385)]
+
+
+@pytest.mark.parametrize("geometry", ["plan", "plan_4_sms", "tile"])
+@pytest.mark.parametrize("case", SPLITK_F8_CASES, ids=str)
+def test_splitk_plain_version_at_the_plan_matches_jax_on_f8(case, geometry):
+    """``flash_attention_splitk_ref`` cut as the decode kernel cuts the
+    keys (its plan on the H100, the plan on a 4-SM card, where short
+    caches split too, and the kernel's 32-key tile, the finest partial it
+    merges), over float8 keys and values with a NaN tail, against the JAX
+    ``chunked_attention`` over the float32 values of the same bytes up to
+    the valid length at ``DECODE_TOL`` (neither rounds p), and over the
+    float8 bytes themselves at 2e-2 (JAX rounds p to bf16 there, about
+    2**-9 of each p)."""
+    _, jnp = _jax()
+    from repro.models.transformer import chunked_attention
+    Bq, Hq, Hkv, hd, Skv, valid = case
+    (jq, jk, jv), (tq, tk, tv) = _f8_qkv(6, (Bq, 1, Skv, Hq, Hkv, hd),
+                                         "float32")
+    for x in (tk, tv):
+        x.view(torch.uint8)[:, valid:] = 0x7F          # e4m3 NaN
+    if geometry == "tile":
+        chunk = ops.SPLITK_TILE
+    else:
+        sms = 132 if geometry == "plan" else 4
+        chunk, splits = ops.splitk_chunks(Bq, Hkv, valid, sms=sms)
+        assert (splits - 1) * chunk < valid <= splits * chunk
+    kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid)
+    got = ops.flash_attention_splitk_ref(tq, tk, tv, chunk=chunk, **kw)
+    assert torch.isfinite(got).all()
+    k32, v32 = (x[:, :valid].astype(jnp.float32) for x in (jk, jv))
+    want = chunked_attention(jq, k32, v32, chunk=chunk, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **DECODE_TOL)
+    want8 = chunked_attention(jq, jk[:, :valid], jv[:, :valid], chunk=chunk,
+                              **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want8), atol=2e-2,
+                               rtol=2e-2)
+
+
 @pytest.mark.parametrize("arch", ["granite-8b", "moonshot-v1-16b-a3b"])
 def test_decode_step_into_an_f8_cache_matches_jax(arch):
     """Six steps into a float8 cache of 16 (one attention chunk in JAX):
@@ -231,9 +284,9 @@ def test_f8_routes_and_plans():
     cache = torch.zeros((2, 4, 544, 8, 128), dtype=F8)
     k, v = cache[1], cache[0]
     assert ops.attention_plan(q, k, v, q_offset=543, kv_valid_len=544) \
-        == ("splitk_f8", 64, 9)
+        == ("splitk_f8", 128, 5)
     assert ops.attention_plan(q, k.bfloat16(), v.bfloat16(), q_offset=543,
-                              kv_valid_len=544) == ("splitk", 64, 9)
+                              kv_valid_len=544) == ("splitk", 128, 5)
     chunk = torch.zeros((4, 8, 32, 128), dtype=torch.bfloat16)
     assert ops.attention_plan(chunk, k, v, q_offset=292,
                               kv_valid_len=300)[0] == "wgmma"
@@ -315,14 +368,27 @@ def dev():
 
 # (B, Sq, Skv, Hq, Hkv, hd, q_offset, kv_valid_len): granite-8b's decode,
 # moonshot's (G 1), qwen2.5-14b's G 5, hd 24 (not a multiple of 16: byte
-# loads), hd 256, a prompt chunk of 3 queries, an empty cache
+# loads), hd 256, a prompt chunk of 3 queries, an empty cache; the valid
+# length at 1, one key before, at and past the kernel's 32-key tile, at
+# and past a round of its four warps' tiles (128), at and past the reach
+# of a warp's ring at hd 128 (3 stages x 4 warps x 32 = 384), and
+# decode_32k's cache at batch 4
 F8_CUDA_CASES = [(4, 1, 544, 32, 8, 128, 543, 544),
                  (4, 1, 160, 16, 16, 128, 120, 121),
                  (2, 1, 77, 40, 8, 128, 76, 77),
                  (2, 1, 300, 8, 2, 24, 250, 251),
                  (1, 1, 700, 8, 1, 256, 699, 700),
                  (2, 3, 300, 8, 2, 64, 100, 103),
-                 (1, 1, 16, 4, 1, 64, 0, 0)]
+                 (1, 1, 16, 4, 1, 64, 0, 0),
+                 (2, 1, 64, 32, 8, 128, 0, 1),
+                 (2, 1, 64, 32, 8, 128, 30, 31),
+                 (2, 1, 64, 40, 8, 128, 31, 32),
+                 (2, 1, 64, 16, 16, 128, 32, 33),
+                 (1, 1, 200, 32, 8, 128, 127, 128),
+                 (1, 1, 200, 40, 8, 96, 128, 129),
+                 (1, 1, 400, 8, 2, 128, 383, 384),
+                 (1, 1, 400, 8, 8, 128, 384, 385),
+                 (4, 1, 32768, 32, 8, 128, 32767, 32768)]
 
 
 # a float32 q over a float8 cache: the card's relative L2 error from the
@@ -381,3 +447,36 @@ def test_splitk_f8_kernel_matches_plain(dev, case):
     err = float((got32 - want32).norm() / want32.norm())
     gap = float((unrounded - want32).norm() / want32.norm())
     assert err <= F8_F32_SHARE * gap, (err, gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [96, 128])
+@pytest.mark.parametrize("G", [1, 4, 5])
+def test_splitk_f8_equals_bf16_route_on_the_dequantised_copy(dev, G, hd):
+    """The two instantiations of the decode kernel (float8 and bf16 K/V)
+    build the same bf16 fragments and run the same MMAs in the same
+    order: ``attn_splitk_f8`` over a float8 cache equals ``attn_splitk``
+    over its bf16 copy bit for bit, at valid lengths that end inside a
+    tile, on a tile, past a round of the warps, and after several chunks
+    (the tail past the valid length NaN in the float8 cache)."""
+    Bq, Hkv, Skv = 2, 4, 4200
+    gen = torch.Generator(device=dev).manual_seed(G * 1000 + hd)
+    q = torch.randn((Bq, 1, Hkv * G, hd), generator=gen, device=dev) \
+        .bfloat16()
+    cache = tt.quantize_f8(3 * torch.randn((2, Bq, Skv, Hkv, hd),
+                                           generator=gen, device=dev))
+    for valid in (5, 64, 129, 4097):
+        c = cache.clone()
+        c[:, :, valid:] = tt.quantize_f8(
+            torch.full((1,), float("nan"), device=dev))
+        k, v = c[1], c[0]
+        kw = dict(q_offset=valid - 1, kv_valid_len=valid)
+        before = {r: LAUNCHES[f"attn_{r}"] for r in ("splitk", "splitk_f8")}
+        got = ops.gqa_attention(q, k, v, True, **kw)
+        same = ops.gqa_attention(q, k.bfloat16(), v.bfloat16(), True, **kw)
+        torch.cuda.synchronize()
+        assert {r: LAUNCHES[f"attn_{r}"] - n for r, n in before.items()} \
+            == {"splitk": 1, "splitk_f8": 1}
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got.view(torch.int16), same.view(torch.int16)), \
+            (valid, float((got.float() - same.float()).abs().max()))
