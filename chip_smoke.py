@@ -18,7 +18,8 @@ cross-batch cache; phase 9 incremental graph deltas under both
 (``PathSession.submit`` / ``pump`` / ``results`` over the
 ``StreamingServer``, driven by exp11's open-loop arrival streams); phase
 11 sharded execution (four engine replicas on the card, each on its own
-CUDA stream); phase 12 the kernel ops API (``msbfs_hop_packed``,
+CUDA stream); phase 11a the segment index route, edge-sharded over
+slots on the card; phase 12 the kernel ops API (``msbfs_hop_packed``,
 ``path_overlap`` and the join-validity matrices); phase 13 the
 transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
@@ -239,6 +240,37 @@ Phases, each printing one JSON line (``"phase": ...``, with
                micro-batch of more than one cluster placed on the 4
                replicas (``per_device``, ``n_devices``), and a batch wall
                p50 within ``SHARDED_SERVE_MAX_X`` of phase 10's.
+11a. segment -- the segment index route (``EngineConfig(index_route=
+               "segment")``: index, walk counts and delta sweep as
+               segmented reductions over the destination-sorted edge
+               lists) on ``mesh=["cuda:0"] * 4``, on ``["cuda:0"] * 3``
+               (the lists cut into one slice a slot, each reduced on its
+               slot's stream) and on one slot, each at ``edge_chunk``
+               2**22 and 2**20, on the main and the sharing batch, held
+               to the default engine (``EngineConfig()``, the ELL route):
+               ``dist_s`` and ``dist_t`` equal bit for bit on every
+               configuration. The sharing batch runs on all six: the
+               planned capacities equal (every ``_plan_caps`` call of
+               the run planned again by the ELL engine), every query's
+               path set equal to phase 7's; no ``msbfs_step`` or
+               ``ell_spmm`` launch, the fused level and join and the
+               similarity kernels launched. The main batch runs so, its
+               path sets equal to phase 4's, on the configurations of
+               ``SEGMENT_MAIN_RUNS`` (four slots at 2**22, three at
+               2**20; the script's time limit); on the other four each
+               of the first run's 512 planning calls is planned again on
+               that configuration's lists and must give the ELL route's
+               capacities (with equal distances and capacities, the
+               enumeration is the same). It prints ``t_build_index``
+               (CUDA events around ``_build_index``, and the run's stage)
+               for each route and configuration and one hop's device
+               time (median of ``SEGMENT_HOP_REPS``). Then four-slot
+               engines of both routes with 256 MB caches and
+               ``delta_backend="msbfs"`` side by side on the sharing
+               batch: a near delta (an edge of a returned path) and a
+               cap-crossing one (phase 9's): the distance sweeps equal,
+               ``cache_kept`` / ``cache_evicted`` equal, the index view
+               recut, the next batch's path sets equal.
 12. ops     -- the ops API on the main path's inputs: ``msbfs_hop_packed``
                on the frontier of the heaviest ``msbfs_step`` call of the
                main batch, ``path_overlap`` on 4096 x 4096 rows of 6
@@ -648,6 +680,15 @@ SHARDED_COLD_MAX_S = 1.0
 # server's on the same stream (1.6-2.0x on an H100: the replica threads'
 # host work contends for the interpreter)
 SHARDED_SERVE_MAX_X = 3.0
+# phase segment: the segment index route on one slot and edge-sharded
+# over slots on the one card, at the default chunk and a smaller one
+SEGMENT_MESHES = ((4, ["cuda:0"] * 4), (3, ["cuda:0"] * 3), (1, None))
+SEGMENT_CHUNKS = (1 << 22, 1 << 20)
+# (slots, edge_chunk) on which the main batch runs through the engine (its
+# path sets checked; host detection takes 8-20 s a run beside an H100
+# 80GB HBM3); the others plan its first run's capacity calls again
+SEGMENT_MAIN_RUNS = ((4, 1 << 22), (3, 1 << 20))
+SEGMENT_HOP_REPS = 3          # timed hops a configuration (median)
 # phase 13: the published configuration served, prefill_32k cut in
 # sequence (32768 -> 2048) and batch (32 -> 4), the decode cache's
 # teacher-forced and greedy steps, and check (a)'s depth
@@ -3478,6 +3519,246 @@ def overlap_rows(torch, n: int, N: int, L: int, gen):
     lens = torch.randint(1, L + 1, (N, 1), generator=gen, device="cuda")
     pos = torch.arange(L, device="cuda")[None, :]
     return torch.where(pos < lens, ids, -1).to(torch.int32).contiguous()
+
+
+class CapsRecorder:
+    """Keeps every engine's ``_plan_caps`` call (from any replica thread)
+    while active: its arguments (reverse, source, budget, slack) and the
+    capacities it planned."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.core.engine import BatchPathEngine
+        self.cls, self.fn = BatchPathEngine, BatchPathEngine._plan_caps
+        self.calls, self.lock = [], threading.Lock()
+
+    def __enter__(self):
+        rec = self
+
+        def plan_caps(engine, reverse, source, budget, slack):
+            caps = rec.fn(engine, reverse, source, budget, slack)
+            with rec.lock:
+                rec.calls.append((bool(reverse), int(source), int(budget),
+                                  slack.to(engine.device), list(caps)))
+            return caps
+        self.cls._plan_caps = plan_caps
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._plan_caps = self.fn
+
+
+def event_ms(torch, fn):
+    """``(fn(), ms)``: one call between two CUDA events on the current
+    stream, after a synchronize."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def segment_hop_ms(torch, dg, sources, edge_chunk: int) -> float:
+    """Device time of one segment-route hop over ``dg``'s (maybe
+    sharded) forward lists from a frontier of ``sources`` (the hop's work
+    does not depend on the frontier's bits): median of
+    ``SEGMENT_HOP_REPS`` after a warm-up, CUDA events on the caller's
+    stream, which waits for every slot."""
+    from repro_torch.core.msbfs import edge_span, msbfs_hop
+    S = len(sources)
+    dev = dg.ell_idx.device
+    frontier = torch.zeros((dg.n + 1, S), dtype=torch.int8, device=dev)
+    frontier[torch.as_tensor(sources, device=dev).long(),
+             torch.arange(S, device=dev)] = 1
+    m_valid = edge_span(dg.m, edge_chunk, dg.m_cap)
+    return cuda_ms(torch, lambda: msbfs_hop(frontier, *dg.edge_list(False),
+                                            dg.n, edge_chunk, m_valid),
+                   reps=SEGMENT_HOP_REPS)
+
+
+def segment_replan(eng, calls, what: str) -> dict:
+    """Plans each recorded ``_plan_caps`` call again on ``eng`` (outside a
+    fan-out: over its edge-sharded view) and requires the recorded
+    capacities, which the ELL route planned alike; no ELL kernel may
+    launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    t0 = time.perf_counter()
+    for reverse, source, budget, slack, caps in calls:
+        require(eng._plan_caps(reverse, source, budget, slack) == caps,
+                f"{what}, main: planned capacities differ from the ELL "
+                f"route's")
+    require(LAUNCHES["msbfs_step"] == LAUNCHES["ell_spmm"] == 0,
+            f"{what}, main: ELL kernels launched {dict(LAUNCHES)}")
+    return {"n_plan_caps": len(calls),
+            "replan_host_s": time.perf_counter() - t0}
+
+
+def phase_segment(torch, g, batches) -> dict:
+    """Phase segment (see the module docstring). ``batches``: (name,
+    queries, a default-engine report of them) of the main and the sharing
+    batch."""
+    import numpy as np
+    from repro_torch.core import (BatchPathEngine, EngineConfig, GraphDelta,
+                                  PathSession)
+    from repro_torch.core.graph import EdgeSlices
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    # the default engine (ELL route): the distances and the planned
+    # capacities every segment configuration must give (its path sets
+    # are the reports passed in)
+    ell = BatchPathEngine(g, EngineConfig(), device="cuda")
+    ref, ell_out = {}, {}
+    for name, qs, _ in batches:
+        event_ms(torch, lambda: ell._build_index(qs))       # warm-up
+        index, ms = event_ms(torch, lambda: ell._build_index(qs))
+        ref[name] = (index.dist_s, index.dist_t)
+        ell_out[name] = {"t_build_index_ms": ms}
+    emit({"phase": "segment_ell", "t_setup_s": time.perf_counter() - t0,
+          **ell_out})
+    sources = np.unique([q[0] for q in batches[0][1]])
+
+    runs, planned = [], {}
+    for slots, mesh in SEGMENT_MESHES:
+        for chunk in SEGMENT_CHUNKS:
+            t_cfg = time.perf_counter()
+            sess = PathSession(g, EngineConfig(index_route="segment",
+                                               edge_chunk=chunk, mesh=mesh),
+                               device="cuda")
+            eng = sess.engine
+            view = eng.executor.index_dg
+            require(isinstance(view.esrc, EdgeSlices) == (mesh is not None)
+                    and eng.executor.n_replicas == slots,
+                    f"segment {slots} slots: the index view is not cut "
+                    f"over the slots")
+            out = {"slots": slots, "edge_chunk": chunk,
+                   "m_cap": eng.dg.m_cap}
+            what = f"segment, {slots} slots, chunk {chunk}"
+            for name, qs, want_report in batches:
+                index, ms = event_ms(torch, lambda: eng._build_index(qs))
+                want = ref[name]
+                require(torch.equal(index.dist_s, want[0])
+                        and torch.equal(index.dist_t, want[1]),
+                        f"{what}, {name}: distances differ from the ELL "
+                        f"route's")
+                del index
+                if name == "main" and (slots, chunk) \
+                        not in SEGMENT_MAIN_RUNS:
+                    out[name] = {"t_build_index_ms": ms,
+                                 **segment_replan(eng, planned[name],
+                                                  what)}
+                    continue
+                reset_launches()
+                t1 = time.perf_counter()
+                with CapsRecorder() as crec:
+                    rep = sess.run(qs)
+                host = time.perf_counter() - t1
+                launches = dict(LAUNCHES)
+                planned.setdefault(name, crec.calls)
+                # no fallback: the segment route sweeps with PyTorch ops
+                # on the card, enumeration keeps its kernels
+                require(launches["msbfs_step"] == launches["ell_spmm"] == 0,
+                        f"{what}, {name}: ELL kernels launched {launches}")
+                require(launches["level_fused"] > 0, f"{what}, {name}: no "
+                        f"fused level launched {launches}")
+                require_fused(launches, f"{what}, {name}")
+                require_similarity(launches, f"{what}, {name}")
+                # the ELL route plans each of these calls alike
+                for reverse, source, budget, slack, caps in crec.calls:
+                    require(ell._plan_caps(reverse, source, budget, slack)
+                            == caps, f"{what}, {name}: planned capacities "
+                                     f"differ from the ELL route's")
+                check_same(qs, want_report, rep,
+                           f"{what}, {name}: the default engine and the "
+                           f"segment route")
+                out[name] = {"t_build_index_ms": ms,
+                             "stats": {k: rep.stats.get(k)
+                                       for k in STAT_KEYS},
+                             "host_wall_s": host,
+                             "n_plan_caps": len(crec.calls),
+                             "launches": {k: launches[k] for k in (
+                                 "level_fused", "join_fused", "gamma_pack",
+                                 "pairwise_popcount")}}
+            out["hop_ms"] = segment_hop_ms(torch, eng._kernel_dg(), sources,
+                                           chunk)
+            out["t_config_s"] = time.perf_counter() - t_cfg
+            emit({"phase": "segment_run", **out})
+            runs.append(out)
+            del sess, eng, view
+    del ref, ell
+    gc.collect()
+
+    # deltas on four slots under delta_backend="msbfs": the segment
+    # route's sweep against the ELL route's, side by side
+    name, qs, _ = batches[1]
+    cfg = dict(cache_bytes=256 << 20, delta_backend="msbfs",
+               mesh=SEGMENT_MESHES[0][1])
+    sessions = {"ell": PathSession(g, EngineConfig(**cfg), device="cuda"),
+                "segment": PathSession(g, EngineConfig(
+                    index_route="segment", **cfg), device="cuda")}
+    last = {b: s.run(qs) for b, s in sessions.items()}
+    check_same(qs, last["ell"], last["segment"], f"segment delta, {name}")
+    rng = np.random.default_rng(5)
+    steps = []
+    for step in ("near", "cap"):
+        g_old = sessions["ell"].engine.g
+        if step == "near":
+            qi = max(range(len(qs)), key=lambda i: last["ell"][i].count)
+            row = [int(x) for x in last["ell"][qi].paths[0] if x >= 0]
+            delta = GraphDelta.from_pairs(remove=[(row[0], row[1])])
+        else:
+            delta = cap_delta(g_old, sessions["ell"].engine.dg, rng)
+        reports, swept, sweeps, reruns = {}, {}, {}, {}
+        for b, sess in sessions.items():
+            with DistsRecorder(sess.engine) as drec:
+                reset_launches()
+                reports[b] = sess.apply_delta(delta)
+                sweeps[b] = LAUNCHES["msbfs_step"]
+            swept[b] = drec.calls
+            reruns[b] = sess.run(qs)
+        rs, re_ = reports["segment"], reports["ell"]
+        keys = ("n_touched", "cache_mode", "cache_kept", "cache_evicted",
+                "device_update")
+        require({k: rs[k] for k in keys} == {k: re_[k] for k in keys},
+                f"segment delta {step}: reports differ: {rs} vs {re_}")
+        require(len(swept["segment"]) == len(swept["ell"]) > 0,
+                f"segment delta {step}: {len(swept['segment'])} and "
+                f"{len(swept['ell'])} distance sweeps")
+        for (_, ka, da), (_, kb, db) in zip(swept["segment"],
+                                              swept["ell"]):
+            require(ka == kb and all(np.array_equal(da[x], db[x])
+                                     for x in ("from", "to")),
+                    f"segment delta {step}: the sweep's distances differ "
+                    f"from the ELL route's")
+        require(sweeps["segment"] == 0 and sweeps["ell"] > 0,
+                f"segment delta {step}: msbfs_step launches {sweeps}")
+        eng = sessions["segment"].engine
+        view = eng.executor.index_dg
+        require(view.m == eng.dg.m and view.m_cap >= eng.dg.m_cap,
+                f"segment delta {step}: the index view was not recut")
+        if step == "near":
+            require(rs["cache_evicted"] > 0, f"near: evicted nothing {rs}")
+        else:
+            require(rs["device_update"] == "rebuild",
+                    f"cap: no rebuild {rs}")
+        check_same(qs, reruns["ell"], reruns["segment"],
+                   f"segment delta {step}: the next batch")
+        steps.append({"step": step, "k_max": swept["segment"][0][1],
+                      "report": {k: rs[k] for k in keys},
+                      "t_apply_s": {b: reports[b]["t_apply_s"]
+                                    for b in sessions}})
+        last = reruns
+    del sessions
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "segment", "ell": ell_out, "runs": runs,
+           "deltas": steps, "t_phase_s": time.perf_counter() - t0}
+    emit(out)
+    return out
 
 
 def phase_ops(torch, g, main_rec, join_rec) -> dict:
@@ -6439,6 +6720,9 @@ def main(argv=None) -> int:
     level_1x = phase_streaming(torch, g)
     phase_sharded(torch, g, (queries, main_report, main_warm),
                   (share_queries, plan_reports), deltas, level_1x)
+    phase_segment(torch, g, (("main", queries, main_report),
+                             ("sharing", share_queries,
+                              plan_reports["batch"])))
     del level_1x, plan_reports
     ops = phase_ops(torch, g, main_rec, join_rec)
     del g, session, main_report, share_report       # the graph state

@@ -28,13 +28,13 @@ Delta semantics: deletions apply first, then insertions --
 ``new = (old - remove) | add``. Deleting an absent edge and inserting a
 present one are no-ops and do not mark vertices as touched.
 
-Left out of the reference's ``update_device_graph``: the re-upload of the
-destination-sorted edge lists, because the port's ``DeviceGraph`` holds no
-segment-arm edge lists (``EngineConfig.edge_chunk`` stays refused); and
-the pow2 padding of the scattered row set, which exists only to keep the
-reference's jit shapes stable. The rows are written out of place
-(``index_copy``), so the old ``DeviceGraph`` stays valid, as an immutable
-JAX array would.
+A ``DeviceGraph`` of the segment route also holds the destination-sorted
+edge lists; ``update_device_graph`` re-uploads them, sentinel-padded to a
+bucket that never shrinks, as the reference does. Left out of the
+reference's ``update_device_graph``: the pow2 padding of the scattered row
+set, which exists only to keep the reference's jit shapes stable. The rows
+and lists are written out of place (``index_copy``, new tensors), so the
+old ``DeviceGraph`` stays valid, as an immutable JAX array would.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from .graph import DeviceGraph, Graph, _ragged_arange, pow2_ceil
+from .graph import (DeviceGraph, Graph, _ragged_arange, edge_list_tensors,
+                    pow2_ceil)
 
 __all__ = ["GraphDelta", "AppliedDelta", "apply_delta",
            "update_device_graph", "host_set_dist", "pow2_ceil"]
@@ -264,7 +265,9 @@ def update_device_graph(dg: DeviceGraph, applied: AppliedDelta,
     ``DeviceGraph.build`` when a touched row outgrows its table's ELL cap
     (the ELL must stay spill-free for enumeration); the rebuild takes the
     current caps as floors, so a bucket never shrinks and grow/shrink
-    churn around a boundary cannot thrash.
+    churn around a boundary cannot thrash. Edge lists, where ``dg`` has
+    them, are re-uploaded padded to ``m_cap`` while the edges fit it, else
+    to ``pow2_ceil(m)`` (on a rebuild, the larger of the two).
     """
     g2 = applied.graph
     fwd_rows = np.unique(np.concatenate([applied.added_src,
@@ -273,15 +276,22 @@ def update_device_graph(dg: DeviceGraph, applied: AppliedDelta,
                                          applied.removed_dst]))
     fwd_deg = g2.indptr[fwd_rows + 1] - g2.indptr[fwd_rows]
     rev_deg = g2.r_indptr[rev_rows + 1] - g2.r_indptr[rev_rows]
+    device = dg.ell_idx.device
     if ((fwd_deg.size and int(fwd_deg.max()) > dg.ell_cap)
             or (rev_deg.size and int(rev_deg.max()) > dg.r_ell_cap)):
+        # every bucket stays monotone: an overflow after deletion-heavy
+        # churn cannot shrink one and re-thrash the next insert wave
         return DeviceGraph.build(
-            g2, dg.ell_idx.device,
-            min_ell_caps=(dg.ell_cap, dg.r_ell_cap)), False
+            g2, device, min_ell_caps=(dg.ell_cap, dg.r_ell_cap),
+            edge_lists=dg.has_edge_lists,
+            edge_cap=max(dg.m_cap, pow2_ceil(g2.m))), False
+    lists = {} if not dg.has_edge_lists else edge_list_tensors(
+        g2, device, dg.m_cap if g2.m <= dg.m_cap else pow2_ceil(g2.m))
     return dataclasses.replace(
         dg, m=g2.m,
         ell_idx=_patched(g2, dg.ell_idx, fwd_rows, reverse=False),
-        r_ell_idx=_patched(g2, dg.r_ell_idx, rev_rows, reverse=True)), True
+        r_ell_idx=_patched(g2, dg.r_ell_idx, rev_rows, reverse=True),
+        **lists), True
 
 
 def host_set_dist(g_old: Graph, applied: AppliedDelta, k_max: int,

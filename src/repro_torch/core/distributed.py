@@ -43,12 +43,22 @@ the primary's patched tables (aliased on its device, copied to another)
 and all replica caches see the same hop-scoped invalidation -- and
 therefore the same epochs -- as the primary.
 
-Not ported: the reference's mesh-parallel index (``shard_edges``,
-``shard_graph_edges``, ``distributed_graph``, ``edge_bucket_for``). It
-shards the dst-sorted edge lists that only its segment arm sweeps; the
-port has no segment arm and its ``DeviceGraph`` no edge lists, and its
-index and walk-count kernels read the ELL tables. So
-``executor.index_dg is engine.dg`` always.
+**The mesh-parallel index.** An engine on the segment route
+(``EngineConfig.index_route="segment"``) with more than one slot sweeps
+an edge-sharded view of its destination-sorted edge lists
+(:func:`shard_graph_edges`): each list, padded with sentinel edges to
+``edge_bucket_for(m, N)``, is cut into N contiguous slices, slice j on
+slot j's device (an alias of the engine's list where that device is the
+engine's). A hop of an index, walk-count or delta sweep copies the
+frontier once to each distinct device, reduces each slice on its slot's
+stream (slot 0 on the caller's, slot j on :func:`_replica_stream`) and
+merges the partials on the engine's device in slot order, behind each
+slot's event (``msbfs.segment_sweep``). The view is
+``ShardedExecutor.index_dg``, recut when first read after a graph swap
+or delta;
+on one slot and on the ELL route it is the engine's own ``DeviceGraph``.
+While a cluster fan-out runs, every replica sweeps its own unsharded
+lists, as in the reference.
 """
 from __future__ import annotations
 
@@ -64,14 +74,17 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .graph import DeviceGraph
+from .graph import DeviceGraph, EdgeSlices, Graph, pow2_ceil
 from .query import midpoint_split
 
 __all__ = ["resolve_mesh", "replicate_graph", "query_ball_costs",
-           "cluster_costs", "plan_clusters", "ShardedExecutor"]
+           "cluster_costs", "plan_clusters", "ShardedExecutor",
+           "edge_bucket_for", "shard_edges", "shard_graph_edges",
+           "distributed_graph"]
 
-# every device-resident table of a DeviceGraph (the placement unit)
-_DG_TABLES = ("ell_idx", "r_ell_idx")
+# every device-resident table of a DeviceGraph (the placement unit); the
+# edge lists are None on the ELL route
+_DG_TABLES = ("ell_idx", "r_ell_idx", "esrc", "edst", "r_esrc", "r_edst")
 
 DeviceLike = Union[torch.device, str]
 
@@ -156,7 +169,78 @@ def replicate_graph(dg: DeviceGraph, device: DeviceLike) -> DeviceGraph:
     an alias, which is safe because no table is ever written in place
     (``delta.update_device_graph`` builds new ones)."""
     return dataclasses.replace(dg, **{f: getattr(dg, f).to(device)
-                                      for f in _DG_TABLES})
+                                      for f in _DG_TABLES
+                                      if getattr(dg, f) is not None})
+
+
+# ----------------------------------------------------------------------
+# edge-list sharding (the mesh-parallel index)
+# ----------------------------------------------------------------------
+def edge_bucket_for(m: int, n_dev: int) -> int:
+    """Slot-count-aligned edge capacity: the pow2 bucket of ``m``, grown
+    to the next multiple of ``n_dev`` when the slot count is not a power
+    of two (for pow2 counts the pow2 bucket is already divisible)."""
+    cap = max(pow2_ceil(max(int(m), 1)), int(n_dev))
+    if cap % n_dev:
+        cap = -(-cap // n_dev) * n_dev
+    return cap
+
+
+def shard_edges(esrc: torch.Tensor, edst: torch.Tensor,
+                devices: Sequence[DeviceLike], *, n: int,
+                streams: Optional[Sequence] = None
+                ) -> tuple[EdgeSlices, EdgeSlices]:
+    """Cut a dst-sorted edge list into ``len(devices)`` contiguous slices,
+    slice j on ``devices[j]``.
+
+    The list is first padded to a multiple of the slot count with the
+    sentinel ``(n, n)`` of :func:`~repro_torch.core.graph.pad_edge_list`,
+    which every segmented reduction drops, so a slice of sentinels alone
+    is inert. ``streams[j]`` is the CUDA stream slot j reduces on
+    (``None``, the default for all: the caller's current stream).
+    """
+    n_dev = len(devices)
+    if n_dev < 1:
+        raise ValueError("shard_edges needs at least one device")
+    streams = (None,) * n_dev if streams is None else tuple(streams)
+    if len(streams) != n_dev:
+        raise ValueError(f"{len(streams)} streams for {n_dev} devices")
+    m_cap = int(esrc.shape[0])
+    cap = -(-m_cap // n_dev) * n_dev
+    if cap > m_cap:
+        pad = esrc.new_full((cap - m_cap,), n)
+        esrc, edst = torch.cat([esrc, pad]), torch.cat([edst, pad])
+    L = cap // n_dev
+    cut = [(j * L, (j + 1) * L) for j in range(n_dev)]
+    return tuple(EdgeSlices(tuple(x[a:b].to(dev)
+                                  for (a, b), dev in zip(cut, devices)),
+                            streams) for x in (esrc, edst))
+
+
+def shard_graph_edges(dg: DeviceGraph, devices: Sequence[DeviceLike],
+                      streams: Optional[Sequence] = None) -> DeviceGraph:
+    """A DeviceGraph whose edge lists are cut over ``devices``
+    (:func:`shard_edges`); the ELL tables stay as they are. ``m`` stays
+    the valid edge count: a pad added here is capacity, not edges."""
+    if not dg.has_edge_lists:
+        raise ValueError("shard_graph_edges needs a DeviceGraph built "
+                         "with edge_lists=True")
+    esrc, edst = shard_edges(dg.esrc, dg.edst, devices, n=dg.n,
+                             streams=streams)
+    r_esrc, r_edst = shard_edges(dg.r_esrc, dg.r_edst, devices, n=dg.n,
+                                 streams=streams)
+    return dataclasses.replace(dg, esrc=esrc, edst=edst, r_esrc=r_esrc,
+                               r_edst=r_edst)
+
+
+def distributed_graph(g: Graph, devices: Sequence[DeviceLike],
+                      streams: Optional[Sequence] = None) -> DeviceGraph:
+    """A DeviceGraph built straight into the sharded-edge layout: edge
+    lists padded to ``edge_bucket_for(m, N)`` and cut over ``devices``,
+    ELL tables on ``devices[0]``."""
+    dg = DeviceGraph.build(g, devices[0], edge_lists=True,
+                           edge_cap=edge_bucket_for(g.m, len(devices)))
+    return shard_graph_edges(dg, devices, streams)
 
 
 # ----------------------------------------------------------------------
@@ -279,6 +363,7 @@ class ShardedExecutor:
         self._streams: list = []     # per replica; None = caller's stream
         self.in_fanout = False       # True while replica threads run:
         # every replica then fences its own stream, not the device
+        self._index_view: Optional[tuple] = None   # (engine.dg, view)
 
     @property
     def engine(self):
@@ -295,11 +380,32 @@ class ShardedExecutor:
         return self.n_replicas > 1
 
     @property
+    def shards_index(self) -> bool:
+        """Whether the index sweeps run edge-sharded: a segment-route
+        engine with more than one slot."""
+        return self.sharded and self.engine.cfg.index_route == "segment"
+
+    @property
     def index_dg(self) -> DeviceGraph:
-        """The tables the index kernels sweep: the engine's own (the
-        reference's GSPMD edge view is not ported, see the module
-        docstring)."""
-        return self.engine.dg
+        """The tables the index, walk-count and delta sweeps read: the
+        edge-sharded view on a sharded segment engine, else the engine's
+        own ``DeviceGraph``. The view is cut here from the engine's lists
+        when first read after a graph swap or delta (a new ``engine.dg``),
+        keeping the engine's (monotone) edge bucket."""
+        dg = self.engine.dg
+        if not self.shards_index:
+            return dg
+        if self._index_view is None or self._index_view[0] is not dg:
+            self._index_view = (dg, shard_graph_edges(dg, self.devices,
+                                                      self.slot_streams()))
+        return self._index_view[1]
+
+    def slot_streams(self) -> list:
+        """The CUDA stream of each slot: ``None`` (the caller's) for slot
+        0 and for CPU slots, :func:`_replica_stream` for the others."""
+        return [None] + [_replica_stream(dev, ri) if dev.type == "cuda"
+                         else None
+                         for ri, dev in enumerate(self.devices[1:], 1)]
 
     # -- graph lifecycle ----------------------------------------------
     def reset(self) -> None:
@@ -337,9 +443,7 @@ class ShardedExecutor:
         :func:`_replica_stream`)."""
         if self._secondaries is None:
             self._secondaries = [self._clone(dev) for dev in self.devices[1:]]
-            self._streams = [None] + [
-                _replica_stream(dev, ri) if dev.type == "cuda" else None
-                for ri, dev in enumerate(self.devices[1:], 1)]
+            self._streams = self.slot_streams()
         return [self.engine, *self._secondaries]
 
     def _clone(self, device: torch.device):

@@ -37,9 +37,14 @@ can charge each device kernel to the stage that launched it.
 window (``n_compiles``, ``n_retraces``, ``compiled_kernels``;
 ``repro_torch.core.compilelog``) into its report.
 
-Not in this port yet, and refused with ``NotImplementedError`` instead of
-silently degrading: the knob of the segment arm (``edge_chunk``) when
-set away from its default.
+The index, the walk-count DP and the delta path's distance sweep take
+one of two routes (``EngineConfig.index_route``): ``"ell"``, the default,
+on the ``msbfs_step`` and ``ell_gather_f1`` kernels over the ELL tables,
+or ``"segment"``, the counterpart of the reference's ``"jnp"`` sweeps:
+segmented reductions over destination-sorted edge lists, chunked by
+``edge_chunk`` and, on a mesh, edge-sharded over the executor's slots
+(``distributed.shard_graph_edges``). Enumeration, joins and the
+similarity stage run on the device's arm on either route.
 """
 from __future__ import annotations
 
@@ -57,12 +62,13 @@ from .clustering import cluster_queries
 from .delta import (AppliedDelta, GraphDelta, apply_delta as _merge_delta,
                     host_set_dist, pow2_ceil as _pow2, update_device_graph)
 from .detect import DirectionPlan, PlanNode, detect_common_queries
-from .distributed import ShardedExecutor, resolve_mesh
+from .distributed import ShardedExecutor, edge_bucket_for, resolve_mesh
 from .enumerate import (count_ending_at, expand_level, extract_rows,
                         prune_table, select_ending_at)
 from .graph import DeviceGraph, Graph
-from .index import QueryIndex, build_index, slack_from_dists, walk_counts_ell
-from .msbfs import K_MAX_INT8, msbfs_set_dist_ell
+from .index import (INDEX_ROUTES, QueryIndex, build_index, slack_from_dists,
+                    walk_counts, walk_counts_ell)
+from .msbfs import K_MAX_INT8, edge_span, msbfs_set_dist, msbfs_set_dist_ell
 from .join import cross_join, keyed_join, keyed_join_count, sort_by_last
 from .pathset import PathSet, concat, empty, read_status, singleton
 from .planner import CostRouter, Route, RouterConfig
@@ -89,8 +95,17 @@ class EngineOverflow(RuntimeError):
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The reference's field names and defaults; fields of parts that are
-    not ported yet are refused at engine construction when set."""
+    """The reference's field names and defaults, plus ``index_route``.
+
+    ``index_route`` picks the sweeps of the index, the walk-count DP and
+    the ``"msbfs"`` delta backend: ``"ell"`` (the default) runs them on
+    the ELL tables, ``"segment"`` over destination-sorted edge lists in
+    chunks of ``edge_chunk`` edges, edge-sharded on a mesh -- the
+    counterpart of the reference's ``kernel_backend="jnp"`` sweeps (the
+    port's ``kernel_backend`` names a device arm instead). Both give the
+    same distances and path sets; the ELL route never reads
+    ``edge_chunk``, as the reference's kernel backends never do.
+    """
 
     gamma: float = 0.5              # clustering threshold (paper default)
     kernel_backend: Optional[str] = None  # "torch" | "cuda"; None follows
@@ -101,7 +116,7 @@ class EngineConfig:
     join_cap: int = 1 << 21
     min_shared_budget: int = 2      # don't materialize trivially small shares
     plus: bool = False              # cost-based fwd/bwd split (the "+" variants)
-    edge_chunk: int = 1 << 22       # segment-arm knob (not ported)
+    edge_chunk: int = 1 << 22       # edges a segment-route chunk gathers
     plan_caps: bool = True          # DP-based capacity planning
     paper_faithful_shares: bool = False  # min_shared_budget -> 0
     cache_bytes: int = 0            # >0: cross-batch SharedPathCache budget
@@ -122,6 +137,7 @@ class EngineConfig:
     # record_function (obs/torchprof), so profiles show the stages
     router: Optional[RouterConfig] = None  # Planner.AUTO routing thresholds
     # and output-kind weights (None = planner.RouterConfig defaults)
+    index_route: str = "ell"        # "ell" | "segment" (see above)
 
 
 @dataclasses.dataclass
@@ -137,11 +153,14 @@ class BatchResult:
 
 
 def _check_config(cfg: EngineConfig) -> None:
-    """Refuse every option whose code is not ported yet."""
-    if cfg.edge_chunk != 1 << 22:
-        raise NotImplementedError(
-            "EngineConfig edge_chunk (the segment arm) is not ported yet; "
-            "it comes with ROADMAP.md queue 1, 'the mesh-parallel index'")
+    """Refuse an unknown index route or a chunk of no edges."""
+    if cfg.index_route not in INDEX_ROUTES:
+        raise ValueError(f"unknown EngineConfig.index_route "
+                         f"{cfg.index_route!r}; valid: "
+                         f"{', '.join(INDEX_ROUTES)}")
+    if int(cfg.edge_chunk) < 1:
+        raise ValueError(f"EngineConfig.edge_chunk={cfg.edge_chunk} must "
+                         f"be positive")
 
 
 def _bucket(x: int, min_cap: int = 256) -> int:
@@ -162,13 +181,14 @@ class BatchPathEngine:
         _check_config(self.cfg)
         # the arm follows the device; an explicit contradicting arm raises
         self.kernel_arm = resolve_arm(self.device, self.cfg.kernel_backend)
-        self.dg = DeviceGraph.build(graph, self.device)
+        self.segment = self.cfg.index_route == "segment"
+        mesh = resolve_mesh(self.cfg.mesh, self.cfg.n_devices, self.device)
+        self.dg = self._build_dg(graph, 1 if mesh is None else len(mesh))
         self._host_dists: Optional[tuple] = None   # (index, (dist_s, dist_t))
         # plan -> place -> gather layer; identity on a single device (the
         # executor IS the cluster-execution loop for every engine)
         self.executor: Optional[ShardedExecutor] = ShardedExecutor(
-            self, resolve_mesh(self.cfg.mesh, self.cfg.n_devices,
-                               self.device))
+            self, mesh)
         if cache is None and self.cfg.cache_bytes > 0:
             cache = SharedPathCache(self.cfg.cache_bytes)
         self.cache = cache
@@ -210,6 +230,15 @@ class BatchPathEngine:
         else:
             torch.cuda.synchronize(self.device)
 
+    def _build_dg(self, graph: Graph, n_slots: int) -> DeviceGraph:
+        """The engine's device tables; on the segment route also the edge
+        lists, padded to a bucket that the slot count divides (for a pow2
+        count the pow2 bucket of ``m``, as on one slot)."""
+        if not self.segment:
+            return DeviceGraph.build(graph, self.device)
+        return DeviceGraph.build(graph, self.device, edge_lists=True,
+                                 edge_cap=edge_bucket_for(graph.m, n_slots))
+
     def set_graph(self, graph: Graph) -> None:
         """Swap the graph wholesale: rebuild the device views and drop
         every piece of graph-derived state (the host-dist memo, the
@@ -217,7 +246,7 @@ class BatchPathEngine:
         :meth:`apply_delta`, which keeps the warm state whose hop-locality
         a small delta cannot reach."""
         self.g = graph
-        self.dg = DeviceGraph.build(graph, self.device)
+        self.dg = self._build_dg(graph, self.executor.n_replicas)
         self._host_dists = None
         # replica caches invalidate BEFORE the replicas are dropped so a
         # swap bumps every epoch in lockstep with the primary
@@ -330,10 +359,11 @@ class BatchPathEngine:
         means the still-resident old ELL tables (``self.dg`` is patched
         only after invalidation). Backend ``"host"`` (the default) walks
         only the touched balls' edges over the CSR; any other value runs
-        ``msbfs_set_dist_ell`` on the device, in both directions: "from"
-        relaxes over G's in-neighbours (``r_ell_idx``), "to" over G_r's
-        (``ell_idx``). (The reference's jnp engine takes its segment sweep
-        here, which it documents as bit-equal.)
+        the set-seeded sweep on the device, in both directions: "from"
+        relaxes over G's in-neighbours (``r_ell_idx``, or G's edge list on
+        the segment route), "to" over G_r's (``ell_idx``, or G_r's edge
+        list). The segment route sweeps :meth:`_kernel_dg`: edge-sharded
+        on a mesh (the view is recut only after the patch).
         """
         if self.cfg.delta_backend == "host":
             return {"from": host_set_dist(self.g, applied, k_max,
@@ -353,6 +383,16 @@ class BatchPathEngine:
         seed = torch.zeros(self.g.n + 1, dtype=torch.int8)
         seed[torch.from_numpy(applied.touched)] = 1
         seed = seed.to(self.device)
+        if self.segment:
+            kdg = self._kernel_dg()
+            m_valid = self._m_valid(kdg)
+            return {name: msbfs_set_dist(
+                        esrc, edst, seed, n=self.g.n, k_max=k_max,
+                        edge_chunk=self.cfg.edge_chunk,
+                        m_valid=m_valid).cpu().numpy()
+                    for name, (esrc, edst) in (
+                        ("from", kdg.edge_list(False)),
+                        ("to", kdg.edge_list(True)))}
         return {name: msbfs_set_dist_ell(ell, seed, n=self.g.n,
                                          k_max=k_max).cpu().numpy()
                 for name, ell in (("from", self.dg.r_ell_idx),
@@ -401,7 +441,7 @@ class BatchPathEngine:
                 report = self._run_pathenum(qs, stats)
             else:
                 with self.stage("index.build", n_queries=len(qs)) as sidx:
-                    index = build_index(self.dg, [q.key for q in qs])
+                    index = self._build_index([q.key for q in qs])
                 stats["t_build_index"] = sidx.duration
                 if planner is Planner.AUTO:
                     report = self._run_auto(qs, index, plus, stats,
@@ -496,7 +536,7 @@ class BatchPathEngine:
         t_idx = t_enum = 0.0
         for q in queries:
             with self.stage("index.build", pathenum=True) as sidx:
-                index = build_index(self.dg, [q.key])
+                index = self._build_index([q.key])
             t_idx += sidx.duration
             with self.stage("assemble.query") as sq:
                 a, b = self._split(0, index, False)
@@ -1112,15 +1152,45 @@ class BatchPathEngine:
             cols = ds[:-1, index.src_col[list(cluster)]]
         return (cols.min(axis=1) <= k_max)
 
+    def _kernel_dg(self) -> DeviceGraph:
+        """The tables the index and walk-count sweeps read: the
+        executor's edge-sharded view on a primary engine (the engine's own
+        tables on one slot or on the ELL route), the local tables on a
+        replica (``executor is None``). While a cluster fan-out is in
+        flight the primary (replica 0) also sweeps its local tables: a
+        sweep over every slot's stream from one replica thread would
+        contend with every other replica's work."""
+        if self.executor is not None and not self.executor.in_fanout:
+            return self.executor.index_dg
+        return self.dg
+
+    def _m_valid(self, dg: DeviceGraph) -> int:
+        """Chunk-rounded valid-edge span of ``dg``'s (sentinel-padded)
+        edge lists, which every segment-route sweep visits."""
+        return edge_span(dg.m, self.cfg.edge_chunk, dg.m_cap)
+
+    def _build_index(self, queries) -> QueryIndex:
+        """``build_index`` on the engine's route, over :meth:`_kernel_dg`."""
+        return build_index(self._kernel_dg(), queries, self.cfg.edge_chunk,
+                           route=self.cfg.index_route)
+
     def _walk_counts(self, reverse: bool, source: int, slack: torch.Tensor,
                      budget: int) -> np.ndarray:
-        """Per-level walk-count totals (``index.walk_counts_ell``: one
-        ``ell_spmm`` launch per level), copied to the host once. Totals are
+        """Per-level walk-count totals, copied to the host once: one
+        ``ell_spmm`` launch per level (``index.walk_counts_ell``) on the
+        ELL route, the chunked segmented sum over the edge lists
+        (``index.walk_counts``) on the segment route. Totals are
         integer-valued float32, exact below 2**24."""
+        kdg = self._kernel_dg()
+        if self.segment:
+            return walk_counts(*kdg.edge_list(reverse), source, slack,
+                               n=kdg.n, budget=budget,
+                               edge_chunk=self.cfg.edge_chunk,
+                               m_valid=self._m_valid(kdg)).cpu().numpy()
         # in-neighbour table of the swept direction: forward counts on G
         # relax over r_ell (in-nbrs of G), reverse counts over ell
-        ell = self.dg.ell_idx if reverse else self.dg.r_ell_idx
-        return walk_counts_ell(ell, source, slack, n=self.dg.n,
+        ell = kdg.ell_idx if reverse else kdg.r_ell_idx
+        return walk_counts_ell(ell, source, slack, n=kdg.n,
                                budget=budget).cpu().numpy()
 
     def _plan_caps(self, reverse: bool, source: int, budget: int,

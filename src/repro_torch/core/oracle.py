@@ -3,16 +3,18 @@
 A numpy copy of ``repro/core/oracle.py``.
 
 These are the ground truth every engine variant (BasicEnum, BasicEnum+,
-BatchEnum, BatchEnum+) is validated against. Deliberately simple and slow.
+BatchEnum, BatchEnum+) is validated against. Deliberately simple and slow, except
+the host BFS: it goes level by level over the CSR arrays (the distances
+of the reference's vertex queue), because the query generators run it
+on graphs of a million vertices.
 """
 from __future__ import annotations
 
-from collections import deque
 from typing import Iterable
 
 import numpy as np
 
-from .graph import Graph
+from .graph import Graph, _ragged_arange
 
 __all__ = ["enumerate_paths_bruteforce", "bfs_dist_from", "path_set"]
 
@@ -20,17 +22,18 @@ __all__ = ["enumerate_paths_bruteforce", "bfs_dist_from", "path_set"]
 def bfs_dist_from(g: Graph, s: int, k_max: int, reverse: bool = False) -> np.ndarray:
     """Host BFS distances from s, capped at k_max (unreached = k_max+1)."""
     INF = k_max + 1
+    ip, ix = (g.r_indptr, g.r_indices) if reverse else (g.indptr, g.indices)
     dist = np.full(g.n, INF, dtype=np.int32)
     dist[s] = 0
-    q = deque([s])
-    while q:
-        u = q.popleft()
-        if dist[u] >= k_max:
-            continue
-        for v in g.neighbors(u, reverse=reverse):
-            if dist[v] > dist[u] + 1:
-                dist[v] = dist[u] + 1
-                q.append(int(v))
+    frontier = np.array([s], dtype=np.int64)
+    for hop in range(1, k_max + 1):
+        lo = ip[frontier]
+        cnt = ip[frontier + 1] - lo
+        nbrs = ix[np.repeat(lo, cnt) + _ragged_arange(cnt)]
+        frontier = np.unique(nbrs[dist[nbrs] == INF])
+        if frontier.size == 0:
+            break
+        dist[frontier] = hop
     return dist
 
 

@@ -548,9 +548,12 @@ class StreamingServer:
             requeued_before = self.sched.requeued
             with self.engine.stage("serve.assemble",
                                    n_queries=len(batch)) as sasm:
-                # the kernel arm follows the engine's device
+                # the kernel arm follows the engine's device, the sweeps
+                # its index route (over its own, unsharded lists)
                 index = build_index(self.engine.dg,
-                                    [q.key for q in queries])
+                                    [q.key for q in queries],
+                                    self.engine.cfg.edge_chunk,
+                                    route=self.engine.cfg.index_route)
                 mu = similarity_matrix(index)
                 bias = warm_cluster_bias(self.engine, queries,
                                          self.warm_bias_eps)

@@ -17,7 +17,9 @@ row. Each route of ``flash_attention`` (wgmma, split-K, mma, float32) and
 of ``ell_spmm`` (the F = 1 kernel or the general one) is taken by the
 shapes it is for. The reduced transformer on the card matches the CPU port
 in float32 (TF32 off) at 1e-4. Two and four engine replicas on streams of
-one card give one replica's results, and four threads that load a kernel
+one card give one replica's results, the segment index route's sweeps and
+engine on one slot and over three and four streams equal the CPU's, and
+four threads that load a kernel
 library first run one build.
 """
 import numpy as np
@@ -586,6 +588,92 @@ def test_default_config_engine_on_card_matches_cpu(dev):
             assert a.stats.get(key) == b.stats.get(key), (planner, key)
         for x, y in zip(a, b):
             assert np.array_equal(x.paths, y.paths), planner
+
+
+@pytest.mark.parametrize("slots", [1, 3, 4])
+@pytest.mark.parametrize("edge_chunk", [1 << 10, 1 << 22])
+def test_segment_sweeps_on_card_match_cpu(dev, slots, edge_chunk):
+    """The segment route's sweeps on the card (``segment_reduce`` over
+    float16 / float32 rows) equal the CPU's, on one slot and on slots cut
+    over streams of one card."""
+    from repro_torch.core import DeviceGraph, generators
+    from repro_torch.core.distributed import (_replica_stream,
+                                              distributed_graph)
+    from repro_torch.core.index import walk_counts
+    from repro_torch.core.msbfs import edge_span, msbfs_dist, msbfs_set_dist
+    g = generators.erdos(20000, 6.0, seed=slots)
+    cpu = DeviceGraph.build(g, "cpu", edge_lists=True)
+    if slots == 1:
+        card = DeviceGraph.build(g, dev, edge_lists=True)
+    else:
+        mesh = [torch.device("cuda", 0)] * slots
+        card = distributed_graph(g, mesh, [None] + [
+            _replica_stream(mesh[j], j) for j in range(1, slots)])
+        assert all(s is not None for s in card.esrc.streams[1:])
+    r = np.random.default_rng(slots + edge_chunk)
+    srcs = torch.from_numpy(r.choice(g.n, 200, replace=False))
+    mask = torch.zeros(g.n + 1, dtype=torch.int8)
+    mask[torch.from_numpy(r.choice(g.n, 30, replace=False))] = 1
+    slack = torch.from_numpy(r.integers(-1, 8, g.n + 1).astype(np.int8))
+    slack[-1] = -1
+    kws = [dict(n=g.n, edge_chunk=edge_chunk,
+                m_valid=edge_span(g.m, edge_chunk, x.m_cap))
+           for x in (cpu, card)]
+    for reverse in (False, True):
+        lists = [(x.r_esrc, x.r_edst) if reverse else (x.esrc, x.edst)
+                 for x in (cpu, card)]
+        got = [msbfs_dist(*ls, srcs, k_max=6, **kw).cpu()
+               for ls, kw in zip(lists, kws)]
+        assert torch.equal(got[0], got[1])
+        got = [msbfs_set_dist(*ls, mask, k_max=8, **kw).cpu()
+               for ls, kw in zip(lists, kws)]
+        assert torch.equal(got[0], got[1])
+        got = [walk_counts(*ls, int(srcs[0]), slack.to(ls[0].device),
+                           budget=7, **kw).cpu()
+               for ls, kw in zip(lists, kws)]
+        assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("mesh", [None, ["cuda:0"] * 3])
+def test_segment_engine_on_card_matches_cpu(dev, mesh):
+    """The segment route on the card (one slot, three over streams of one
+    card): distances, path sets and a delta under ``delta_backend=
+    "msbfs"`` equal the CPU engine's on as many slots; enumeration still
+    runs the fused kernels and the walk counts launch no ``ell_spmm``."""
+    from repro_torch.core import (EngineConfig, GraphDelta, PathSession,
+                                  generators)
+    from repro_torch.kernels import reset_launches
+    g = generators.community(3000, n_comm=6, avg_deg=6.0, seed=3)
+    qs = generators.random_queries(g, 12, k_range=(3, 5), seed=4)
+    kw = dict(index_route="segment", edge_chunk=1 << 12,
+              cache_bytes=1 << 24, delta_backend="msbfs")
+    on_card = PathSession(g, EngineConfig(mesh=mesh, **kw), device="cuda")
+    # the same slots on the CPU: each replica keeps its own cache, so
+    # the delta's cache counts compare like with like
+    on_cpu = PathSession(g, EngineConfig(
+        mesh=None if mesh is None else ["cpu"] * len(mesh), **kw),
+        device="cpu")
+    for planner in ("batch", "batch+", "basic", "auto"):
+        reset_launches()
+        a = on_card.run(qs, planner=planner)
+        assert LAUNCHES["ell_spmm"] == LAUNCHES["msbfs_step"] == 0
+        assert LAUNCHES["path_member"] > 0, (planner, dict(LAUNCHES))
+        if planner.startswith("batch"):
+            assert LAUNCHES["pairwise_popcount"] > 0, planner
+        b = on_cpu.run(qs, planner=planner)
+        for x, y in zip(a, b):
+            assert np.array_equal(x.paths, y.paths), planner
+    ia, ib = (x.engine._build_index(qs) for x in (on_card, on_cpu))
+    assert torch.equal(ia.dist_s.cpu(), ib.dist_s)
+    assert torch.equal(ia.dist_t.cpu(), ib.dist_t)
+    src, dst = g.edges_by_dst
+    delta = GraphDelta.from_pairs(
+        add=[(1, 2), (5, 2999)], remove=[(int(src[7]), int(dst[7]))])
+    ra, rb = on_card.apply_delta(delta), on_cpu.apply_delta(delta)
+    keys = ("n_touched", "cache_mode", "cache_evicted", "cache_kept")
+    assert {k: ra[k] for k in keys} == {k: rb[k] for k in keys}
+    for x, y in zip(on_card.run(qs), on_cpu.run(qs)):
+        assert np.array_equal(x.paths, y.paths)
 
 
 # (B, Sq, Skv, Hq, Hkv, hd, causal, q_offset, kv_valid_len): square causal,

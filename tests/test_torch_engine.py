@@ -11,9 +11,10 @@ compaction order), so rows are compared as arrays, not only as sets.
 
 Also here: the porting hazards of the path buffers and joins (argsort
 stability, the compaction dump row, count dtypes), each against the JAX
-function on the same inputs, the refusal of every unported option and of
+function on the same inputs, the refusal of an unknown index route and of
 every malformed mesh, and the options ported since (compile telemetry,
-span annotations) running.
+span annotations, a non-default ``edge_chunk`` on either index route)
+running.
 The default configuration and the other planners are held against the
 JAX engine in ``test_torch_planners.py``.
 """
@@ -178,15 +179,29 @@ def test_empty_batch_and_precomputed_clusters(workload):
 
 
 # ----------------------------------------------------------------------
-# unported options raise, never degrade; the ported ones run
+# bad options raise, never degrade; the ported ones run
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("cfg", [
-    dict(plan_caps=False, edge_chunk=1 << 20),
-])
-def test_unported_options_raise(workload, cfg):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchPathEngine(workload["g"], EngineConfig(**cfg), device=CPU)
+@pytest.mark.parametrize("route", ["ell", "segment"])
+def test_edge_chunk_runs_and_equals_default(workload, route):
+    """A non-default ``edge_chunk`` on either route gives the default
+    engine's results (the ELL route never reads it)."""
+    eng = BatchPathEngine(workload["g"], EngineConfig(
+        plan_caps=False, edge_chunk=1 << 20, index_route=route), device=CPU)
+    base, _ = workload["runs"]["batch"]
+    rep = eng.run(workload["queries"])
+    for q, a, b in zip(workload["queries"], rep, base):
+        if q.output.value == "paths":
+            assert _same(a.paths, b.paths) and a.count == b.count, q
+        elif q.output.value == "count":
+            assert a.count == b.count, q
+        assert a.exists == b.exists, q
+
+
+def test_unknown_index_route_raises(workload):
+    with pytest.raises(ValueError, match="ell, segment"):
+        BatchPathEngine(workload["g"], EngineConfig(index_route="jnp"),
+                        device=CPU)
 
 
 def test_log_compiles_reports_telemetry(workload):

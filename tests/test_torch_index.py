@@ -83,6 +83,18 @@ def test_generators_and_oracle_match_reference(case):
         j_oracle.enumerate_paths_bruteforce(jg, s, t, k)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("k_max", [0, 1, 3, 8])
+def test_host_bfs_equals_reference(case, k_max, reverse):
+    """The port's level-by-level host BFS gives the reference's
+    vertex-queue distances (unreached = k_max + 1), from 20 sources."""
+    g, jg = case["g"], case["jg"]
+    for s in np.random.default_rng(k_max).choice(g.n, 20, replace=False):
+        got = oracle.bfs_dist_from(g, int(s), k_max, reverse=reverse)
+        want = j_oracle.bfs_dist_from(jg, int(s), k_max, reverse=reverse)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 def test_from_arrays_carries_a_jax_graph_over(case):
     jg, g = case["jg"], case["g"]
     assert g.n == jg.n and g.m == jg.m
