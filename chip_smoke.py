@@ -31,7 +31,9 @@ kernel, AdamW, checkpoints and the fault-tolerant driver, under the
 ``"nothing"`` and ``"dots"`` remat policies); phases 16 and 17 the
 GNN zoo and the two-tower recsys model at their published configs
 (their paths reach no Pallas kernel: gathers, segmented sums and cuBLAS
-matmuls in float32).
+matmuls in float32); phases 13b and 17a the substrate's ``shard_map``
+programs over slots of the card (``flash_decode`` on the split-K
+kernel, ``gnn.ring_aggregate``, ``ef_compressed_psum_axis``).
 
 Phases, each printing one JSON line (``"phase": ...``, with
 ``t_elapsed_s``, the seconds since the script started):
@@ -315,6 +317,40 @@ Phases, each printing one JSON line (``"phase": ...``, with
                same q and cache at atol = rtol = 1e-2 elementwise and a
                relative L2 error of at most 1e-2 in every row (one query,
                one q-head); every logit finite.
+13b. mesh_decode -- inside phase 13, on its weights (``LM.with_mesh``):
+               granite-8b's ``RunOptions(flash_decode=True)`` over slots
+               of the card (``make_host_mesh``, ``cuda:0`` repeated, each
+               slot on its own stream): ``long_500k`` whole (B 1, 524,288
+               keys, a float8 cache of 38.7 GB, stored wide: the sequence
+               over all eight slots of a (1, 8) layout) and
+               ``decode_32k``'s 32,768 keys at B 4 (batch 128 -> 4; a
+               bf16 cache of 19.3 GB over (2, 4): batch over ``data``,
+               the sequence over ``model``). Free memory for the cache
+               plus 8 GiB is required first (the case is never shrunk).
+               The cache, filled with seeded random keys and values
+               (quantised as ``decode_step`` quantises) below position
+               p0 = the last slot's first position - 4, is cut by
+               ``shard_cache`` into views of one tensor; 8 teacher-forced
+               steps from p0 (the last slot empty, then written), each
+               timed (wall, host clock, synced; the bound: the valid
+               keys' bytes and the weights' bytes over 3.35 TB/s), then
+               the one-slot ``flash_decode`` and the default decode
+               (``gqa_attention``) over the same cache state; the last
+               step of each again under a card-only profiler (attention
+               kernels' device time summed over the slots' streams, all
+               device time). Checks: every
+               sharded step launches ``attn_splitk_f8`` (``attn_splitk``)
+               once a slot and layer and no other route; each slot's
+               partial (float32 out and lse) equals the plain version
+               (``flash_attention_ref``) on its piece, and each layer's
+               merged attention the plain version over the whole cache
+               on the same q, at row 8's bf16 tolerance (atol = rtol =
+               1e-2, a row's relative L2 at most 1e-2; an empty slot
+               zeros and -inf on both sides); the logits within 0.1
+               relative L2 a row of the one-slot and the default
+               decode's (two bf16 decodes that round p differently,
+               carried through 36 layers: 4.2-5.6% measured); every
+               logit finite.
 14. moe     -- olmoe-1b-7b ``CONFIG`` (arXiv:2409.02060: 16 layers,
                d_model 2048, 64 experts top-8 of d_ff 1024, vocab 50304:
                6.9 G parameters) at full width in bf16, cut to 4 of its
@@ -457,6 +493,21 @@ Phases, each printing one JSON line (``"phase": ...``, with
                candidates; (b) the top-100 ids equal a stable descending
                sort of the card's own scores, no padded id among them; (c)
                every loss finite, and the loss of the repeated batch falls.
+17a. mesh   -- the substrate's other programs over slots of the card.
+               ``gnn.ring_aggregate`` at ``ogb_products`` (2,449,029
+               nodes, 61,859,140 edge draws of phase 16's law drawn on
+               the card, d_feat 100) over 8 and 3 ``cuda:0`` slots: the
+               edges bucketed by (destination owner, source owner), each
+               round's CUDA-event time and the bytes rotated (N F 4 a
+               round); integer-valued float32 features equal to the
+               one-slot ``models/segment.py`` sum bit for bit on every
+               row, seeded normal ones within 1e-4 of each output's sum
+               of absolute messages. ``ef_compressed_psum_axis`` over an
+               8-slot ``pod`` axis: 20 steps of seeded gradient leaves of
+               granite-8b's ``w_gate`` shape (4,096 x 14,336), each
+               step's reduced tensor and errors equal to the sequence
+               form's bit for bit, and sent + final errors = the
+               gradients at rtol 1e-4, atol 1e-3.
 18. peaks   -- measured peak rates of 32-bit ``popc`` on the CUDA cores
                and of the tensor cores' 1-bit AND+popc MMA (no published
                H100 rate exists for either), used in the popcount bound.
@@ -553,7 +604,9 @@ Phases, each printing one JSON line (``"phase": ...``, with
                (row 8's decode at 32,768 keys), the byte bound with k
                and v at one byte, and
                SDPA on the bf16 copy as the library time (SDPA reads no
-               float8); its launches are phase ``lm``'s float8 decode's.
+               float8); its launches are phase ``lm``'s float8 decode's
+               and phase ``mesh_decode``'s ``long_500k`` steps' (row 8's
+               add its ``decode_32k`` steps').
 
 Then a ``{"kernels": [...]}`` line (thirteen rows), and last
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
@@ -749,6 +802,43 @@ MOONSHOT_HEADROOM = 6 << 30
 # phase train: the "dots" remat policy's losses and grad norms against
 # the "nothing" policy's, relative
 TRAIN_DOTS_REL = 1e-6
+# phase mesh_decode: granite-8b's flash_decode over slots of the card, on
+# phase lm's weights: (name, batch, cache length, layout (data, model),
+# KV cache type): long_500k whole (B 1, 524,288 keys; 38.7 GB, so float8)
+# over eight slots, and decode_32k's 32,768 keys at B 4 (cut from 128:
+# 19.3 GB of bf16 cache) over (2, 4). Each case runs MESH_DECODE_STEPS
+# teacher-forced steps from MESH_DECODE_BEFORE positions below the last
+# slot's first (positions before it filled with seeded random keys and
+# values). Each slot's partial (out, lse) and each layer's merged
+# attention are held to the plain version (flash_attention_ref) on the
+# same q and keys at row 8's bf16 tolerance (ATTN_BF16_TOL elementwise,
+# ATTN_BF16_ROW_REL_L2 a row). Each step's logits are held to the
+# one-slot flash_decode's and to the default decode's (gqa_attention,
+# flash_decode off) over the same cache state at MESH_DECODE_REL_L2 a
+# row: the decodes round p to bf16 against different running maxima, so
+# their layers' outputs differ by about 0.4% of a row, and 36 random
+# layers carry that to 4.2-5.6% of the logits' L2 (PERF.md, PR 29; row
+# 8's 1e-2 holds a layer, not the logits). Free memory for the cache and
+# MESH_HEADROOM (the plain version's float32 copies of a layer's keys and
+# values: 3.8 GB at 458,756 float8 keys) is required first (the case is
+# never shrunk)
+MESH_DECODE_CASES = (("long_500k", 1, 524288, (1, 8), "f8"),
+                     ("decode_32k", 4, 32768, (2, 4), "bf16"))
+MESH_DECODE_STEPS, MESH_DECODE_BEFORE = 8, 4
+MESH_DECODE_REL_L2 = 0.1
+MESH_HEADROOM = 8 << 30
+# phase mesh: gnn.ring_aggregate at ogb_products (phase gnn's graph law,
+# drawn on the card) over 8 and 3 slots of the card, integer-valued
+# features against the one-slot segmented sum exactly, normal ones within
+# MESH_RING_REL of each output's sum of absolute messages (float32 sums
+# in another order); ef_compressed_psum_axis over an 8-slot "pod" axis,
+# MESH_EF_STEPS steps of granite-8b's w_gate leaf, each equal to the
+# sequence form bit for bit, and the error feedback's invariant (sent +
+# final errors = the gradients) at the JAX test's rtol 1e-4, atol 1e-3
+MESH_RING_SLOTS = (8, 3)
+MESH_RING_REL = 1e-4
+MESH_EF_SLOTS, MESH_EF_STEPS = 8, 20
+MESH_EF_SHAPE = (4096, 14336)
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -4097,7 +4187,10 @@ def phase_lm(torch) -> dict:
     del ref, rel, last
     f8 = lm_f8_decode(torch, model, prompt, got, cache)
     out["f8"] = f8
-    del model, cache, got
+    del cache, got
+    torch.cuda.empty_cache()
+    mesh = mesh_decode(torch, model)
+    del model
     torch.cuda.empty_cache()
 
     # -- check (a): full width, float32, depth cut
@@ -4129,7 +4222,420 @@ def phase_lm(torch) -> dict:
     emit(out)
     return {"launches": launches, "per_call": cfg.n_layers, "calls": calls,
             "routes": routes, "f8_launches": f8["launches"],
-            "f8_steps": f8["steps"]}
+            "f8_steps": f8["steps"], "mesh_launches": mesh}
+
+
+def step_profile(torch, fn) -> tuple:
+    """``fn()`` once under a card-only ``torch.profiler``: its result, the
+    wall (synchronized at both ends), the attention kernels' device time
+    (``attn_*``: the split-K kernel and its merge) and all device time,
+    summed over the slots' streams."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    attn = other = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if "attn_" in e.name.lower():
+            attn += ms
+        else:
+            other += ms
+    return res, {"wall_ms": wall * 1e3, "attn_device_ms": attn,
+                 "device_ms": attn + other}
+
+
+class FlashDecodeRecorder:
+    """Wraps ``transformer.flash_decode_attention`` and the slots'
+    ``attention_partial``: keeps each call's q, position and output (one a
+    layer, in order) and each slot's q, keys, values, valid length and
+    partial (out, lse), for the checks against the plain version."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.tm, self.fns, self.calls, self.parts = transformer, None, [], []
+
+    def decode(self, q, ck, cv, pos, rules):
+        out = self.fns[0](q, ck, cv, pos, rules)
+        self.calls.append((q, pos, out))
+        return out
+
+    def partial(self, q, k, v, valid):
+        out, lse = self.fns[1](q, k, v, valid)
+        self.parts.append((q, k, v, valid, out, lse))
+        return out, lse
+
+    def __enter__(self):
+        self.fns = (self.tm.flash_decode_attention, self.tm.attention_partial)
+        self.calls, self.parts = [], []
+        self.tm.flash_decode_attention = self.decode
+        self.tm.attention_partial = self.partial
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.flash_decode_attention, self.tm.attention_partial = self.fns
+
+
+def mesh_attention_check(torch, fops, rec, full, what: str) -> dict:
+    """A sharded decode step's attention against the plain version
+    (``flash_attention_ref``, not counted) at row 8's bf16 tolerance: each
+    slot's partial (float32 out and lse) on its piece of the cache, a slot
+    with no valid key zeros and -inf on both sides; each layer's merged
+    output over the whole layer cache (``full``) on the same q. Returns
+    the largest errors."""
+    worst = dict.fromkeys(("partial_max_abs_err", "partial_max_row_rel_l2",
+                           "lse_max_abs_err", "max_abs_err",
+                           "max_row_rel_l2"), 0.0)
+    empty = 0
+    for q, k, v, valid, out, lse in rec.parts:
+        want, want_lse = fops.flash_attention_ref(
+            q, k, v, False, q_offset=0, kv_valid_len=valid, return_lse=True,
+            out_dtype=torch.float32)
+        if valid == 0:
+            empty += 1
+            require(all(torch.equal(x, torch.zeros_like(x))
+                        for x in (out, want))
+                    and all(bool((x == float("-inf")).all())
+                            for x in (lse, want_lse)),
+                    f"{what}: a slot with no valid key does not give zeros "
+                    f"and an lse of -inf")
+            continue
+        e, r = check_bf16_attention(
+            torch, out, want, f"{what}: a slot's partial over {valid} keys "
+            f"against the plain version")
+        le = float((lse - want_lse).abs().max())
+        require(torch.allclose(lse, want_lse, atol=ATTN_BF16_TOL,
+                               rtol=ATTN_BF16_TOL),
+                f"{what}: a slot's lse over {valid} keys off the plain "
+                f"version's by {le}")
+        worst["partial_max_abs_err"] = max(worst["partial_max_abs_err"], e)
+        worst["partial_max_row_rel_l2"] = max(
+            worst["partial_max_row_rel_l2"], r)
+        worst["lse_max_abs_err"] = max(worst["lse_max_abs_err"], le)
+    for layer, (q, at, out) in enumerate(rec.calls):
+        want = fops.flash_attention_ref(q, full["k"][layer], full["v"][layer],
+                                        True, q_offset=at,
+                                        kv_valid_len=at + 1)
+        e, r = check_bf16_attention(
+            torch, out, want, f"{what} layer {layer}: the sharded attention "
+            f"against the plain version over the whole cache")
+        worst["max_abs_err"] = max(worst["max_abs_err"], e)
+        worst["max_row_rel_l2"] = max(worst["max_row_rel_l2"], r)
+    torch.cuda.synchronize()
+    worst.update({"partials": len(rec.parts), "empty_partials": empty})
+    return worst
+
+
+def row_rel_l2(got, want) -> float:
+    """The largest relative L2 difference of a logits row."""
+    return float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
+
+
+def mesh_decode(torch, model) -> dict:
+    """Phase 13b: granite-8b's ``flash_decode`` over slots of the card
+    (``MESH_DECODE_CASES``) on phase lm's weights (``LM.with_mesh``): the
+    cache cut by ``shard_cache`` (views of one tensor), each sharded step
+    profiled and its launches counted (``attn_splitk_f8`` or
+    ``attn_splitk`` once a slot and layer, no other route), its slots'
+    partials and each layer's attention then held to the plain version
+    (:func:`mesh_attention_check`), then the one-slot ``flash_decode`` and
+    the default decode over the same cache state, the sharded logits held
+    to both at ``MESH_DECODE_REL_L2``. Emits the phase line; returns the
+    launches by route."""
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import quantize_f8, shard_cache
+
+    cfg = model.cfg
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    out = {"phase": "mesh_decode", "arch": cfg.name,
+           "weights_bytes": model.param_bytes(), "cases": {},
+           "tolerance": {"atol": ATTN_BF16_TOL, "rtol": ATTN_BF16_TOL,
+                         "row_rel_l2": ATTN_BF16_ROW_REL_L2,
+                         "logits_row_rel_l2": MESH_DECODE_REL_L2}}
+    launches = dict.fromkeys(("splitk", "splitk_f8"), 0)
+    for name, B, S, shape, kv in MESH_DECODE_CASES:
+        t_case = time.perf_counter()
+        opts = RunOptions(flash_decode=True, kv_cache_dtype=kv)
+        layout = make_host_mesh(*shape)
+        sharded = model.with_mesh(layout, opts)
+        one = model.with_mesh(None, opts)
+        default = model.with_mesh(None, RunOptions(kv_cache_dtype=kv))
+        kv_bytes = 1 if kv == "f8" else 2
+        cache_bytes = 2 * L * B * S * Hkv * hd * kv_bytes
+        free = torch.cuda.mem_get_info()[0]
+        require(free >= cache_bytes + MESH_HEADROOM,
+                f"mesh_decode {name}: {free} bytes free, the cache needs "
+                f"{cache_bytes} + {MESH_HEADROOM} (the case is not shrunk)")
+        blocks = sharded.rules.size("seq_kv_wide" if B == 1 else "seq_kv")
+        start = (blocks - 1) * (S // blocks) - MESH_DECODE_BEFORE
+        full = one.init_cache(B, S)
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for layer in range(L):
+            for key in ("k", "v"):
+                x = torch.randn((B, start, Hkv, hd), generator=gen,
+                                device="cuda", dtype=torch.bfloat16)
+                full[key][layer, :, :start] = (quantize_f8(x) if kv == "f8"
+                                               else x)
+                del x
+        full["pos"] = start
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        cache = shard_cache(full, sharded.rules)
+        toks = torch.randint(0, cfg.vocab, (B, MESH_DECODE_STEPS),
+                             generator=gen, device="cuda")
+        route = "splitk_f8" if kv == "f8" else "splitk"
+        want_routes = dict.fromkeys(fops.ROUTES, 0)
+        want_routes[route] = layout.size * L
+        steps = []
+        for t in range(MESH_DECODE_STEPS):
+            pos = start + t
+            tok = toks[:, t:t + 1]
+            reset_launches()
+            last = cache
+            with FlashDecodeRecorder() as rec:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, cache = sharded.decode_step(tok, cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            routes = attn_counts(LAUNCHES, fops)
+            require(routes == want_routes
+                    and LAUNCHES["flash_attention"] == layout.size * L
+                    and len(rec.calls) == L
+                    and len(rec.parts) == layout.size * L,
+                    f"mesh_decode {name}: routes {routes}, expected "
+                    f"{want_routes}: one {route} a slot and layer")
+            launches[route] += routes[route]
+            attn = mesh_attention_check(torch, fops, rec, full,
+                                        f"mesh_decode {name} step {t}")
+            del rec
+            # the one-slot flash_decode, then the default decode, each over
+            # the cache state before this step (each rewrites position pos)
+            one_last = full
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, full = one.decode_step(tok, one_last)
+            torch.cuda.synchronize()
+            one_wall = time.perf_counter() - t0
+            # the logits only: the dict it returns holds the whole cache
+            base = default.decode_step(tok, one_last)[0]
+            require(all(bool(torch.isfinite(x).all())
+                        for x in (got, want, base)),
+                    f"mesh_decode {name}: logits not finite")
+            rel = {"one_slot": row_rel_l2(got, want),
+                   "default": row_rel_l2(got, base),
+                   "one_slot_vs_default": row_rel_l2(want, base)}
+            require(max(rel["one_slot"], rel["default"])
+                    <= MESH_DECODE_REL_L2,
+                    f"mesh_decode {name} step {t}: the sharded logits "
+                    f"against the one-slot and the default decode's, row "
+                    f"relative L2 {rel} (bound {MESH_DECODE_REL_L2})")
+            keys = L * B * (pos + 1) * Hkv * hd * 2 * kv_bytes
+            steps.append({
+                "pos": pos, "wall_ms": wall * 1e3,
+                "one_slot_wall_ms": one_wall * 1e3, "attention": attn,
+                "logits_max_row_rel_l2": rel,
+                "logits_max_abs_diff": float((got - want).abs().max()),
+                "argmax_equal": {
+                    "one_slot": bool((got.argmax(-1) == want.argmax(-1))
+                                     .all()),
+                    "default": bool((got.argmax(-1) == base.argmax(-1))
+                                    .all())},
+                "attn_bound_ms": keys / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": (keys + model.param_bytes()) / HBM_BYTES_PER_S
+                * 1e3})
+            del base
+        # the last step again, each decode under a card-only profiler (the
+        # same position rewritten with the same values): device times
+        # (the results dropped at once: they hold the cache)
+        prof = step_profile(torch,
+                            lambda: sharded.decode_step(tok, last))[1]
+        one_prof = step_profile(torch,
+                                lambda: one.decode_step(tok, one_last))[1]
+        out["cases"][name] = {
+            "batch": B, "keys": S, "layout": list(shape),
+            "slots": layout.size, "kv_cache": kv, "cache_bytes": cache_bytes,
+            "start_pos": start, "t_fill_s": t_fill, "route": route,
+            "launches_per_step": layout.size * L, "steps": steps,
+            "profiled_last_step": {"sharded": prof, "one_slot": one_prof,
+                                   "pos": pos},
+            "t_case_s": time.perf_counter() - t_case}
+        del full, cache, last, one_last, got, want, sharded, one, default
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
+def ring_buckets(torch, src, dst, n_loc: int, P: int) -> tuple:
+    """The edges (src, dst) bucketed by (destination owner, source owner)
+    for ``ring_aggregate`` over P slots of ``n_loc`` rows: (P, P, Eb)
+    int32 local sources and destinations and the mask, Eb the largest
+    bucket; each bucket's edges in their order."""
+    key = (dst // n_loc) * P + src // n_loc
+    key, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key, minlength=P * P)
+    eb = int(counts.max())
+    first = torch.cumsum(counts, 0) - counts
+    at = key * eb + torch.arange(key.numel(), device=key.device) - first[key]
+    es = torch.zeros(P * P * eb, dtype=torch.int32, device=key.device)
+    ed = torch.zeros_like(es)
+    em = torch.zeros(P * P * eb, dtype=torch.bool, device=key.device)
+    es[at] = (src.index_select(0, order) % n_loc).int()
+    ed[at] = (dst.index_select(0, order) % n_loc).int()
+    em[at] = True
+    shape = (P, P, eb)
+    return es.view(shape), ed.view(shape), em.view(shape), counts
+
+
+def mesh_ring(torch) -> dict:
+    """``gnn.ring_aggregate`` at ogb_products over ``MESH_RING_SLOTS``
+    slots of the card against the one-slot segmented sum
+    (``models/segment.py``); each round timed by CUDA events."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_cells_mesh
+    from repro_torch.models.gnn import RingPlan
+    from repro_torch.models.segment import Segments
+    bundle = steps.build_bundle(*GNN_LARGE)
+    n, draws = bundle.dims["n_nodes"], bundle.dims["n_edges"]
+    F = bundle.dims["d_feat"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src, dst = device_powerlaw(torch, n, draws, gen)
+    feats = {"int": torch.randint(-8, 9, (n, F), generator=gen,
+                                  device="cuda").float(),
+             "normal": torch.randn((n, F), generator=gen, device="cuda")}
+    seg = Segments(dst, n)
+    srt = src.index_select(0, seg.perm)
+
+    def one_slot(h):
+        return seg.reduce(h.index_select(0, srt), "sum")
+
+    torch.cuda.synchronize()
+    out = {"arch": GNN_LARGE[0], "shape": GNN_LARGE[1], "nodes": n,
+           "edge_draws": draws, "edges": int(src.numel()), "d_feat": F,
+           "t_data_s": time.perf_counter() - t0,
+           "one_slot_ms": cuda_ms(torch, lambda: one_slot(feats["normal"]),
+                                  reps=3),
+           "tolerance_normal": {"rel_to_abs_sum": MESH_RING_REL},
+           "slots": {}}
+    ref = {k: one_slot(h) for k, h in feats.items()}
+    abs_sum = one_slot(feats["normal"].abs())
+    for P in MESH_RING_SLOTS:
+        n_loc = -(-n // P)
+        t0 = time.perf_counter()
+        es, ed, em, counts = ring_buckets(torch, src, dst, n_loc, P)
+        plan = RingPlan(es, ed, em, make_cells_mesh(devices=["cuda:0"] * P),
+                        "cells", n_loc)
+        del es, ed, em
+        torch.cuda.synchronize()
+        rec = {"n_loc": n_loc, "bucket_max": int(counts.max()),
+               "bucket_mean": float(counts.float().mean()),
+               "bucket_rows": counts.view(P, P).sum(1).tolist(),
+               "t_plan_s": time.perf_counter() - t0,
+               "rotated_bytes_per_round": P * n_loc * F * 4}
+        for feat, h in feats.items():
+            hp = torch.zeros((P * n_loc, F), device="cuda")
+            hp[:n] = h
+            marks = [torch.cuda.Event(enable_timing=True)]
+            torch.cuda.synchronize()
+            marks[0].record()
+            for acc in plan.rounds(list(hp.split(n_loc))):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            torch.cuda.synchronize()
+            got = torch.cat(acc)[:n]
+            err = (got - ref[feat]).abs()
+            if feat == "int":
+                ok = torch.equal(got, ref[feat])
+            else:
+                ok = bool((err <= MESH_RING_REL * abs_sum).all())
+            require(ok, f"mesh: ring_aggregate over {P} slots, {feat} "
+                        f"features, against the one-slot sum: max abs err "
+                        f"{float(err.max())}")
+            rec[feat] = {"round_ms": [a.elapsed_time(b) for a, b in
+                                      zip(marks, marks[1:])],
+                         "max_abs_err": float(err.max()), "exact": bool(
+                             torch.equal(got, ref[feat]))}
+            rec[feat]["ring_ms"] = sum(rec[feat]["round_ms"])
+            del hp, acc, got, err
+        out["slots"][str(P)] = rec
+        del plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_ef(torch) -> dict:
+    """``ef_compressed_psum_axis`` over an ``MESH_EF_SLOTS``-slot ``pod``
+    axis of the card: ``MESH_EF_STEPS`` steps of seeded ``MESH_EF_SHAPE``
+    gradient leaves (scaled by 10 ** (step % 3), as tests/test_ft.py),
+    each step's reduced tensor and errors equal to the sequence form's
+    bit for bit, then the error-feedback invariant."""
+    from repro_torch.launch.mesh import Layout
+    from repro_torch.optim.compress import (ef_compressed_psum,
+                                            ef_compressed_psum_axis)
+    P = MESH_EF_SLOTS
+    pod = Layout("pods", ("pod",), (P,), ("cuda:0",) * P)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = [torch.zeros(MESH_EF_SHAPE, device="cuda") for _ in range(P)]
+    seq = [torch.zeros(MESH_EF_SHAPE, device="cuda") for _ in range(P)]
+    sent = torch.zeros(MESH_EF_SHAPE, dtype=torch.float64, device="cuda")
+    total = torch.zeros_like(sent)
+    times = []
+    for t in range(MESH_EF_STEPS):
+        grads = [torch.randn(MESH_EF_SHAPE, generator=gen, device="cuda")
+                 * 10 ** (t % 3) for _ in range(P)]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        red, errs = ef_compressed_psum_axis(grads, errs, pod, "pod")
+        b.record()
+        want, seq = ef_compressed_psum(grads, seq)
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        require(all(torch.equal(x, want) for x in red)
+                and all(torch.equal(x, y) for x, y in zip(errs, seq)),
+                f"mesh: ef_compressed_psum_axis step {t} differs from the "
+                f"sequence form")
+        sent += red[0].double()
+        for g in grads:
+            total += g.double()
+        del grads, red, want
+    final = sent + sum(e.double() for e in errs)
+    err = float((final - total).abs().max())
+    ok = bool(torch.allclose(final, total, rtol=1e-4, atol=1e-3))
+    require(ok, f"mesh: error feedback's invariant off by {err}")
+    return {"slots": P, "leaf": list(MESH_EF_SHAPE), "steps": MESH_EF_STEPS,
+            "step_ms": times, "bit_equal_to_sequence_form": True,
+            "invariant_max_abs_err": err, "invariant_ok": ok,
+            "leaf_bytes": 4 * MESH_EF_SHAPE[0] * MESH_EF_SHAPE[1]}
+
+
+def phase_mesh(torch) -> dict:
+    """Phase 17a: the substrate's other programs over slots of the card,
+    ``gnn.ring_aggregate`` and ``ef_compressed_psum_axis``."""
+    t0 = time.perf_counter()
+    out = {"phase": "mesh", "ring": mesh_ring(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ef_compressed_psum"] = mesh_ef(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["t_phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
 
 
 def lm_f8_decode(torch, model, prompt, got_bf16, cache_bf16) -> dict:
@@ -5982,7 +6488,9 @@ def flash_attention_row(torch, lm) -> dict:
     head = shapes.pop("prefill")
     src, replaces = KERNEL_ROWS["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": lm["launches"],
+            "replaces": replaces,
+            "launches": lm["launches"] + lm["mesh_launches"]["splitk"],
+            "launches_mesh_decode": lm["mesh_launches"]["splitk"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -6000,7 +6508,9 @@ def flash_attention_row(torch, lm) -> dict:
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             " (enable_gqa, is_causal where Sq == Skv; the "
                             "long row attends all keys, unmasked)",
-            "launches_from": "phase lm (prefill, decode_step, lm_forward)",
+            "launches_from": "phase lm (prefill, decode_step, lm_forward)"
+                             " and phase mesh_decode's decode_32k steps (one "
+                             "split-K launch a slot and layer)",
             "launches_per_call": lm["per_call"], "calls": lm["calls"],
             "routes": lm["routes"], "kernel_route": head["route"],
             **shapes}
@@ -6138,7 +6648,9 @@ def flash_attention_f8_row(torch, lm, moonshot) -> dict:
     head = shapes["decode"]
     src, replaces = KERNEL_ROWS["flash_attention"]
     return {"name": "flash_attention_f8", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": lm["f8_launches"],
+            "replaces": replaces,
+            "launches": lm["f8_launches"] + lm["mesh_launches"]["splitk_f8"],
+            "launches_mesh_decode": lm["mesh_launches"]["splitk_f8"],
             "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -6151,7 +6663,8 @@ def flash_attention_f8_row(torch, lm, moonshot) -> dict:
             "tolerance": {"atol": ATTN_BF16_TOL, "rtol": ATTN_BF16_TOL,
                           "row_rel_l2": ATTN_BF16_ROW_REL_L2},
             "launches_from": "phase lm's float8 decode (decode_step into "
-                             "a float8 cache)",
+                             "a float8 cache) and phase mesh_decode's "
+                             "long_500k steps (one launch a slot and layer)",
             "launch_steps": lm["f8_steps"],
             "moonshot_launches": moonshot["launches"],
             **shapes}
@@ -6734,6 +7247,7 @@ def main(argv=None) -> int:
     train = phase_train(torch)
     phase_gnn(torch)
     phase_recsys(torch)
+    phase_mesh(torch)
     peaks = phase_peaks(torch, dev_info)
     rows = phase_kernels(torch, dev_info, peaks, main_rec, launches,
                          share_rec, share_launches, plan_rec, plan_launches,

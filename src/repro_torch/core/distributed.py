@@ -76,6 +76,7 @@ import torch
 
 from .graph import DeviceGraph, EdgeSlices, Graph, pow2_ceil
 from .query import midpoint_split
+from ..launch.collectives import _replica_stream, slot_streams  # noqa: F401
 
 __all__ = ["resolve_mesh", "replicate_graph", "query_ball_costs",
            "cluster_costs", "plan_clusters", "ShardedExecutor",
@@ -328,21 +329,6 @@ def plan_clusters(costs: Sequence[float],
 # ----------------------------------------------------------------------
 # the executor: one code path for 1..D replicas
 # ----------------------------------------------------------------------
-_STREAMS: dict = {}
-
-
-def _replica_stream(device: torch.device, ri: int):
-    """The CUDA stream of replica ``ri`` on ``device``: made once per
-    process and shared by every executor's replica ``ri`` there. The
-    caching allocator keeps a freed block for reuse on the stream it was
-    allocated on only, so a fresh stream for each executor would strand
-    the blocks of every earlier one on streams no one uses again."""
-    key = (device, ri)
-    if key not in _STREAMS:
-        _STREAMS[key] = torch.cuda.Stream(device)
-    return _STREAMS[key]
-
-
 class ShardedExecutor:
     """Plan → place → gather for one engine.
 
@@ -403,9 +389,7 @@ class ShardedExecutor:
     def slot_streams(self) -> list:
         """The CUDA stream of each slot: ``None`` (the caller's) for slot
         0 and for CPU slots, :func:`_replica_stream` for the others."""
-        return [None] + [_replica_stream(dev, ri) if dev.type == "cuda"
-                         else None
-                         for ri, dev in enumerate(self.devices[1:], 1)]
+        return slot_streams(self.devices)
 
     # -- graph lifecycle ----------------------------------------------
     def reset(self) -> None:

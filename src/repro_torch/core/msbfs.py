@@ -45,12 +45,12 @@ idle), on the same kernel.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 
 from .graph import EdgeSlices
+from ..launch.collectives import _slot_stream
 from ..kernels.msbfs_expand.ops import msbfs_step, wrap_int32
 
 __all__ = ["msbfs_dist_ell", "msbfs_set_dist_ell", "msbfs_dist",
@@ -185,22 +185,6 @@ def _slot_reduce(values, src, dst, lo, plans, m, m_used, n, edge_chunk,
         else:
             win += part
     return w_lo, acc
-
-
-@contextlib.contextmanager
-def _slot_stream(device: torch.device, stream, caller):
-    """Run a slot on ``stream`` (``None``: the device's current stream),
-    ordered after the caller's stream; yields the stream, or ``None`` on
-    the CPU."""
-    if device.type != "cuda":
-        yield None
-        return
-    with torch.cuda.device(device):
-        s = torch.cuda.current_stream(device) if stream is None else stream
-        if s != caller:
-            s.wait_stream(caller)
-        with torch.cuda.stream(s):
-            yield s
 
 
 def segment_sweep(values: torch.Tensor, esrc, edst, *, n: int,

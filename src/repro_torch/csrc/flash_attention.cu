@@ -64,7 +64,11 @@
 //    first grid runs and wait for its end), merges the chunks' partials.
 //    A chunk of one round (a short cache) gets a one-stage ring: more
 //    blocks an SM. A chunk that sees no key writes m = -inf, l = 0 and
-//    adds nothing. The same kernel reads a float8 (e4m3) KV cache (route splitk_f8,
+//    adds nothing; a launch whose rows see no key at all (kv_end 0: a
+//    slot of a sharded cache past the decoded position) runs one empty
+//    split and writes zeros and an lse of -inf. On request the merge
+//    writes float32 out, a slot's partial for flash_decode's merge
+//    across slots. The same kernel reads a float8 (e4m3) KV cache (route splitk_f8,
 //    bf16 q): a tile is staged as stored, one byte a value, so the
 //    copies and the rings halve, and each byte is widened once, exactly,
 //    to bf16 where its fragment is built (cvt.rn.f16x2.e4m3x2); bound:
@@ -830,6 +834,8 @@ struct SplitArgs {
   int chunk, splits;  // keys of a split, splits
   float* part_o;      // (B, Hkv, splits, rows, hd): unnormalised acc
   float* part_ml;     // (B, Hkv, splits, rows, 2): m (log2 units), l
+  int out_f32;        // the merge writes float32 out (a partial that a
+                      // merge across slots reads), else bf16
 };
 
 __host__ __device__ constexpr int cmin(int x, int y) { return x < y ? x : y; }
@@ -1292,8 +1298,8 @@ __global__ void __launch_bounds__(128)
   const long long base =
       (static_cast<long long>(b) * gridDim.y + kvh) * S * R + r;
   const int i = r / a.group, h = kvh * a.group + (r - i * a.group);
-  bf16* orow = static_cast<bf16*>(a.o) +
-               ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * hd;
+  const long long orow =
+      ((static_cast<long long>(b) * a.Sq + i) * a.Hq + h) * hd;
   for (int d0 = 0; d0 < hd; d0 += 128) {
     const int d = d0 + threadIdx.x;
     float M = -INFINITY, L = 0.0f, x = 0.0f;
@@ -1322,9 +1328,13 @@ __global__ void __launch_bounds__(128)
         }
       }
     }
-    if (d < hd)
-      orow[d] = M == -INFINITY ? __ushort_as_bfloat16(0)
-                               : __float2bfloat16_rn(x / L);
+    if (d < hd) {
+      const float y = M == -INFINITY ? 0.0f : x / L;
+      if (sp.out_f32)
+        static_cast<float*>(a.o)[orow + d] = y;
+      else
+        static_cast<bf16*>(a.o)[orow + d] = __float2bfloat16_rn(y);
+    }
     if (a.lse != nullptr && d == 0) store_lse_log2(a, b, i, h, M, L);
   }
 }
@@ -1427,7 +1437,11 @@ int launch_wgmma(const AttnArgs& a, int B, int Hkv, cudaStream_t s) {
 // KV cache); 3 and 4 take `splits` chunks of `chunk` keys and float32
 // scratch part_o (B, Hkv, splits, Sq * Hq / Hkv, hd) and part_ml
 // (..., 2). round_p: 1 only at route 0 over the float32 copies of a
-// float8 cache (p rounded to bf16 against the row's max). lse: null, or
+// float8 cache (p rounded to bf16 against the row's max). out_f32: 1 only
+// at routes 3 and 4, out then float32 (B, Sq, Hq, hd): a slot's partial
+// that a merge across the slots of a layout reads unrounded
+// (flash_decode), the same values as the bf16 out before its rounding.
+// lse: null, or
 // float32 (B, Hq, Sq) that every route fills with each row's log-sum-exp
 // (the backward's input; the output is the same either way).
 REPRO_EXPORT int flash_attention_launch(
@@ -1436,9 +1450,10 @@ REPRO_EXPORT int flash_attention_launch(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int causal, int q_offset, int kv_end,
     int dtype, int vec, int route, int chunk, int splits, int round_p,
-    void* part_o, void* part_ml, void* lse, void* stream) {
+    int out_f32, void* part_o, void* part_ml, void* lse, void* stream) {
   if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
-      (dtype == 0) != (route == 0) || (round_p != 0 && route != 0))
+      (dtype == 0) != (route == 0) || (round_p != 0 && route != 0) ||
+      (out_f32 != 0 && route != 3 && route != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const AttnArgs a{q,      k,        v,      out,  Sq,   Hq,   hd,
                    Hq / Hkv, q_sb,   q_ss,     q_sh,   k_sb, k_ss, k_sh,
@@ -1458,7 +1473,7 @@ REPRO_EXPORT int flash_attention_launch(
         part_o == nullptr || part_ml == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     const SplitArgs sp{chunk, splits, static_cast<float*>(part_o),
-                       static_cast<float*>(part_ml)};
+                       static_cast<float*>(part_ml), out_f32};
     if (route == 4) {  // float8 e4m3 keys and values
       if (hd <= 16) return launch_splitk<16, 1>(a, sp, B, Hkv, s);
       if (hd <= 32) return launch_splitk<32, 1>(a, sp, B, Hkv, s);

@@ -80,9 +80,9 @@ from .. import build
 from ..registry import (ArmLike, KernelArm, count_launch, meta_launch,
                         resolve_arm)
 
-__all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
-           "flash_attention_cuda", "flash_attention_bwd",
-           "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
+__all__ = ["gqa_attention", "attention_partial", "flash_attention_ref",
+           "flash_attention_splitk_ref", "flash_attention_cuda",
+           "flash_attention_bwd", "flash_attention_bwd_ref", "flash_attention_bwd_cuda",
            "flash_attention_meta", "flash_attention_bwd_meta",
            "visible_pairs", "attention_route", "attention_plan", "splitk_chunks",
            "splitk_stages", "bwd_route",
@@ -91,7 +91,7 @@ __all__ = ["gqa_attention", "flash_attention_ref", "flash_attention_splitk_ref",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_launch":
-               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 9 + [_P] * 4}
+               [_P, _P, _P, _P] + [_I] * 5 + [_L] * 9 + [_I] * 10 + [_P] * 4}
 _BWD_SIGNATURES = {"flash_attention_bwd_launch":
                    [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I] * 6 + [_L, _P]}
 # the backward's kernels by their number in flash_attention_bwd_launch
@@ -270,12 +270,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, *,
                         q_offset: Optional[int] = None,
                         kv_valid_len: Optional[int] = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False,
+                        out_dtype: Optional[torch.dtype] = None):
     """Plain version: exact softmax attention in float32 over the first
     ``kv_valid_len`` keys (the ``(B, Hkv, G, Sq, kv_valid_len)`` scores
     are materialised), cast to ``q``'s type; with ``return_lse`` also each
-    row's log-sum-exp, float32 (B, Hq, Sq), -inf where no key is seen.
-    Float8 k and v (a float8 KV cache) are dequantised to bf16 and p is
+    row's log-sum-exp, float32 (B, Hq, Sq), -inf where no key is seen;
+    ``out_dtype`` float32 keeps the output unrounded (a slot's partial,
+    :func:`attention_partial`). Float8 k and v (a float8 KV cache) are dequantised to bf16 and p is
     rounded to bf16 before the PV product, as the JAX
     ``chunked_attention`` does over such a cache; the row sums add the
     unrounded p."""
@@ -298,7 +300,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # a row with no visible key: softmax gives NaN, the kernel gives 0
         p = torch.softmax(s, dim=-1).nan_to_num(0.0)
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    out = out.reshape(B, Sq, Hq, hd).to(q.dtype)
+    out = out.reshape(B, Sq, Hq, hd).to(out_dtype or q.dtype)
     if not return_lse:
         return out
     return out, torch.logsumexp(s, dim=-1).reshape(B, Hq, Sq)
@@ -355,12 +357,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, *,
                          q_offset: Optional[int] = None,
                          kv_valid_len: Optional[int] = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         out_dtype: Optional[torch.dtype] = None):
     """Launch ``csrc/flash_attention.cu`` (contract of
     :func:`flash_attention_ref`). q, k, v: float32 or bfloat16, one type,
     or float8 k and v (``F8``) beside either, one CUDA device, the last
     dimension contiguous (any other strides, e.g. a layer of the KV cache),
-    ``hd <= 256``."""
+    ``hd <= 256``. ``out_dtype`` float32 beside a bf16 q is taken by the
+    split-K routes only (their merge writes the unrounded output)."""
     B, Sq, Hq, Skv, Hkv, hd = _shapes(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != v.dtype \
             or k.dtype not in (q.dtype, F8):
@@ -380,14 +384,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name}'s last dimension is "
                              f"not contiguous (strides {x.stride()})")
     q_offset, valid = _window(Sq, Skv, q_offset, kv_valid_len)
-    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    route, chunk, splits = attention_plan(
+        q, k, v, causal, q_offset=q_offset, kv_valid_len=valid,
+        sms=_sm_count(q.device))
+    out_dtype = out_dtype or q.dtype
+    out_f32 = out_dtype != q.dtype
+    if out_f32 and not (out_dtype == torch.float32
+                        and route.startswith("splitk")):
+        raise ValueError(f"flash_attention: out_dtype {out_dtype} beside a "
+                         f"{q.dtype} q: only the split-K routes write "
+                         f"float32 (this shape takes {route!r})")
+    out = torch.empty((B, Sq, Hq, hd), dtype=out_dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    route, chunk, splits = attention_plan(
-        q, k, v, causal, q_offset=q_offset, kv_valid_len=valid,
-        sms=_sm_count(q.device))
     round_p = k.dtype == F8 and route == "scalar"
     if k.dtype == F8 and route != "splitk_f8":
         k, v = _f8_to_q_type(q, k, v, valid)
@@ -406,7 +417,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Hq, Hkv, hd, *strides, int(bool(causal)), q_offset, valid,
         _DTYPES.index(q.dtype), int(_aligned(q, k, v)), ROUTES.index(route),
-        chunk, splits, int(round_p),
+        chunk, splits, int(round_p), int(out_f32),
         part_o, part_ml, None if lse is None else lse.data_ptr(), stream)
     build.check(lib, rc, "flash_attention")
     count_launch("flash_attention", f"attn_{route}")
@@ -443,7 +454,8 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, *,
                          q_offset: Optional[int] = None,
                          kv_valid_len: Optional[int] = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         out_dtype: Optional[torch.dtype] = None):
     """The meta arm (the dry run): the forward's outputs, empty. Work by
     ``PERF.md`` section 6's rule: 4 hd operations a visible pair and
     q-head; q, the valid keys and values read once (one byte a value from
@@ -456,7 +468,8 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         + (4 * B * Hq * Sq if return_lse else 0)
     with meta_launch("flash_attention", ops=4 * hd * pairs * B * Hq,
                      nbytes=nbytes):
-        out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, Sq, Hq, hd), dtype=out_dtype or q.dtype,
+                          device=q.device)
         if not return_lse:
             return out
         return out, torch.empty((B, Hq, Sq), dtype=torch.float32,
@@ -661,6 +674,21 @@ class _Attention(torch.autograd.Function):
                                          q_offset=q_offset,
                                          kv_valid_len=kv_valid_len)
         return dq, dk, dv, None, None, None
+
+
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_valid_len: int, arm: ArmLike = None):
+    """One slot's share of attention over a cache cut along its keys
+    (``flash_decode``): non-causal attention of q over the first
+    ``kv_valid_len`` keys of k and v, as ``(out float32, lse)``, on the
+    arm of the tensors' device (on the card the split-K route for a bf16
+    q, whose merge writes the unrounded output, and ``scalar`` for a
+    float32 one). A slot that sees no key gives zeros and an lse of -inf.
+    Merging the slots' partials by their lse gives the attention over the
+    whole cache."""
+    fwd = _FORWARD.get(resolve_arm(q.device, arm), flash_attention_ref)
+    return fwd(q, k, v, False, q_offset=0, kv_valid_len=kv_valid_len,
+               return_lse=True, out_dtype=torch.float32)
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

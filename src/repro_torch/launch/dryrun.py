@@ -19,8 +19,9 @@ analytic operations and bytes, matmul FLOPs, collectives), ``t_trace_s``
 and the bundle's analytic ``meta``.
 
 Only the ``host`` layout (one device) runs. ``pod`` and ``multipod``
-raise ``NotImplementedError``: no sharded model code exists in the port
-yet (the substrate's mesh options).
+raise ``NotImplementedError``: tracing a cell there needs the sharded
+model code (``Rules`` on the parameters), the next slice of the
+substrate's mesh options.
 """
 from __future__ import annotations
 
@@ -107,8 +108,9 @@ def dryrun_cell(arch: str, shape: str, mesh_name: str = "host",
     if mesh_name != "host":
         raise NotImplementedError(
             f"the dry run on {mesh_name!r} ({layout.size} devices) needs "
-            f"sharded model code: the substrate's mesh options, not "
-            f"ported yet (ROADMAP.md)")
+            f"the sharded model code (Rules on the parameters), the next "
+            f"slice of the substrate's mesh options (ROADMAP.md queue 1, "
+            f"item 7)")
     if opts is None:
         opts = RunOptions(**CELL_OPTS.get((arch, shape), {}))
     t0 = time.perf_counter()

@@ -2,13 +2,17 @@
 roofline meta.
 
 A port of ``repro/launch/steps.py``'s LM, GNN and recsys bundles
-(``_lm_bundle``, ``_gnn_bundle``, ``_recsys_bundle`` and their meta). One
-device, so no shardings, abstract inputs or donation: a train step takes
-and returns the parameter tree and the optimizer state (updated in
-place), a prefill step an :class:`~..models.transformer.LM` and tokens, a
-decode step the model, a token and its cache (``LM.init_cache``, which
-follows ``RunOptions.kv_cache_dtype``: float8 under ``"f8"``, as the JAX
-bundle's abstract cache), a recsys serve step the
+(``_lm_bundle``, ``_gnn_bundle``, ``_recsys_bundle`` and their meta). The
+weights are on one device, so no shardings, abstract inputs or donation:
+a train step takes and returns the parameter tree and the optimizer state
+(updated in place), a prefill step an :class:`~..models.transformer.LM`
+and tokens, a decode step the model, a token and its cache
+(``LM.init_cache``, which follows ``RunOptions.kv_cache_dtype``: float8
+under ``"f8"``, as the JAX bundle's abstract cache). The decode step runs
+over the layout the model holds (``LM(..., mesh=layout)``, under
+``flash_decode``: the cache cut as the JAX bundle's ``cache_logical``
+shardings cut it, the attention merged across its slots), a recsys serve
+step the
 parameters, histories and items, a retrieval step the parameters, one
 history and the padded candidates, and the engine's step one superstep of
 the paper's engine (:class:`EngineSuperstep`). ``StepBundle.inputs`` gives

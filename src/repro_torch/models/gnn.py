@@ -27,8 +27,13 @@ Parameters are trees in the JAX layout (dicts, lists of weights) of
 float32 ``nn.Parameter`` leaves: drawn by :func:`init_gnn_params` from a
 ``torch.Generator`` with the JAX init law, or carried over from a JAX tree
 by :func:`gnn_params_from_jax`. The JAX ``constrain`` hook is a sharding
-hint and has no counterpart on one device; :func:`ring_aggregate` (the
-JAX ring over a mesh) is refused.
+hint and has no counterpart on one device.
+
+:func:`ring_aggregate` is the JAX ring over a mesh axis: node features
+cut into one row block a slot of a layout (``launch/mesh.py``), edges
+bucketed by (destination owner, source owner), P rounds that each add one
+bucket's messages and rotate the features to the next slot
+(:class:`RingPlan`). As in the JAX package, no model forward calls it.
 """
 from __future__ import annotations
 
@@ -44,13 +49,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import GNNConfig
 from ..kernels.registry import resolve_device
+from ..launch.collectives import ppermute, run_slots
 from ..pytree import leaves, tree_map
 from .segment import Segments, gather_rows
 
 __all__ = ["init_gnn_params", "gnn_param_logical", "gnn_params_from_jax",
            "gnn_param_count", "gnn_forward", "gnn_loss", "gnn_molecule_loss",
            "flatten_molecules", "graph_losses",
-           "ring_aggregate", "EdgeList"]
+           "ring_aggregate", "RingPlan", "EdgeList"]
 
 DeviceLike = Union[torch.device, str, None]
 
@@ -163,14 +169,115 @@ def _segment(msgs, dst, n, op):
 # ring-distributed aggregation (full-graph shapes over a mesh)
 # ----------------------------------------------------------------------
 
-def ring_aggregate(*args, **kwargs):
-    """The JAX package's row-partitioned SpMM by ring rotation
-    (``collective_permute`` over a mesh axis). The port runs on one
-    device."""
-    raise NotImplementedError(
-        "gnn.ring_aggregate rotates node shards over a device mesh; the "
-        "port runs on one device (ROADMAP.md queue 1, the substrate's mesh "
-        "options)")
+class RingPlan:
+    """The edges of :func:`ring_aggregate`, bucketed and compacted once.
+
+    ``edge_src``, ``edge_dst``, ``edge_mask``: (slots, P, Eb), row ``s``
+    slot ``s``'s buckets, bucket ``b`` its incoming edges whose sources
+    live on the slot at position ``b`` of the ring's axis (local source
+    and destination indices, ``mask`` False on the padding; Eb is the
+    largest bucket). On each slot the valid entries of each bucket are
+    kept (one host read of the bucket sizes a slot) and sorted by
+    destination (:class:`~.segment.Segments`), so that a round gathers
+    only real edges, in the order its fixed-order segmented sum adds
+    them: the padding is never gathered."""
+
+    def __init__(self, edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                 edge_mask: torch.Tensor, layout, axis_name: str,
+                 n_loc: int):
+        P = layout.axis_size(axis_name)
+        want = (layout.size, P)
+        for name, x in (("edge_src", edge_src), ("edge_dst", edge_dst),
+                        ("edge_mask", edge_mask)):
+            if x.dim() != 3 or tuple(x.shape[:2]) != want:
+                raise ValueError(f"ring_aggregate: {name} must be (slots, "
+                                 f"P, Eb) = {want + ('Eb',)}, got "
+                                 f"{tuple(x.shape)}")
+        self.layout, self.axis, self.P, self.n_loc = layout, axis_name, P, \
+            int(n_loc)
+        Eb = edge_src.shape[2]
+
+        def buckets(s):
+            dev = layout.device(s)
+            keep = edge_mask[s].to(dev).reshape(-1).nonzero().squeeze(1)
+            sizes = torch.bincount(keep // Eb, minlength=P).tolist()
+            src = edge_src[s].to(dev).reshape(-1).index_select(0, keep)
+            dst = edge_dst[s].to(dev).reshape(-1).index_select(0, keep)
+            out = []
+            for bs, bd in zip(src.split(sizes), dst.split(sizes)):
+                seg = Segments(bd.long(), self.n_loc)
+                out.append((bs.long().index_select(0, seg.perm),
+                            bd.long().index_select(0, seg.perm), seg))
+            return out
+
+        self.buckets = run_slots(layout, buckets)
+
+    def rounds(self, h: list, msg_fn=None):
+        """Run the ring over the pieces ``h`` (one (N_loc, F) per slot),
+        yielding the accumulators (one per slot) after each of the P
+        rounds; the last yield is the result. Round r on the slot at
+        position j: the rotating features hold block ``(j - r) mod P``;
+        gather them at that bucket's sources, map them by ``msg_fn(src_h,
+        dst)`` if given, add their sum per destination into the slot's
+        accumulator; then every slot sends its rotating features to
+        position ``j + 1`` (:func:`~repro_torch.launch.collectives.ppermute`;
+        not after the last round, whose rotation nothing reads)."""
+        layout, P = self.layout, self.P
+        if len(h) != layout.size:
+            raise ValueError(f"ring_aggregate: one piece of h per slot "
+                             f"({layout.size}), got {len(h)}")
+        if any(x.shape[0] != self.n_loc for x in h):
+            raise ValueError(f"ring_aggregate: every piece of h has "
+                             f"{self.n_loc} rows")
+
+        def zeros(s):
+            x = h[s]
+            width = (msg_fn(x[:1], torch.zeros(1, dtype=torch.long,
+                                               device=x.device)).shape[-1]
+                     if msg_fn else x.shape[-1])
+            return x.new_zeros((self.n_loc, width))
+
+        acc = run_slots(layout, zeros)
+        rot = list(h)
+        perm = [(i, (i + 1) % P) for i in range(P)]
+        for r in range(P):
+            def step(s):
+                blk = (layout.axis_index(s, self.axis) - r) % P
+                src, dst, seg = self.buckets[s][blk]
+                if src.numel():
+                    src_h = rot[s].index_select(0, src)
+                    msgs = msg_fn(src_h, dst) if msg_fn else src_h
+                    acc[s].add_(seg.reduce(msgs, "sum"))
+
+            run_slots(layout, step)
+            if r < P - 1:
+                rot = ppermute(rot, layout, self.axis, perm)
+            yield acc
+
+
+def ring_aggregate(h, edge_src, edge_dst, edge_mask, layout,
+                   axis_name: str, msg_fn=None, op: str = "sum") -> list:
+    """Row-partitioned SpMM by ring rotation over ``axis_name`` of
+    ``layout`` (the JAX ``ring_aggregate`` under ``shard_map``, whose
+    ``collective_permute`` is :func:`~repro_torch.launch.collectives.ppermute`).
+
+    h        : one (N_loc, F) piece per slot, on the slot's device.
+    edge_src, edge_dst, edge_mask : (slots, P, Eb), see :class:`RingPlan`.
+    msg_fn   : optional map over the gathered source features and their
+               destinations, ``msg_fn(src_h, dst)``, per edge.
+
+    Returns one (N_loc, F') piece per slot: each destination's sum over
+    its incoming edges. As the JAX body does, it sums whatever ``op``
+    says (ROADMAP.md queue 3). The order of summation (a round's
+    fixed-order segmented sum, then the rounds in turn) differs from a
+    one-shot segmented sum: equal for integer-valued features below
+    2**24, to rounding otherwise."""
+    acc = None
+    plan = RingPlan(edge_src, edge_dst, edge_mask, layout, axis_name,
+                    h[0].shape[0])
+    for acc in plan.rounds(h, msg_fn):
+        pass
+    return acc
 
 
 # ----------------------------------------------------------------------

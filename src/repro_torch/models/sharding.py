@@ -11,13 +11,19 @@ it to the axes of a layout (``launch/mesh.py``):
 
 ``spec`` is the counterpart of a ``PartitionSpec``: a tuple with, per
 dimension, ``None`` (replicated), one axis name, or a tuple of names.
-No array is sharded yet (DTensor waits for the substrate's mesh options):
-on ``host`` every size is 1 and :meth:`Rules.local_shape` is the global
-shape.
+:meth:`Rules.shard` cuts a tensor into one piece per slot of the layout,
+as ``jax.device_put`` with a ``NamedSharding`` places its shards, and
+:meth:`Rules.assemble` puts the pieces back together. The model's
+parameters are not sharded yet: that is the sharded model code, the next
+slice of the substrate's mesh options; the programs over a layout
+(``flash_decode``, ``gnn.ring_aggregate``, ``ef_compressed_psum_axis``)
+shard their own inputs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
+
+import torch
 
 from ..launch.mesh import Layout
 
@@ -80,3 +86,68 @@ class Rules:
                                  f"split over {k} devices")
             out.append(n // k)
         return tuple(out)
+
+    def axes(self, name: Optional[str]) -> tuple:
+        """The layout axes a dimension of logical axis ``name`` is split
+        over (those of its rule the layout has)."""
+        m = self.map.get(name, None) if name is not None else None
+        return tuple(a for a in (m or ()) if a in self.axis_sizes)
+
+    def blocks(self, slot: int, *logical: Optional[str]) -> tuple:
+        """Per dimension, ``(block, blocks)``: which of the dimension's
+        ``blocks`` equal parts slot ``slot`` holds."""
+        out = []
+        for name in logical:
+            axes = self.axes(name)
+            out.append((self.layout.axis_index(slot, axes),
+                        self.layout.axis_size(axes)) if axes else (0, 1))
+        return tuple(out)
+
+    def shard(self, x: torch.Tensor, *logical: Optional[str]) -> list:
+        """One piece of ``x`` per slot: each dimension cut into its
+        logical axis's blocks, the slot's block taken; the piece is on
+        the slot's device, a view of ``x`` where that device is ``x``'s
+        own (no copy), a copy otherwise."""
+        local = self.local_shape(tuple(x.shape), *logical)
+        pieces = []
+        for s in range(self.layout.size):
+            p = x
+            for d, ((i, _), n) in enumerate(zip(self.blocks(s, *logical),
+                                                local)):
+                if n != x.shape[d]:
+                    p = p.narrow(d, i * n, n)
+            pieces.append(p.to(self.layout.device(s)))
+        return pieces
+
+    def assemble(self, pieces: Sequence[torch.Tensor],
+                 *logical: Optional[str], device=None) -> torch.Tensor:
+        """The inverse of :meth:`shard`: the global tensor on ``device``
+        (default the first piece's), each block copied once from the
+        first slot that holds it (the others hold replicas)."""
+        if len(pieces) != self.layout.size:
+            raise ValueError(f"assemble: one piece per slot, "
+                             f"{self.layout.size} slots, got {len(pieces)}")
+        p0 = pieces[0]
+        if len(logical) != p0.dim():
+            raise ValueError(f"{p0.dim()} dimensions, {len(logical)} "
+                             f"logical axes")
+        counts = [n for _, n in self.blocks(0, *logical)]
+        out = torch.empty([k * n for k, n in zip(p0.shape, counts)],
+                          dtype=p0.dtype,
+                          device=p0.device if device is None else device)
+        done = set()
+        for s, p in enumerate(pieces):
+            key = tuple(i for i, _ in self.blocks(s, *logical))
+            if key in done:
+                continue
+            if tuple(p.shape) != tuple(p0.shape):
+                raise ValueError(f"assemble: piece {s} is "
+                                 f"{tuple(p.shape)}, piece 0 "
+                                 f"{tuple(p0.shape)}")
+            done.add(key)
+            view = out
+            for d, i in enumerate(key):
+                if counts[d] > 1:
+                    view = view.narrow(d, i * p0.shape[d], p0.shape[d])
+            view.copy_(p)
+        return out

@@ -47,12 +47,27 @@ own cast saturates), and the attention reads the float8 cache directly
 (``gqa_attention``: a float8 variant of the decode kernel on the card,
 the values dequantised to bf16 in the plain version).
 
-One device, so no sharding constraints and no tensor-parallel head
-padding (the JAX ``padded_heads`` at tp = 1 is ``cfg.n_heads``). Refused
-with ``NotImplementedError``: ``flash_decode`` (needs a mesh).
+The weights live on one device, so no sharding constraints and no
+tensor-parallel head padding (the JAX ``padded_heads`` at tp = 1 is
+``cfg.n_heads``): sharding them (``Rules`` on the parameters) is the next
+slice of the substrate's mesh options. The KV cache and the decode
+attention do run over a layout (``launch/mesh.py``): ``LM(cfg, ...,
+mesh=layout)`` holds the layout, and its ``init_cache`` returns the cache
+as one piece a slot, by the JAX ``cache_logical`` (batch over ``batch``,
+the sequence over ``model``; at batch 1 ``seq_kv_wide``, the sequence over
+every axis), views of one tensor where every slot is on one device.
+``decode_step`` writes the new position's keys and values into the slot
+that holds it, and its attention is :func:`flash_decode_attention`, the
+JAX ``shard_map`` program: each slot attends over its own keys (the
+kernel, on its stream) and the partials merge by log-sum-exp across the
+slots. A layout needs ``RunOptions(flash_decode=True)``: the decode over
+a gathered cache, as GSPMD gathers it without ``flash_decode``, belongs to
+the sharded model code. A model with no layout runs ``flash_decode`` as
+one slot, as a (1, 1) JAX mesh does.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import math
 from typing import Optional, Union
@@ -67,13 +82,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ..config import LMConfig, RunOptions
-from ..kernels.flash_attention.ops import F8, gqa_attention
+from ..kernels.flash_attention.ops import (F8, attention_partial,
+                                           gqa_attention)
 from ..kernels.registry import resolve_device
+from ..launch.collectives import pmax, psum, run_slots
+from ..launch.mesh import Layout, make_host_mesh
 from .moe import moe_ffn
+from .sharding import Rules
 
 __all__ = ["LM", "init_lm_params", "params_from_jax", "train_params",
            "lm_forward", "forward_hidden", "lm_loss", "prefill",
-           "decode_step", "init_cache", "quantize_f8", "working_dtype",
+           "decode_step", "init_cache", "cache_logical", "shard_cache",
+           "flash_decode_attention", "quantize_f8", "working_dtype",
            "rmsnorm", "rope", "rope_tables", "swiglu"]
 
 BIAS_PARAMS = ("bq", "bk", "bv")
@@ -96,10 +116,6 @@ def check_supported(cfg: LMConfig, opts: Optional[RunOptions] = None) -> None:
     the registry, dense or MoE, is)."""
     if opts is None:
         return
-    if opts.flash_decode:
-        raise NotImplementedError(
-            "flash_decode shards the KV cache over a mesh; the port runs on "
-            "one device (ROADMAP.md queue 1, the substrate's mesh options)")
     if opts.kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype={opts.kv_cache_dtype!r}: one of "
                          f"{KV_CACHE_DTYPES}")
@@ -223,7 +239,8 @@ class Layer(nn.Module):
 
 
 class LM(nn.Module):
-    """A dense or MoE decoder-only LM for serving, on one device.
+    """A dense or MoE decoder-only LM for serving: its weights on one
+    device, its KV cache on one device or over the slots of ``mesh``.
 
     ``LM(cfg, generator=g)`` draws random weights (:func:`init_lm_params`)
     from ``g``, a ``torch.Generator`` on the model's device; ``LM(cfg,
@@ -234,17 +251,29 @@ class LM(nn.Module):
     are held in the working type of ``cfg``. ``opts.moe_groups`` is the MoE
     dispatch's group count (prefill; a decode step of B tokens groups them
     by ``gcd(B, moe_groups)``, as the JAX ``decode_step`` does).
+
+    ``mesh``: a :class:`~repro_torch.launch.mesh.Layout` whose slots are
+    of the model's device type, under ``opts.flash_decode`` (``ValueError``
+    otherwise): the cache is cut over it (module docstring), and the
+    decode attention is :func:`flash_decode_attention` over its slots.
+    :meth:`with_mesh` gives the same weights another layout and options.
+    ``rules``: the layout's :class:`Rules` (None without one);
+    ``decode_rules``: the slots of the decode attention, the layout's or,
+    under ``flash_decode`` with no layout, one slot of the model's device
+    (None: the attention over the whole cache).
     """
 
     def __init__(self, cfg: LMConfig, params: Optional[dict] = None, *,
                  generator: Optional[torch.Generator] = None,
-                 opts: Optional[RunOptions] = None, device: DeviceLike = None):
+                 opts: Optional[RunOptions] = None, device: DeviceLike = None,
+                 mesh: Optional[Layout] = None):
         super().__init__()
         check_supported(cfg, opts)
         self.cfg = cfg
         self.opts = RunOptions() if opts is None else opts
         self.device = resolve_device(device)
         self.dtype = working_dtype(cfg)
+        self._set_layout(mesh)
         if params is None:
             if generator is None:
                 raise ValueError("LM needs a parameter tree or a "
@@ -269,6 +298,41 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(
             Layer({name: t[i] for name, t in stacked.items()})
             for i in range(cfg.n_layers))
+
+    def _set_layout(self, mesh: Optional[Layout]) -> None:
+        self.rules = self.decode_rules = None
+        if mesh is not None:
+            types = {mesh.device(i).type for i in range(mesh.size)}
+            if types != {self.device.type}:
+                raise ValueError(f"the layout's slots are on "
+                                 f"{sorted(types)}, the model on "
+                                 f"{self.device.type}")
+            if not self.opts.flash_decode:
+                raise ValueError(
+                    "a layout needs RunOptions(flash_decode=True): the "
+                    "decode over a gathered cache belongs to the sharded "
+                    "model code, which is not ported yet")
+            self.rules = self.decode_rules = Rules(mesh)
+        elif self.opts.flash_decode:
+            dev = self.device
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            self.decode_rules = Rules(make_host_mesh(devices=[dev]))
+
+    @property
+    def mesh(self) -> Optional[Layout]:
+        return None if self.rules is None else self.rules.layout
+
+    def with_mesh(self, mesh: Optional[Layout],
+                  opts: Optional[RunOptions] = None) -> "LM":
+        """This model's weights (shared, not copied) under another layout
+        (``None``: one device) and options."""
+        opts = self.opts if opts is None else opts
+        check_supported(self.cfg, opts)
+        other = copy.copy(self)
+        other.opts = opts
+        other._set_layout(mesh)
+        return other
 
     def unembed_weight(self) -> torch.Tensor:
         """(D, vocab): the unembedding (the embedding's transpose when
@@ -297,11 +361,12 @@ class LM(nn.Module):
         return decode_step(self, self._tokens(token), cache)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """An empty KV cache on the model's device: float8 under
-        ``opts.kv_cache_dtype == "f8"``, else in the model's type."""
+        """An empty KV cache on the model's device, or cut over its
+        layout: float8 under ``opts.kv_cache_dtype == "f8"``, else in the
+        model's type."""
         dtype = F8 if self.opts.kv_cache_dtype == "f8" else None
         return init_cache(self.cfg, batch, max_len, dtype=dtype,
-                          device=self.device)
+                          device=self.device, rules=self.rules)
 
 
 def params_from_jax(tree: dict, cfg: LMConfig, *, device: DeviceLike = None,
@@ -362,13 +427,16 @@ def swiglu(x, w_gate, w_up, w_down):
 # ----------------------------------------------------------------------
 
 def _layer(x: torch.Tensor, lp, cfg: LMConfig, tables, cache=None,
-           moe_groups: int = 16):
+           moe_groups: int = 16, rules: Optional[Rules] = None):
     """One transformer block; ``lp`` maps the JAX names to this layer's
     tensors, each cast to x's (the working) type at use; ``tables``: the
     RoPE (cos, sin) of the tokens' positions. cache: None, or (ck, cv, pos)
     with ck, cv this layer's (B, max_len, Hkv, hd) views of the cache,
-    written in place at ``pos``. Returns ``(x, aux)``, aux the MoE
-    load-balance loss (0.0 for a dense layer)."""
+    written in place at ``pos`` -- or, with ``rules`` (a one-token step
+    under ``flash_decode``), lists of this layer's pieces of a cache cut
+    over ``rules.layout``, the position written into the slots that hold
+    it and the attention :func:`flash_decode_attention`. Returns ``(x,
+    aux)``, aux the MoE load-balance loss (0.0 for a dense layer)."""
     B, S, _ = x.shape
     dt = x.dtype
     hd, Hkv = cfg.hd, cfg.n_kv_heads
@@ -389,12 +457,17 @@ def _layer(x: torch.Tensor, lp, cfg: LMConfig, tables, cache=None,
         attn = gqa_attention(q, k, v, causal=True, q_offset=0)
     else:
         ck, cv, pos = cache
-        if ck.dtype == F8:          # not torch's saturating cast
+        kv_dtype = (ck if rules is None else ck[0]).dtype
+        if kv_dtype == F8:          # not torch's saturating cast
             k, v = quantize_f8(k), quantize_f8(v)
-        ck[:, pos:pos + S] = k
-        cv[:, pos:pos + S] = v
-        attn = gqa_attention(q, ck, cv, causal=True, q_offset=pos,
-                             kv_valid_len=pos + S)
+        if rules is None:
+            ck[:, pos:pos + S] = k
+            cv[:, pos:pos + S] = v
+            attn = gqa_attention(q, ck, cv, causal=True, q_offset=pos,
+                                 kv_valid_len=pos + S)
+        else:
+            _write_position(ck, cv, k, v, pos, rules)
+            attn = flash_decode_attention(q, ck, cv, pos, rules)
     x = x + attn.reshape(B, S, Hq * hd) @ w("wo")
     h = rmsnorm(x, lp["ffn_norm"])
     if cfg.moe is None:
@@ -547,16 +620,129 @@ def prefill(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                dtype: Optional[torch.dtype] = None,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None,
+               rules: Optional[Rules] = None) -> dict:
     """``{"k", "v": (L, batch, max_len, Hkv, hd) zeros, "pos": 0}`` in
     ``dtype``: the working type of ``cfg`` by default, or
     ``torch.float8_e4m3fn`` (the cache of ``RunOptions(kv_cache_dtype=
-    "f8")``, one byte a value), as the JAX function takes its type."""
+    "f8")``, one byte a value), as the JAX function takes its type.
+
+    With ``rules``, ``k`` and ``v`` are lists of one piece a slot of its
+    layout, cut by :func:`cache_logical` (:func:`shard_cache`): views of
+    one tensor on ``device`` where every slot is there, else zeros made
+    on each slot's device."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     dev = resolve_device(device)
     dt = working_dtype(cfg) if dtype is None else dtype
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+    layout = None if rules is None else rules.layout
+    if layout is None or {layout.device(i) for i in range(layout.size)} \
+            == {dev}:
+        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev), "pos": 0}
+        return cache if rules is None else shard_cache(cache, rules)
+    local = rules.local_shape(shape, *cache_logical(batch == 1)["k"])
+    return {name: [torch.zeros(local, dtype=dt, device=layout.device(i))
+                   for i in range(layout.size)] for name in ("k", "v")} \
+        | {"pos": 0}
+
+
+def cache_logical(wide: bool = False) -> dict:
+    """The logical axes of the cache's ``k`` and ``v``, (L, B, S, Hkv,
+    hd), as the JAX ``cache_logical``: batch over ``batch`` and the
+    sequence over ``model``; ``wide`` (batch 1, long context): the
+    sequence over every axis."""
+    seq = "seq_kv_wide" if wide else "seq_kv"
+    b = None if wide else "batch"
+    return {"k": (None, b, seq, None, None),
+            "v": (None, b, seq, None, None), "pos": ()}
+
+
+def shard_cache(cache: dict, rules: Rules) -> dict:
+    """A one-device cache (``k``, ``v`` tensors) cut over ``rules``'
+    layout by :func:`cache_logical` (wide at batch 1): one piece a slot,
+    a view of the tensor where the slot is on its device."""
+    lg = cache_logical(cache["k"].shape[1] == 1)["k"]
+    return {"k": rules.shard(cache["k"], *lg),
+            "v": rules.shard(cache["v"], *lg), "pos": int(cache["pos"])}
+
+
+def _write_position(ck: list, cv: list, k: torch.Tensor, v: torch.Tensor,
+                    pos: int, rules: Rules) -> None:
+    """Write a step's keys and values (B, 1, Hkv, hd) at position ``pos``
+    into this layer's pieces of a cut cache: on each slot whose block of
+    the sequence holds ``pos``, its block of the batch, on the slot's
+    stream (which then reads it first)."""
+    lg = cache_logical(k.shape[0] == 1)["k"][1:]
+    B_loc, S_loc = ck[0].shape[:2]
+    owners = {}
+    for s in range(rules.layout.size):
+        (bi, _), (si, _) = rules.blocks(s, *lg)[:2]
+        if si * S_loc <= pos < (si + 1) * S_loc:
+            owners[s] = (slice(bi * B_loc, (bi + 1) * B_loc), pos - si * S_loc)
+
+    def write(s):
+        rows, at = owners[s]
+        dev = ck[s].device
+        ck[s][:, at] = k[rows, 0].to(dev)
+        cv[s][:, at] = v[rows, 0].to(dev)
+
+    run_slots(rules.layout, write, list(owners))
+
+
+def flash_decode_attention(q: torch.Tensor, ck: list, cv: list, pos: int,
+                           rules: Rules) -> torch.Tensor:
+    """Decode attention over a cache cut along its sequence, without
+    gathering it (the JAX ``flash_decode_attention``'s ``shard_map``).
+
+    q: (B, 1, Hq, hd) on the caller's device, cut over ``batch`` (all of
+    it on every slot at batch 1); ck, cv: this layer's pieces (B_loc,
+    S_loc, Hkv, hd), one a slot, by :func:`cache_logical`. On its stream
+    each slot attends over its keys ``[0, valid)``, ``valid = clip(pos + 1
+    - offset, 0, S_loc)`` with ``offset`` its block's first position
+    (:func:`~repro_torch.kernels.flash_attention.ops.attention_partial`:
+    the kernel on the card, its float32 output and each row's lse; a slot
+    with no valid key gives zeros and -inf). The merge over the sequence's
+    axes: the ``pmax`` of the lse, each slot's weight ``w = exp(lse -
+    max)``, the ``psum`` of ``(w out, w)`` in slot order, ``out = sum w
+    out / sum w`` rounded to q's type once. Returns (B, 1, Hq, hd) on q's
+    device."""
+    layout = rules.layout
+    wide = q.shape[0] == 1
+    lg_kv = cache_logical(wide)["k"][1:]
+    lg_q = (lg_kv[0], None, None, None)
+    axes = rules.axes(lg_kv[1])
+    qs = rules.shard(q, *lg_q)
+    S_loc = ck[0].shape[1]
+
+    def partial(s):
+        off = rules.blocks(s, *lg_kv)[1][0] * S_loc
+        return attention_partial(qs[s], ck[s], cv[s],
+                                 min(max(pos + 1 - off, 0), S_loc))
+
+    parts = run_slots(layout, partial)
+    top = pmax([lse for _, lse in parts], layout, axes)
+    lowest = torch.finfo(torch.float32).min
+
+    def weigh(s):
+        out, lse = parts[s]                        # (B, 1, Hq, hd), (B, Hq, 1)
+        w = torch.exp(lse - top[s].clamp(min=lowest))     # 0 for a -inf lse
+        w = w.transpose(1, 2)[..., None]           # (B, 1, Hq, 1)
+        return torch.cat([out * w, w], dim=-1)
+
+    sums = psum(run_slots(layout, weigh), layout, axes)
+
+    def divide(s):
+        acc, w = sums[s][..., :-1], sums[s][..., -1:]
+        tiny = torch.finfo(torch.float32).tiny
+        return torch.where(w > 0, acc / w.clamp(min=tiny), 0.0).to(q.dtype)
+
+    groups = layout.groups(axes)
+    outs = run_slots(layout, divide, [g[0] for g in groups])
+    pieces = [None] * layout.size          # a group's members: replicas
+    for g, out in zip(groups, outs):
+        for m in g:
+            pieces[m] = out
+    return rules.assemble(pieces, *lg_q, device=q.device)
 
 
 @torch.no_grad()
@@ -570,26 +756,55 @@ def decode_step(model: LM, token: torch.Tensor, cache: dict):
     in must not be used again. Attention reads only the first ``pos + 1``
     cache positions (``kv_valid_len``). The cache is in the model's type
     or float8 (``torch.float8_e4m3fn``: the step's keys and values go in
-    through :func:`quantize_f8`).
+    through :func:`quantize_f8`); on a model with a layout, its pieces
+    (:meth:`LM.init_cache`, :func:`shard_cache`).
     """
     B, S = token.shape
     pos = int(cache["pos"])
     ck, cv = cache["k"], cache["v"]
     if S != 1:
         raise ValueError(f"decode_step takes one token per row, got {S}")
-    if ck.dtype != cv.dtype or ck.dtype not in (model.dtype, F8):
-        raise ValueError(f"KV cache type {ck.dtype} / {cv.dtype} differs "
-                         f"from the model's {model.dtype} and from {F8}")
-    if ck.shape[:2] != (model.cfg.n_layers, B) or pos + S > ck.shape[2]:
-        raise ValueError(f"cache of shape {tuple(ck.shape)} at pos {pos} "
-                         f"cannot take a ({B}, {S}) step")
+    _check_cache(model, ck, cv, B, pos + S)
     positions = torch.full((B, S), pos, dtype=torch.long, device=token.device)
     tables = rope_tables(positions, model.cfg.hd, model.cfg.rope_theta)
+    rules = model.decode_rules
+    if rules is not None and model.rules is None:   # one slot: the whole
+        ck, cv = [ck], [cv]                         # cache is its piece
     x = model.embed[token]
     for i, layer in enumerate(model.layers):
+        layer_cache = ((ck[i], cv[i], pos) if rules is None else
+                       ([p[i] for p in ck], [p[i] for p in cv], pos))
         x, _ = _layer(x, layer.tensors(), model.cfg, tables,
-                      cache=(ck[i], cv[i], pos),
-                      moe_groups=model.opts.moe_groups)
+                      cache=layer_cache, moe_groups=model.opts.moe_groups,
+                      rules=rules)
     x = rmsnorm(x, model.final_norm)
     logits = (x @ model.unembed_weight()).float()
-    return logits, {"k": ck, "v": cv, "pos": pos + 1}
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def _check_cache(model: LM, ck, cv, B: int, end: int) -> None:
+    """Refuse a cache whose type, shape or layout does not take a (B, 1)
+    step ending at position ``end``."""
+    L = model.cfg.n_layers
+    if model.rules is None:
+        if isinstance(ck, list) or isinstance(cv, list):
+            raise ValueError("a cache cut over a layout needs a model with "
+                             "that layout (LM(..., mesh=...))")
+        ks, vs, want_b, max_len = [ck], [cv], B, ck.shape[2]
+    else:
+        layout = model.rules.layout
+        if not isinstance(ck, list) or len(ck) != layout.size \
+                or not isinstance(cv, list) or len(cv) != layout.size:
+            raise ValueError(f"the cache of a model over {layout.size} "
+                             f"slots is one piece a slot (LM.init_cache)")
+        ks, vs = ck, cv
+        b, seq = cache_logical(B == 1)["k"][1:3]
+        want_b = B // model.rules.size(b)
+        max_len = ck[0].shape[2] * model.rules.size(seq)
+    for k, v in zip(ks, vs):
+        if k.dtype != v.dtype or k.dtype not in (model.dtype, F8):
+            raise ValueError(f"KV cache type {k.dtype} / {v.dtype} differs "
+                             f"from the model's {model.dtype} and from {F8}")
+        if k.shape[:2] != (L, want_b) or end > max_len:
+            raise ValueError(f"cache of shape {tuple(k.shape)} at pos "
+                             f"{end - 1} cannot take a ({B}, 1) step")

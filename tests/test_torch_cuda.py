@@ -20,7 +20,12 @@ in float32 (TF32 off) at 1e-4. Two and four engine replicas on streams of
 one card give one replica's results, the segment index route's sweeps and
 engine on one slot and over three and four streams equal the CPU's, and
 four threads that load a kernel
-library first run one build.
+library first run one build. The programs over a layout of ``cuda:0``
+slots: a slot's attention partial on each decode route (zeros and an lse
+of -inf where it sees no key, float32 out rounding to the bf16 out bit for
+bit), ``flash_decode`` against the CPU slots (float32) and the one-slot
+decode (bf16 and float8 caches), ``ring_aggregate`` against the CPU, the
+collectives and ``ef_compressed_psum_axis``.
 """
 import numpy as np
 import pytest
@@ -1397,3 +1402,194 @@ def test_reduced_training_step_on_card_matches_cpu(dev, arch):
     L = bundle.cfg.n_layers
     assert LAUNCHES["flash_attention"] == LAUNCHES["attn_scalar"] == 2 * L
     assert LAUNCHES["flash_attention_bwd"] == LAUNCHES["bwd_scalar"] == L
+
+
+# ----------------------------------------------------------------------
+# the programs over a layout of slots (launch/collectives.py) on
+# ["cuda:0"] * n: each slot on its own stream of one card
+# ----------------------------------------------------------------------
+
+# (route, q type, cache type): the decode routes a slot's partial takes
+PARTIAL_ROUTES = (("splitk", torch.bfloat16, torch.bfloat16),
+                  ("splitk_f8", torch.bfloat16, torch.float8_e4m3fn),
+                  ("scalar", torch.float32, torch.float32))
+
+
+@pytest.mark.parametrize("valid", [0, 1, 77, 640])
+@pytest.mark.parametrize("route,qt,kt", PARTIAL_ROUTES, ids=str)
+def test_attention_partial_on_card_matches_plain(dev, route, qt, kt, valid):
+    """A slot's partial (flash_decode): float32 out and the lse; a slot
+    that sees no key gives zeros and -inf (no NaN, nothing unwritten),
+    as the plain version; the split-K routes' float32 out rounds to their
+    bf16 out bit for bit."""
+    from repro_torch.kernels.flash_attention.ops import attention_partial
+    from repro_torch.models.transformer import quantize_f8
+    gen = torch.Generator(device="cuda").manual_seed(valid + len(route))
+    q = torch.randn(2, 1, 32, 128, generator=gen, device=dev).to(qt)
+    k = torch.randn(2, 640, 8, 128, generator=gen, device=dev)
+    v = torch.randn(2, 640, 8, 128, generator=gen, device=dev)
+    if kt == torch.float8_e4m3fn:
+        k, v = quantize_f8(k), quantize_f8(v)
+    else:
+        k, v = k.to(kt), v.to(kt)
+    k[:, valid:] = float("nan")             # a stale tail is never read
+    v[:, valid:] = float("nan")
+    before = LAUNCHES[f"attn_{route}"]
+    out, lse = attention_partial(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"attn_{route}"] == before + 1
+    assert out.dtype == torch.float32 and lse.shape == (2, 32, 1)
+    want, want_lse = attention_partial(q.cpu(), k.cpu(), v.cpu(), valid)
+    if valid == 0:
+        assert torch.equal(out.cpu(), torch.zeros_like(want))
+        assert bool((lse == float("-inf")).all())
+        assert torch.equal(want, torch.zeros_like(want))
+        assert bool((want_lse == float("-inf")).all())
+        return
+    assert bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    tol = 3e-5 if qt == torch.float32 else 1e-2
+    torch.testing.assert_close(out.cpu(), want, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse.cpu(), want_lse, atol=tol, rtol=tol)
+    if route.startswith("splitk"):
+        rounded = flash_attention_cuda(q, k, v, False, q_offset=0,
+                                       kv_valid_len=valid)
+        assert torch.equal(out.to(torch.bfloat16), rounded)
+
+
+def _reduced_lm(dtype: str, device: str):
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models.transformer import LM
+    cfg = dataclasses.replace(get("granite-8b").REDUCED, dtype=dtype)
+    on_cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    if device == "cpu":
+        return on_cpu
+    params = {name: getattr(on_cpu, name)
+              for name in ("embed", "final_norm", "unembed")}
+    params["layers"] = {name: torch.stack([getattr(lp, name)
+                                           for lp in on_cpu.layers])
+                        for name, _ in on_cpu.layers[0].named_parameters()}
+    return LM(cfg, params, device=device)
+
+
+def _mesh_decode(model, layout, kv, B=4, S=512, steps=6, start=316):
+    """Six teacher-forced flash_decode steps over ``layout`` from
+    position ``start`` of a seeded cache (slots past it empty)."""
+    from repro_torch.config import RunOptions
+    from repro_torch.models.transformer import quantize_f8, shard_cache
+    opts = RunOptions(flash_decode=True, kv_cache_dtype=kv)
+    m = model.with_mesh(layout, opts)
+    full = model.with_mesh(None, opts).init_cache(B, S)
+    gen = torch.Generator().manual_seed(7)
+    fill = torch.randn(full["k"][:, :, :start].shape, generator=gen)
+    for name, x in (("k", fill), ("v", fill * 0.5)):
+        x = x.to(model.device)
+        full[name][:, :, :start] = (quantize_f8(x) if kv == "f8"
+                                    else x.to(full[name].dtype))
+    full["pos"] = start
+    cache = full if layout is None else shard_cache(full, m.rules)
+    toks = np.random.default_rng(8).integers(0, model.cfg.vocab, (B, steps))
+    got = []
+    for t in range(steps):
+        logits, cache = m.decode_step(toks[:, t:t + 1], cache)
+        got.append(logits.cpu())
+    return torch.cat(got, 1)
+
+
+def test_flash_decode_on_card_slots_matches_cpu(dev):
+    """float32 (the scalar route): the reduced model's flash_decode over
+    eight cuda:0 slots, (2, 4), equals the same over eight CPU slots at
+    1e-4, one launch a slot and layer."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_cpu = _reduced_lm("float32", "cpu")
+    on_card = _reduced_lm("float32", "cuda")
+    want = _mesh_decode(on_cpu, make_host_mesh(2, 4, ["cpu"] * 8), "bf16")
+    reset_launches()
+    got = _mesh_decode(on_card, make_host_mesh(2, 4), "bf16")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert LAUNCHES["flash_attention"] == LAUNCHES["attn_scalar"] \
+        == 8 * on_card.cfg.n_layers * 6
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f8"])
+def test_flash_decode_on_card_matches_one_slot(dev, kv):
+    """bf16 model (split-K, float8 or bf16 cache): flash_decode over (2, 4)
+    and (1, 8) slots of one card against the one-slot decode over the same
+    cache; the kernel launched once a slot and layer on the cache's
+    split-K route. The slots' float32 partials merge in another order than
+    the one-slot chunks: a bf16 output flips a rounding now and then, and
+    in this 64-wide model one flip moves a row's logits by up to about 1%
+    relative L2 (2e-2 allowed); over a float8 cache the flip also moves
+    the next layer's written keys by an e4m3 step, 2**-3 relative (5e-2)."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    model = _reduced_lm("bfloat16", "cuda")
+    route = "attn_splitk_f8" if kv == "f8" else "attn_splitk"
+    for shape, B in (((2, 4), 4), ((1, 8), 1)):
+        want = _mesh_decode(model, None, kv, B=B)
+        reset_launches()
+        got = _mesh_decode(model, make_host_mesh(*shape), kv, B=B)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == LAUNCHES[route] \
+            == 8 * model.cfg.n_layers * 6
+        rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+        bound = 5e-2 if kv == "f8" else 2e-2
+        assert float(rel.max()) <= bound, (shape, float(rel.max()))
+
+
+@pytest.mark.parametrize("P", [8, 3])
+def test_ring_aggregate_on_card_slots_matches_cpu(dev, P):
+    """The ring over P cuda:0 slots equals it over P CPU slots: integer
+    features exactly, normal ones within 1e-5."""
+    from repro_torch.launch.mesh import make_cells_mesh
+    from repro_torch.models.gnn import ring_aggregate
+    r = np.random.default_rng(P)
+    N_loc, F, Eb = 300, 16, 400
+    es = torch.from_numpy(r.integers(0, N_loc, (P, P, Eb)).astype(np.int32))
+    ed = torch.from_numpy(r.integers(0, N_loc, (P, P, Eb)).astype(np.int32))
+    em = torch.from_numpy(r.random((P, P, Eb)) < 0.7)
+    for feats, exact in ((r.integers(-50, 50, (P * N_loc, F)), True),
+                         (r.standard_normal((P * N_loc, F)), False)):
+        h = torch.from_numpy(feats.astype(np.float32))
+        want = ring_aggregate(list(h.split(N_loc)), es, ed, em,
+                              make_cells_mesh(devices=["cpu"] * P), "cells")
+        got = ring_aggregate(list(h.to(dev).split(N_loc)), es.to(dev),
+                             ed.to(dev), em.to(dev),
+                             make_cells_mesh(devices=["cuda:0"] * P), "cells")
+        torch.testing.assert_close(torch.cat(got).cpu(), torch.cat(want),
+                                   atol=1e-5, rtol=0)
+        if exact:
+            assert torch.equal(torch.cat(got).cpu(), torch.cat(want))
+
+
+def test_collectives_and_ef_psum_on_card_slots(dev):
+    """psum / pmax over cuda:0 slots equal the fold over a list on the
+    card; a ppermute copies into fresh buffers; ef_compressed_psum_axis
+    equals its sequence form bit for bit."""
+    import functools
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import Layout, make_host_mesh
+    from repro_torch.optim.compress import (ef_compressed_psum,
+                                            ef_compressed_psum_axis)
+    layout = make_host_mesh(2, 4)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    xs = [torch.randn(1000, generator=gen, device=dev) for _ in range(8)]
+    got = collectives.psum(xs, layout, "model")
+    assert torch.equal(got[5], functools.reduce(torch.add, xs[4:]))
+    got = collectives.pmax(xs, layout, "data")
+    assert torch.equal(got[6], torch.maximum(xs[2], xs[6]))
+    got = collectives.ppermute(xs, layout, "model",
+                               [(i, (i + 1) % 4) for i in range(4)])
+    assert torch.equal(got[1], xs[0]) and got[1].data_ptr() != xs[0].data_ptr()
+    pod = Layout("pods", ("pod",), (8,), ("cuda:0",) * 8)
+    errs = seq = [torch.zeros(4096, device=dev) for _ in range(8)]
+    for _ in range(5):
+        grads = [torch.randn(4096, generator=gen, device=dev) * 100
+                 for _ in range(8)]
+        red, errs = ef_compressed_psum_axis(grads, errs, pod, "pod")
+        want, seq = ef_compressed_psum(grads, seq)
+        assert all(torch.equal(x, want) for x in red)
+        assert all(torch.equal(a, b) for a, b in zip(errs, seq))

@@ -312,8 +312,36 @@ def test_param_tree_and_logical_axes_match_jax(arch):
 
 
 def test_ring_aggregate_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh options"):
-        tg.ring_aggregate(None, None, None, None, "cells")
+    """Ported now (``tests/test_torch_mesh.py`` holds it on 8 and 3
+    slots): on one CPU slot against the JAX ring under ``shard_map`` over
+    one device, padded bucket and ``msg_fn`` included."""
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+    from repro_torch.launch.mesh import make_cells_mesh
+    rng = np.random.default_rng(4)
+    n, F, Eb, E = 24, 3, 64, 50
+    h = rng.standard_normal((n, F)).astype(np.float32)
+    es = np.zeros((1, 1, Eb), np.int32)
+    ed = np.zeros((1, 1, Eb), np.int32)
+    em = np.zeros((1, 1, Eb), bool)
+    es[0, 0, :E] = rng.integers(0, n, E)
+    ed[0, 0, :E] = rng.integers(0, n, E)
+    em[0, 0, :E] = True
+    mesh = Mesh(np.array(jax.devices()[:1]), ("cells",))
+    for j_msg, t_msg in ((None, None),
+                         (lambda x, d: x * 2.0 + d[:, None],
+                          lambda x, d: x * 2.0 + d[:, None])):
+        fn = jax.shard_map(
+            lambda hh, a, b, c: jg.ring_aggregate(hh, a[0], b[0], c[0],
+                                                  "cells", msg_fn=j_msg),
+            mesh=mesh, in_specs=(P("cells"),) * 4, out_specs=P("cells"),
+            check_vma=False)
+        want = np.asarray(fn(h, es, ed, em))
+        got = tg.ring_aggregate([torch.from_numpy(h)],
+                                *map(torch.from_numpy, (es, ed, em)),
+                                make_cells_mesh(devices=["cpu"]), "cells",
+                                msg_fn=t_msg)
+        np.testing.assert_allclose(got[0].numpy(), want, atol=1e-5)
 
 
 # ----------------------------------------------------------------------

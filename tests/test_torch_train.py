@@ -617,13 +617,32 @@ def test_build_bundle_and_run_training_under_dots(tmp_path):
 
 
 def test_launchers_refuse_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # still refused: both need the sharded model code, the next slice
+    with pytest.raises(NotImplementedError,
+                       match="sharded model code.*ROADMAP"):
         run_training("granite-8b", "train_4k", 1, tmp_path, mesh_name="pod",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh options"):
+    with pytest.raises(NotImplementedError,
+                       match="sharded model code.*mesh options"):
         dryrun_cell("path-engine", "batch_1b", "pod")
-    with pytest.raises(NotImplementedError, match="mesh options"):
-        tg.ring_aggregate(None, None, None, None, "cells")
+    # ported now: the ring on one CPU slot equals the JAX ring on one
+    # device (tests/test_torch_mesh.py: 8 and 3 slots)
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+    from repro_torch.launch.mesh import make_cells_mesh, make_host_mesh
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((8, 3)).astype(np.float32)
+    es, ed = rng.integers(0, 8, (2, 1, 1, 12)).astype(np.int32)
+    em = rng.random((1, 1, 12)) < 0.75
+    ring = jax.shard_map(
+        lambda hh, a, b, c: jg.ring_aggregate(hh, a[0], b[0], c[0], "cells"),
+        mesh=Mesh(np.array(jax.devices()[:1]), ("cells",)),
+        in_specs=(P("cells"),) * 4, out_specs=P("cells"), check_vma=False)
+    got = tg.ring_aggregate([torch.from_numpy(h)],
+                            *map(torch.from_numpy, (es, ed, em)),
+                            make_cells_mesh(devices=["cpu"]), "cells")
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ring(h, es, ed, em)),
+                               atol=1e-5)
     # ported now: the "dots" remat policy and the float8 KV cache
     assert tsteps.build_bundle("granite-8b", "train_4k",
                                RunOptions(remat_policy="dots"),
@@ -631,9 +650,32 @@ def test_launchers_refuse_what_is_not_ported(tmp_path):
     assert tsteps.build_bundle("granite-8b", "decode_32k",
                                RunOptions(kv_cache_dtype="f8"),
                                reduced=True).kind == "decode"
-    with pytest.raises(NotImplementedError, match="flash_decode"):
-        tsteps.build_bundle("granite-8b", "decode_32k",
-                            RunOptions(flash_decode=True), reduced=True)
+    # ported now: the decode bundle under flash_decode, its step on a
+    # (1, 2) layout of CPU slots against the JAX bundle's on the host mesh
+    opts = RunOptions(flash_decode=True, attn_chunk=4, seq_parallel=False)
+    over = {"seq_len": 8, "global_batch": 2}
+    bundle = tsteps.build_bundle("granite-8b", "decode_32k", opts,
+                                 reduced=True, overrides=over)
+    assert bundle.kind == "decode" and bundle.opts.flash_decode
+    jmesh = mesh_by_name("host")
+    jb = j_build_bundle("granite-8b", "decode_32k", Rules(jmesh),
+                        JaxRunOptions(flash_decode=True, attn_chunk=4,
+                                      seq_parallel=False),
+                        reduced=True, overrides=over)
+    tree = _tree("granite-8b")
+    model = tt.params_from_jax(tree, bundle.cfg, device="cpu", opts=opts) \
+        .with_mesh(make_host_mesh(1, 2, devices=["cpu"] * 2))
+    toks = rng.integers(0, bundle.cfg.vocab, (2, 3)).astype(np.int32)
+    jc = jt.init_cache(jcr.get("granite-8b").REDUCED, 2, 8, jnp.float32)
+    tc = model.init_cache(2, 8)
+    with use_mesh(jmesh):
+        jstep = jax.jit(jb.step_fn)
+        for i in range(3):
+            want, jc = jstep(jax.tree.map(jnp.asarray, tree),
+                             jnp.asarray(toks[:, i:i + 1]), jc)
+            got, tc = bundle.step_fn(model, torch.from_numpy(toks[:, i:i + 1]),
+                                     tc)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     with pytest.raises(ValueError, match="train shape"):
         run_training("granite-8b", "decode_32k", 1, tmp_path, device="cpu")
     assert tsteps.build_bundle("olmoe-1b-7b", "decode_32k").kind == "decode"

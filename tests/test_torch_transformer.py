@@ -225,9 +225,26 @@ def test_unported_options_raise():
                       torch.zeros((1, 4), dtype=torch.long), cfg,
                       RunOptions(remat_policy="dots"))
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="flash_decode"):
-        tt.LM(cfg, generator=gen, device="cpu",
-              opts=RunOptions(flash_decode=True))
+    # ported now: flash_decode, here on one slot against the JAX
+    # decode_step(flash_decode=True) on the (1, 1) host mesh
+    from repro.launch.mesh import make_host_mesh, use_mesh
+    jcfg = jcr.get("granite-8b").REDUCED
+    tree = jax.tree.map(np.asarray,
+                        jt.init_lm_params(jax.random.PRNGKey(0), jcfg, tp=1))
+    flash = tt.params_from_jax(tree, cfg, device="cpu",
+                               opts=RunOptions(flash_decode=True))
+    jopts = JaxRunOptions(flash_decode=True, attn_chunk=4,
+                          seq_parallel=False)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 5))
+    jc, tc = jt.init_cache(jcfg, 2, 8, jnp.float32), flash.init_cache(2, 8)
+    with use_mesh(make_host_mesh()):
+        step = jax.jit(lambda p, t, c: jt.decode_step(p, t, c, jcfg, jopts,
+                                                      ident))
+        for i in range(5):
+            want, jc = step(tree, jnp.asarray(toks[:, i:i + 1], jnp.int32),
+                            jc)
+            got, tc = flash.decode_step(toks[:, i:i + 1], tc)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     f8 = tt.LM(cfg, generator=gen, device="cpu",
                opts=RunOptions(kv_cache_dtype="f8"))
     assert f8.init_cache(1, 8)["k"].dtype == torch.float8_e4m3fn
