@@ -24,7 +24,10 @@ slots on the card; phase 12 the kernel ops API (``msbfs_hop_packed``,
 transformer's serving path
 (granite-8b prefill and KV-cache decode on the ``flash_attention``
 kernel, then into a float8 KV cache on its float8 split-K variant);
-phase 14 the MoE FFN on that path (olmoe-1b-7b); phase 14a
+phase 13c the sharded model code over slots of the card (tensor, FSDP
+and sequence splits, prefill and decode with and without
+``flash_decode``); phase 14 the MoE FFN on that path (olmoe-1b-7b),
+phase 14b its expert-parallel split; phase 14a
 moonshot-v1-16b-a3b at full width and depth with a float8 cache; phase
 15 LM training (loss, gradients through the ``flash_attention_bwd``
 kernel, AdamW, checkpoints and the fault-tolerant driver, under the
@@ -329,8 +332,8 @@ Phases, each printing one JSON line (``"phase": ...``, with
                plus 8 GiB is required first (the case is never shrunk).
                The cache, filled with seeded random keys and values
                (quantised as ``decode_step`` quantises) below position
-               p0 = the last slot's first position - 4, is cut by
-               ``shard_cache`` into views of one tensor; 8 teacher-forced
+               p0 = the last slot's first position - 2, is cut by
+               ``shard_cache`` into views of one tensor; 4 teacher-forced
                steps from p0 (the last slot empty, then written), each
                timed (wall, host clock, synced; the bound: the valid
                keys' bytes and the weights' bytes over 3.35 TB/s), then
@@ -350,7 +353,35 @@ Phases, each printing one JSON line (``"phase": ...``, with
                relative L2 a row of the one-slot and the default
                decode's (two bf16 decodes that round p differently,
                carried through 36 layers: 4.2-5.6% measured); every
-               logit finite.
+               logit finite. The sharded model cuts its weights over the
+               slots too (``serve_param_sharding="2d"``).
+13c. mesh_serve -- inside phase 13, on its bf16 weights (``LM.with_mesh``,
+               ``cuda:0`` repeated): granite-8b's sharded serving, the
+               parameters cut by ``lm_param_logical`` (heads, FFN
+               columns, vocab over ``model``; rows over ``data`` under
+               ``"2d"``, gathered a layer at a time). (A) (2, 4) under
+               ``"2d"`` with ``seq_parallel``: prefill of phase 13's
+               4 x 2048 prompt, then 8 teacher-forced steps at B 4 from
+               position 512 of a cache of 544 (keys and values below it
+               seeded random, a copy for each side) with ``flash_decode``
+               and 8 without (each slot gathers its KV heads of the cut
+               cache); (B) (1, 8) under ``"tp_only"``: one prefill and 8
+               gathered steps; (C) a float32 copy of the first 2 layers
+               at full width (TF32 off) on (2, 4): a 512-token prefill
+               and both decodes. Reported per case: walls (host clock,
+               synced) beside the one-device model's, launches a slot
+               and layer by route, one prefill and one step under a
+               card-only profiler (attention kernels' device time summed
+               over the slots' streams). Checks: every slot launches
+               ``flash_attention`` once a layer and call, ``attn_wgmma``
+               in prefill and ``attn_splitk`` in decode (C: ``attn_scalar``)
+               and no other route; on one prefill and one decode step
+               each slot's attention at every layer (under
+               ``flash_decode`` each partial and each layer's merge)
+               equals ``flash_attention_ref`` on the same q, K and V at
+               row 8's bf16 tolerance; A's and B's logits within 0.1
+               relative L2 a row of the one-device prefill's and
+               decode's, C's within 1e-4; every logit finite.
 14. moe     -- olmoe-1b-7b ``CONFIG`` (arXiv:2409.02060: 16 layers,
                d_model 2048, 64 experts top-8 of d_ff 1024, vocab 50304:
                6.9 G parameters) at full width in bf16, cut to 4 of its
@@ -380,6 +411,16 @@ Phases, each printing one JSON line (``"phase": ...``, with
                finite; ``flash_attention`` launched once per layer per
                call, on wgmma for prefill and forward and split-K for
                decode (the float32 check on its float32 route).
+14b. moe_mesh -- inside phase 14, on its bf16 weights: the 4 layers over a
+               (2, 4) layout of the card, expert-parallel (16 of the 64
+               experts a slot, the dispatch in 2 groups, the expert
+               outputs gathered over ``model`` before the combine), one
+               prefill of phase 14's prompt. Checks: every layer's
+               routing (the slots of a data row alike, their groups
+               together) equal to the one-device ``moe_route`` at 2
+               groups on the same tokens exactly; the logits within 5e-2
+               relative L2 a row of the one-device prefill at 2 groups;
+               one ``attn_wgmma`` a slot and layer; every logit finite.
 14a. moonshot -- moonshot-v1-16b-a3b ``CONFIG`` (48 layers, d_model 2048,
                16 q- and 16 kv-heads, hd 128, 64 experts top-6 of d_ff
                1408, vocab 163,840: 28.1 G parameters, 56.2 GB in bf16)
@@ -809,7 +850,9 @@ TRAIN_DOTS_REL = 1e-6
 # 19.3 GB of bf16 cache) over (2, 4). Each case runs MESH_DECODE_STEPS
 # teacher-forced steps from MESH_DECODE_BEFORE positions below the last
 # slot's first (positions before it filled with seeded random keys and
-# values). Each slot's partial (out, lse) and each layer's merged
+# values; 8 steps from 4 below until the slots cut the weights too,
+# then 4 from 2 below for the script's time limit: the steps still cross
+# into the last slot). Each slot's partial (out, lse) and each layer's merged
 # attention are held to the plain version (flash_attention_ref) on the
 # same q and keys at row 8's bf16 tolerance (ATTN_BF16_TOL elementwise,
 # ATTN_BF16_ROW_REL_L2 a row). Each step's logits are held to the
@@ -824,7 +867,7 @@ TRAIN_DOTS_REL = 1e-6
 # never shrunk)
 MESH_DECODE_CASES = (("long_500k", 1, 524288, (1, 8), "f8"),
                      ("decode_32k", 4, 32768, (2, 4), "bf16"))
-MESH_DECODE_STEPS, MESH_DECODE_BEFORE = 8, 4
+MESH_DECODE_STEPS, MESH_DECODE_BEFORE = 4, 2
 MESH_DECODE_REL_L2 = 0.1
 MESH_HEADROOM = 8 << 30
 # phase mesh: gnn.ring_aggregate at ogb_products (phase gnn's graph law,
@@ -839,6 +882,37 @@ MESH_RING_SLOTS = (8, 3)
 MESH_RING_REL = 1e-4
 MESH_EF_SLOTS, MESH_EF_STEPS = 8, 20
 MESH_EF_SHAPE = (4096, 14336)
+
+
+# phase mesh_serve (13c): granite-8b's sharded serving over slots of the
+# card, on phase lm's bf16 weights (LM.with_mesh): (name, layout (data,
+# model), serve_param_sharding, flash_decode sides). Case A prefills phase
+# lm's prompt (4 x 2048, seq_parallel on), then runs MESH_SERVE_STEPS
+# teacher-forced steps from position MESH_SERVE_P0 of a cache of
+# MESH_SERVE_CACHE at batch 4 (positions below it seeded random keys and
+# values, copied for each side) with flash_decode and as many without;
+# case B (tp_only) one prefill and the gathered decode. Their logits are
+# held to the one-device prefill's and decode's over the same inputs at
+# MESH_SERVE_REL_L2 a row (phase mesh_decode's MESH_DECODE_REL_L2: 36
+# random bf16 layers carry a layer's rounding to about 5% of the logits).
+# Case C: a float32 copy of the first MESH_SERVE_F32_LAYERS layers (TF32
+# off) on case A's layout, a MESH_SERVE_F32_PROMPT prefill and the steps,
+# within MESH_SERVE_F32_REL_L2 of the one-device float32 model. On one
+# prefill and one decode step of each side each slot's attention (layer
+# 0's, the first call a slot) is held to flash_attention_ref on its q, K
+# and V at row 8's bf16 tolerance.
+MESH_SERVE_CASES = (("A", (2, 4), "2d", (True, False)),
+                    ("B", (1, 8), "tp_only", (False,)))
+MESH_SERVE_CACHE, MESH_SERVE_P0, MESH_SERVE_STEPS = 544, 512, 8
+MESH_SERVE_REL_L2 = 0.1
+MESH_SERVE_F32_LAYERS, MESH_SERVE_F32_PROMPT = 2, 512
+MESH_SERVE_F32_REL_L2 = 1e-4
+# phase moe_mesh (14b): olmoe-1b-7b's MOE_LAYERS layers over a (2, 4)
+# layout (16 of the 64 experts a slot, the dispatch in 2 groups), one
+# prefill on phase moe's prompt: every layer's routing equal to the
+# one-device moe_route at 2 groups on the same tokens exactly, the logits
+# within LM_BF16_REL_L2 a row of the one-device prefill at 2 groups
+MOE_MESH_LAYOUT = (2, 4)
 
 
 STAT_KEYS = ("t_build_index", "t_cluster", "t_detect", "t_enumerate",
@@ -4190,6 +4264,7 @@ def phase_lm(torch) -> dict:
     del cache, got
     torch.cuda.empty_cache()
     mesh = mesh_decode(torch, model)
+    serve = mesh_serve(torch, model, prompt)
     del model
     torch.cuda.empty_cache()
 
@@ -4222,7 +4297,8 @@ def phase_lm(torch) -> dict:
     emit(out)
     return {"launches": launches, "per_call": cfg.n_layers, "calls": calls,
             "routes": routes, "f8_launches": f8["launches"],
-            "f8_steps": f8["steps"], "mesh_launches": mesh}
+            "f8_steps": f8["steps"], "mesh_launches": mesh,
+            "serve_launches": serve}
 
 
 def step_profile(torch, fn) -> tuple:
@@ -4253,17 +4329,22 @@ def step_profile(torch, fn) -> tuple:
 class FlashDecodeRecorder:
     """Wraps ``transformer.flash_decode_attention`` and the slots'
     ``attention_partial``: keeps each call's q, position and output (one a
-    layer, in order) and each slot's q, keys, values, valid length and
-    partial (out, lse), for the checks against the plain version."""
+    layer, in order; the slots' pieces put together) and each slot's q,
+    keys, values, valid length and partial (out, lse), for the checks
+    against the plain version."""
 
     def __init__(self):
         from repro_torch.models import transformer
         self.tm, self.fns, self.calls, self.parts = transformer, None, [], []
 
-    def decode(self, q, ck, cv, pos, rules):
-        out = self.fns[0](q, ck, cv, pos, rules)
-        self.calls.append((q, pos, out))
-        return out
+    def decode(self, qs, ck, cv, pos, rules, wide):
+        outs = self.fns[0](qs, ck, cv, pos, rules, wide)
+        # the slots' q and output put together (B, 1, Hq, hd): the batch
+        # cut over its axis, every q head on every slot
+        lg = (self.tm.cache_logical(wide)["k"][1], None, None, None)
+        self.calls.append((rules.assemble(qs, *lg), pos,
+                           rules.assemble(outs, *lg)))
+        return outs
 
     def partial(self, q, k, v, valid):
         out, lse = self.fns[1](q, k, v, valid)
@@ -4338,7 +4419,8 @@ def row_rel_l2(got, want) -> float:
 
 def mesh_decode(torch, model) -> dict:
     """Phase 13b: granite-8b's ``flash_decode`` over slots of the card
-    (``MESH_DECODE_CASES``) on phase lm's weights (``LM.with_mesh``): the
+    (``MESH_DECODE_CASES``) on phase lm's weights (``LM.with_mesh``, which
+    cuts them over the slots too, ``serve_param_sharding="2d"``): the
     cache cut by ``shard_cache`` (views of one tensor), each sharded step
     profiled and its launches counted (``attn_splitk_f8`` or
     ``attn_splitk`` once a slot and layer, no other route), its slots'
@@ -4474,6 +4556,266 @@ def mesh_decode(torch, model) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"] = launches
+    emit(out)
+    return launches
+
+
+def attention_checked(rec, want: int, what: str) -> dict:
+    """An ``AttnRecorder``'s comparisons since the last call, ``want`` of
+    them required; its counters reset."""
+    require(rec.checked == want,
+            f"{what}: {rec.checked} attention calls held to the plain "
+            f"version, expected {want}")
+    out = {"calls": rec.checked, "max_abs_err": rec.max_abs_err,
+           "max_row_rel_l2": rec.max_row_rel_l2}
+    rec.checked = 0
+    rec.max_abs_err = rec.max_row_rel_l2 = 0.0
+    return out
+
+
+def timed(torch, fn):
+    """``fn()`` and its wall in seconds, synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def filled_cache(torch, model, B: int, gen) -> dict:
+    """A one-device cache of ``MESH_SERVE_CACHE`` at batch ``B``, every
+    layer's keys and values below ``MESH_SERVE_P0`` seeded random, ``pos``
+    there."""
+    cfg = model.cfg
+    full = model.init_cache(B, MESH_SERVE_CACHE)
+    for key in ("k", "v"):
+        full[key][:, :, :MESH_SERVE_P0] = torch.randn(
+            (cfg.n_layers, B, MESH_SERVE_P0, cfg.n_kv_heads, cfg.hd),
+            generator=gen, device="cuda", dtype=torch.float32).to(
+                full[key].dtype)
+    full["pos"] = MESH_SERVE_P0
+    return full
+
+
+def copy_cache(cache: dict) -> dict:
+    return {"k": cache["k"].clone(), "v": cache["v"].clone(),
+            "pos": cache["pos"]}
+
+
+def serve_steps(torch, model, toks, cache, rec=None) -> tuple:
+    """``MESH_SERVE_STEPS`` teacher-forced steps of ``toks`` (B, steps):
+    the logits (B, steps, vocab), each step's wall, and each step's
+    ``flash_attention`` launches by route; ``rec`` (an ``AttnRecorder``)
+    checking the first step only."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    logits, walls, routes = [], [], []
+    for t in range(toks.shape[1]):
+        if rec is not None:
+            rec.check = t == 0
+        reset_launches()
+        (out, cache), wall = timed(
+            torch, lambda: model.decode_step(toks[:, t:t + 1], cache))
+        routes.append(attn_counts(LAUNCHES, fops))
+        walls.append(wall)
+        logits.append(out[:, 0])
+    if rec is not None:
+        rec.check = False
+    return torch.stack(logits, 1), walls, routes, cache
+
+
+def routes_per_slot_layer(routes: dict, slots: int, layers: int) -> dict:
+    """A call's launches by route, per slot and layer."""
+    return {r: n / (slots * layers) for r, n in routes.items() if n}
+
+
+def mesh_serve(torch, model, prompt) -> dict:
+    """Phase 13c: granite-8b's sharded serving (``MESH_SERVE_CASES``) over
+    slots of the card on phase lm's weights, and case C in float32. Emits
+    the phase line; returns the ``flash_attention`` launches by route."""
+    import dataclasses
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM, shard_cache
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    L, B = cfg.n_layers, prompt.shape[0]
+    out = {"phase": "mesh_serve", "arch": cfg.name,
+           "weights_bytes": model.param_bytes(), "batch": B,
+           "prompt": prompt.shape[1], "cache": MESH_SERVE_CACHE,
+           "start_pos": MESH_SERVE_P0, "steps": MESH_SERVE_STEPS,
+           "tolerance": {"logits_row_rel_l2": MESH_SERVE_REL_L2,
+                         "f32_logits_row_rel_l2": MESH_SERVE_F32_REL_L2,
+                         "attention": {"atol": ATTN_BF16_TOL,
+                                       "rtol": ATTN_BF16_TOL,
+                                       "row_rel_l2": ATTN_BF16_ROW_REL_L2}},
+           "cases": {}}
+    launches = dict.fromkeys(fops.ROUTES, 0)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    toks = torch.randint(0, cfg.vocab, (B, MESH_SERVE_STEPS), generator=gen,
+                         device="cuda")
+    base = filled_cache(torch, model.with_mesh(None), B, gen)
+
+    def one_device(m, prompt_, cache):
+        """The one-device model's prefill (its wall the second call's)
+        and steps: the references."""
+        m.prefill(prompt_)
+        ref, t_pre = timed(torch, lambda: m.prefill(prompt_))
+        got, walls, _, _ = serve_steps(torch, m, toks, copy_cache(cache))
+        return {"prefill": ref, "decode": got, "prefill_s": t_pre,
+                "step_walls": walls}
+
+    def sharded_case(name, m, ref, cache, sides, prompt_, dtype_routes):
+        slots = m.mesh.size
+        layers = m.cfg.n_layers
+        case = {"layout": list(m.mesh.shape), "slots": slots,
+                "serve_param_sharding": m.opts.serve_param_sharding,
+                "seq_parallel": m.opts.seq_parallel, "layers": layers}
+        with AttnRecorder(torch) as rec:
+            reset_launches()
+            rec.check = True
+            logits, checked = timed(torch, lambda: m.prefill(prompt_))
+            rec.check = False
+            _, wall = timed(torch, lambda: m.prefill(prompt_))
+            routes = attn_counts(LAUNCHES, fops)
+            want = dict.fromkeys(fops.ROUTES, 0)
+            want[dtype_routes[0]] = 2 * slots * layers
+            require(routes == want and LAUNCHES["flash_attention"]
+                    == 2 * slots * layers,
+                    f"mesh_serve {name} prefill: routes {routes} over two "
+                    f"calls, expected {want}: one {dtype_routes[0]} a slot "
+                    f"and layer")
+            for r, n in routes.items():
+                launches[r] += n
+            attn = attention_checked(rec, slots * layers,
+                                     f"mesh_serve {name} prefill")
+            require(bool(torch.isfinite(logits).all()),
+                    f"mesh_serve {name}: prefill logits not finite")
+            rel = row_rel_l2(logits, ref["prefill"])
+            case["prefill"] = {
+                "wall_s": wall, "first_wall_with_checks_s": checked,
+                "one_device_wall_s": ref["prefill_s"],
+                "logits_max_row_rel_l2": rel,
+                "launches_per_slot_layer": routes_per_slot_layer(
+                    routes, slots, 2 * layers),
+                "slot_attention_vs_plain": attn}
+            for side in sides:
+                sm = m.with_mesh(m.mesh, dataclasses.replace(
+                    m.opts, flash_decode=side))
+                full = copy_cache(cache)
+                pieces = shard_cache(full, sm.rules)
+                rec_flash = FlashDecodeRecorder() if side else None
+                if side:
+                    with rec_flash:
+                        got, walls, step_routes, pieces = serve_steps(
+                            torch, sm, toks[:, :1], pieces)
+                    # the merged attention over the state after the step
+                    step_attn = mesh_attention_check(
+                        torch, fops, rec_flash, full,
+                        f"mesh_serve {name} flash_decode step 0")
+                    del rec_flash
+                    more, walls2, routes2, pieces = serve_steps(
+                        torch, sm, toks[:, 1:], pieces)
+                    got = torch.cat([got, more], 1)
+                    walls += walls2
+                    step_routes += routes2
+                else:
+                    got, walls, step_routes, pieces = serve_steps(
+                        torch, sm, toks, pieces, rec)
+                    step_attn = attention_checked(
+                        rec, slots * layers, f"mesh_serve {name} gathered "
+                        f"decode step 0")
+                want = dict.fromkeys(fops.ROUTES, 0)
+                want[dtype_routes[1]] = slots * layers
+                for t, r in enumerate(step_routes):
+                    require(r == want,
+                            f"mesh_serve {name} decode step {t} "
+                            f"(flash_decode={side}): routes {r}, expected "
+                            f"{want}")
+                    for k, n in r.items():
+                        launches[k] += n
+                require(bool(torch.isfinite(got).all()),
+                        f"mesh_serve {name}: decode logits not finite")
+                rel_d = row_rel_l2(got, ref["decode"])
+                # one step again under a card-only profiler: the attention
+                # kernels' device time over the slots' streams
+                last = copy_cache(cache)
+                prof = step_profile(torch, lambda: sm.decode_step(
+                    toks[:, :1], shard_cache(last, sm.rules)))[1]
+                case["decode_flash" if side else "decode_gathered"] = {
+                    "step_wall": latency(walls),
+                    "one_device_step_wall": latency(ref["step_walls"]),
+                    "logits_max_row_rel_l2": rel_d,
+                    "launches_per_slot_layer": routes_per_slot_layer(
+                        step_routes[0], slots, layers),
+                    "slot_attention_vs_plain": step_attn,
+                    "profiled_step": prof}
+                del full, pieces, last, got
+            case["prefill"]["profiled"] = step_profile(
+                torch, lambda: m.prefill(prompt_))[1]
+        return case
+
+    ref = one_device(model.with_mesh(None), prompt, base)
+    for name, shape, mode, sides in MESH_SERVE_CASES:
+        t0 = time.perf_counter()
+        m = model.with_mesh(make_host_mesh(*shape),
+                            RunOptions(serve_param_sharding=mode))
+        case = sharded_case(name, m, ref, base, sides, prompt,
+                            ("wgmma", "splitk"))
+        worst = max([case["prefill"]["logits_max_row_rel_l2"]]
+                    + [case[k]["logits_max_row_rel_l2"] for k in case
+                       if k.startswith("decode_")])
+        require(worst <= MESH_SERVE_REL_L2,
+                f"mesh_serve {name}: logits against the one-device model's, "
+                f"row relative L2 {worst} (bound {MESH_SERVE_REL_L2})")
+        case["t_case_s"] = time.perf_counter() - t0
+        out["cases"][name] = case
+        del m
+        gc.collect()
+    del base, ref
+    torch.cuda.empty_cache()
+
+    # case C: float32 at full width, MESH_SERVE_F32_LAYERS layers
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_c = dataclasses.replace(cfg, n_layers=MESH_SERVE_F32_LAYERS,
+                                dtype="float32")
+    top = {n: getattr(model, n).float() for n in ("embed", "final_norm")}
+    if not cfg.tie_embeddings:
+        top["unembed"] = model.unembed.float()
+    names = model.layers[0].tensors()
+    top["layers"] = {n: torch.stack([model.layers[i].tensors()[n].float()
+                                     for i in range(MESH_SERVE_F32_LAYERS)])
+                     for n in names}
+    one = LM(cfg_c, top, device="cuda")
+    del top
+    prompt_c = prompt[:, :MESH_SERVE_F32_PROMPT]
+    base = filled_cache(torch, one, B, gen)
+    ref = one_device(one, prompt_c, base)
+    m = one.with_mesh(make_host_mesh(*MESH_SERVE_CASES[0][1]))
+    case = sharded_case("C", m, ref, base, (True, False), prompt_c,
+                        ("scalar", "scalar"))
+    worst = max([case["prefill"]["logits_max_row_rel_l2"]]
+                + [case[k]["logits_max_row_rel_l2"] for k in case
+                   if k.startswith("decode_")])
+    require(worst <= MESH_SERVE_F32_REL_L2,
+            f"mesh_serve C (float32): logits against the one-device "
+            f"model's, row relative L2 {worst} (bound "
+            f"{MESH_SERVE_F32_REL_L2})")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    case.update({"dtype": "float32", "tf32": False,
+                 "prompt": MESH_SERVE_F32_PROMPT,
+                 "t_case_s": time.perf_counter() - t0})
+    out["cases"]["C"] = case
+    del m, one, base, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["t_phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return launches
 
@@ -4776,6 +5118,107 @@ class MoeRecorder:
         self.tm.moe_ffn = self.fn
 
 
+class RouteRecorder:
+    """Wraps ``transformer.moe_route`` (the sharded MoE's routing, one call
+    a slot and layer): keeps each call's tokens, router, groups and expert
+    ids."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.tm, self.fn, self.calls = transformer, None, []
+
+    def __call__(self, h, router, cfg, groups):
+        r = self.fn(h, router, cfg, groups)
+        self.calls.append((h, router, groups, r.eids))
+        return r
+
+    def __enter__(self):
+        self.fn = self.tm.moe_route
+        self.tm.moe_route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.moe_route = self.fn
+
+
+def moe_mesh(torch, model, prompt) -> dict:
+    """Phase 14b: the MoE model over a ``MOE_MESH_LAYOUT`` layout of the
+    card (expert-parallel: ``E / model`` experts a slot, the dispatch in
+    as many groups as the data axis has slots), one prefill on phase moe's
+    prompt. Each layer's routing (the slots of a data row alike, their
+    groups together) equal to the one-device ``moe_route`` at those groups
+    on the same tokens exactly; the logits within ``LM_BF16_REL_L2`` a row
+    of the one-device prefill at the same groups; every slot's attention
+    on ``attn_wgmma`` once a layer. Emits the phase line."""
+    from repro_torch.config import RunOptions
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    layout = make_host_mesh(*MOE_MESH_LAYOUT)
+    sharded = model.with_mesh(layout, RunOptions())
+    groups = sharded.opts.moe_groups
+    one = model.with_mesh(None, RunOptions(moe_groups=groups))
+    want, t_one = timed(torch, lambda: one.prefill(prompt))
+    with RouteRecorder() as rec:
+        reset_launches()
+        got, cold = timed(torch, lambda: sharded.prefill(prompt))
+        routes = attn_counts(LAUNCHES, fops)
+    _, wall = timed(torch, lambda: sharded.prefill(prompt))
+    L, slots = cfg.n_layers, layout.size
+    want_routes = dict.fromkeys(fops.ROUTES, 0)
+    want_routes["wgmma"] = slots * L
+    require(routes == want_routes,
+            f"moe_mesh: flash_attention routes {routes}, expected "
+            f"{want_routes}: one wgmma a slot and layer")
+    require(len(rec.calls) == slots * L,
+            f"moe_mesh: moe_route ran {len(rec.calls)} times, expected "
+            f"{slots * L}")
+    require(bool(torch.isfinite(got).all()), "moe_mesh: logits not finite")
+    flips = []
+    for layer in range(L):
+        recs = rec.calls[layer * slots:(layer + 1) * slots]
+        rows = []
+        for g in layout.groups("model"):
+            for s in g[1:]:
+                require(torch.equal(recs[s][3], recs[g[0]][3]),
+                        f"moe_mesh layer {layer}: the slots of a data row "
+                        f"route alike")
+            rows.append(recs[g[0]])
+        h = torch.cat([r[0].reshape(-1, cfg.d_model) for r in rows])
+        eids = torch.cat([r[3] for r in rows])
+        ref = rec.fn(h, rows[0][1], cfg, groups).eids
+        flips.append(int((eids != ref).any(-1).sum()))
+        require(torch.equal(eids, ref),
+                f"moe_mesh layer {layer}: routing differs from the "
+                f"one-device moe_route at {groups} groups on "
+                f"{flips[-1]} tokens")
+    rel = row_rel_l2(got, want)
+    require(rel <= LM_BF16_REL_L2,
+            f"moe_mesh: logits against the one-device prefill, row "
+            f"relative L2 {rel} (bound {LM_BF16_REL_L2})")
+    out = {"phase": "moe_mesh", "arch": cfg.name, "layers": L,
+           "layout": list(MOE_MESH_LAYOUT), "slots": slots,
+           "experts_per_slot": cfg.moe.n_experts // layout.shape[1],
+           "moe_groups": groups, "tokens": prompt.numel(),
+           "prefill_wall_s": wall, "cold_prefill_wall_s": cold,
+           "one_device_prefill_wall_s": t_one,
+           "launches_per_slot_layer": routes_per_slot_layer(routes, slots,
+                                                            L),
+           "routing_equal_layers": L, "routing_token_flips": flips,
+           "logits_max_row_rel_l2": rel, "bound": LM_BF16_REL_L2,
+           "profiled": step_profile(torch,
+                                    lambda: sharded.prefill(prompt))[1],
+           "t_phase_s": time.perf_counter() - t_phase}
+    del rec, got, want, sharded, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def phase_moe(torch) -> dict:
     """Phase 14: olmoe-1b-7b served on the card at full width, cut to
     ``MOE_LAYERS`` layers."""
@@ -4916,7 +5359,11 @@ def phase_moe(torch) -> dict:
             "argmax_agreement": agree,
             "floor_on_argmax_agreement": MOE_BF16_ARGMAX_MIN},
         "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    del model, cache, got, ref, rel, last
+    del cache, got, ref, rel, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_mesh(torch, model, prompt)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6489,8 +6936,10 @@ def flash_attention_row(torch, lm) -> dict:
     src, replaces = KERNEL_ROWS["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": lm["launches"] + lm["mesh_launches"]["splitk"],
+            "launches": lm["launches"] + lm["mesh_launches"]["splitk"]
+            + sum(lm["serve_launches"].values()),
             "launches_mesh_decode": lm["mesh_launches"]["splitk"],
+            "launches_mesh_serve": lm["serve_launches"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -21,11 +21,13 @@ block made on the caller's stream is reused by caller work that waited on
 every slot (the argument of ``core/distributed.py``'s fan-out, which
 needs no ``record_stream``). On the CPU the slots run one after another.
 
-Reductions (:func:`psum`, :func:`pmax`) run on each group's first slot and
-take the members in slot order, ``((x0 + x1) + x2) + ...``: the result is
-deterministic and, on one device, bit-equal to the same fold over a
-Python list. Every member receives the result: the first's tensor itself
-where its device is the first's, a copy on its stream otherwise.
+Reductions (:func:`psum`, :func:`pmax`, :func:`reduce_scatter`) run on
+each group's first slot and take the members in slot order, ``((x0 + x1)
++ x2) + ...``: the result is deterministic and, on one device, bit-equal
+to the same fold over a Python list. Every member receives the result (or
+its block of it, :func:`reduce_scatter`): the first's tensor itself (a
+view of it) where its device is the first's, a copy on its stream
+otherwise.
 :func:`ppermute` copies each sender's tensor into a receive buffer on the
 receiver's stream, also between two slots of one card, so that a ring's
 traffic is paid and measured as it would be across cards.
@@ -41,7 +43,7 @@ import torch
 from .mesh import Layout
 
 __all__ = ["run_slots", "psum", "pmax", "ppermute", "all_gather",
-           "slot_streams"]
+           "reduce_scatter", "slot_streams"]
 
 Axes = Union[str, Sequence[str]]
 
@@ -112,27 +114,42 @@ def _check(xs: Sequence[torch.Tensor], layout: Layout, what: str) -> None:
                          f"slots, got {len(xs)}")
 
 
+def _to(x, device: torch.device):
+    """A tensor, or a tuple of tensors, on ``device``."""
+    if isinstance(x, tuple):
+        return tuple(t.to(device) for t in x)
+    return x.to(device)
+
+
+def _device_of(x) -> torch.device:
+    return (x[0] if isinstance(x, tuple) else x).device
+
+
 def _share(layout: Layout, groups: list, results: list) -> list:
-    """Every member of group i receives ``results[i]``: the tensor itself
-    on the result's device, a copy on the member's stream elsewhere."""
+    """Every member of group i receives ``results[i]`` (a tensor or a
+    tuple of them): itself on the result's device, a copy on the member's
+    stream elsewhere."""
     out = [None] * layout.size
     copy = []
     for g, r in zip(groups, results):
         for s in g:
-            if layout.device(s) == r.device:
+            if layout.device(s) == _device_of(r):
                 out[s] = r
             else:
                 copy.append((s, r))
     if copy:
         src = dict(copy)
-        got = run_slots(layout, lambda s: src[s].to(layout.device(s)),
+        got = run_slots(layout, lambda s: _to(src[s], layout.device(s)),
                         [s for s, _ in copy])
         for (s, _), x in zip(copy, got):
             out[s] = x
     return out
 
 
-def _reduce(xs, layout: Layout, axes: Axes, op, what: str) -> list:
+def _reduce(xs, layout: Layout, axes: Axes, op, what: str,
+            share: bool = True) -> list:
+    """Each group's fold in slot order on its first slot; shared with
+    every member (``share``), else one result a group, in group order."""
     _check(xs, layout, what)
     groups = layout.groups(axes)
     by_first = {g[0]: g for g in groups}
@@ -142,7 +159,8 @@ def _reduce(xs, layout: Layout, axes: Axes, op, what: str) -> list:
         g = by_first[s]
         return functools.reduce(op, (xs[j].to(dev) for j in g[1:]), xs[g[0]])
 
-    return _share(layout, groups, run_slots(layout, fold, list(by_first)))
+    folds = run_slots(layout, fold, list(by_first))
+    return _share(layout, groups, folds) if share else folds
 
 
 def psum(xs: Sequence[torch.Tensor], layout: Layout, axes: Axes) -> list:
@@ -157,20 +175,77 @@ def pmax(xs: Sequence[torch.Tensor], layout: Layout, axes: Axes) -> list:
     return _reduce(xs, layout, axes, torch.maximum, "pmax")
 
 
-def all_gather(xs: Sequence[torch.Tensor], layout: Layout, axes: Axes,
-               dim: int = 0) -> list:
+def all_gather(xs: Sequence, layout: Layout, axes: Axes,
+               dim: Union[int, Sequence[int]] = 0,
+               select: Optional[Callable[[int, torch.Tensor],
+                                         torch.Tensor]] = None) -> list:
     """``jax.lax.all_gather(..., tiled=True)`` over ``axes``: each slot
-    receives its group's tensors concatenated along ``dim`` in the order
-    of :meth:`Layout.axis_index`."""
+    receives its group's tensors concatenated along ``dim`` (any
+    dimension, negative counted from the end) in the order of
+    :meth:`Layout.axis_index`.
+
+    A slot's entry may be a tuple of tensors, each gathered along its own
+    dimension (``dim`` then one a tensor) in the same pass over the
+    slots; the slot then receives a tuple. ``select(s, x)``: the part of
+    a member's tensor ``x`` that slot ``s`` receives (e.g. its heads of a
+    cache piece); each slot then gathers its own parts on its stream,
+    where without it each group gathers once, on its first slot."""
     _check(xs, layout, "all_gather")
-    groups = layout.groups(axes)
-    by_first = {g[0]: g for g in groups}
+    many = isinstance(xs[0], tuple)
+    dims = tuple(dim) if many and not isinstance(dim, int) else \
+        (dim,) * len(xs[0]) if many else (dim,)
+    take = (lambda s, x: x) if select is None else select
 
-    def cat(s):
+    def cat(s, members):
         dev = layout.device(s)
-        return torch.cat([xs[j].to(dev) for j in by_first[s]], dim)
+        parts = [xs[j] if many else (xs[j],) for j in members]
+        out = tuple(torch.cat([take(s, p[i]).to(dev) for p in parts], d)
+                    for i, d in enumerate(dims))
+        return out if many else out[0]
 
-    return _share(layout, groups, run_slots(layout, cat, list(by_first)))
+    groups = layout.groups(axes)
+    if select is not None:
+        group_of = {s: g for g in groups for s in g}
+        return run_slots(layout, lambda s: cat(s, group_of[s]))
+    by_first = {g[0]: g for g in groups}
+    return _share(layout, groups, run_slots(
+        layout, lambda s: cat(s, by_first[s]), list(by_first)))
+
+
+def reduce_scatter(xs: Sequence[torch.Tensor], layout: Layout, axes: Axes,
+                   dim: int = 0) -> list:
+    """``jax.lax.psum_scatter(..., tiled=True)`` over ``axes``: the group's
+    sum, folded in slot order on its first slot as :func:`psum` folds it,
+    cut along ``dim`` into as many equal blocks as the group has members;
+    the member at position ``i`` along ``axes`` receives block ``i`` (a
+    view of the sum on the first slot's device, a copy on its stream
+    elsewhere). Each block is bit-equal to the same block of
+    :func:`psum`'s result."""
+    _check(xs, layout, "reduce_scatter")
+    groups = layout.groups(axes)
+    n = len(groups[0])
+    if xs[0].shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of size "
+                         f"{xs[0].shape[dim]} does not split into {n} "
+                         f"blocks")
+    sums = _reduce(xs, layout, axes, torch.add, "reduce_scatter",
+                   share=False)
+    size = xs[0].shape[dim] // n
+    out = [None] * layout.size
+    copy = {}
+    for g, total in zip(groups, sums):
+        for i, s in enumerate(g):
+            block = total.narrow(dim, i * size, size)
+            if layout.device(s) == total.device:
+                out[s] = block
+            else:
+                copy[s] = block
+    if copy:
+        got = run_slots(layout, lambda s: copy[s].to(layout.device(s)),
+                        list(copy))
+        for s, x in zip(copy, got):
+            out[s] = x
+    return out
 
 
 def ppermute(xs: Sequence[torch.Tensor], layout: Layout, axes: Axes,

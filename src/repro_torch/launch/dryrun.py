@@ -19,9 +19,10 @@ analytic operations and bytes, matmul FLOPs, collectives), ``t_trace_s``
 and the bundle's analytic ``meta``.
 
 Only the ``host`` layout (one device) runs. ``pod`` and ``multipod``
-raise ``NotImplementedError``: tracing a cell there needs the sharded
-model code (``Rules`` on the parameters), the next slice of the
-substrate's mesh options.
+raise ``NotImplementedError``: a cell there traces the sharded train
+step (FSDP gradients) and the GNN and recsys parameter splits, which
+the port does not have yet (the LM serving splits it has), and the
+per-slot memory on ``meta``.
 """
 from __future__ import annotations
 
@@ -108,8 +109,9 @@ def dryrun_cell(arch: str, shape: str, mesh_name: str = "host",
     if mesh_name != "host":
         raise NotImplementedError(
             f"the dry run on {mesh_name!r} ({layout.size} devices) needs "
-            f"the sharded model code (Rules on the parameters), the next "
-            f"slice of the substrate's mesh options (ROADMAP.md queue 1, "
+            f"the sharded train step (FSDP gradients) and the GNN and "
+            f"recsys parameter splits, the next slices of the sharded model "
+            f"code, then per-slot memory on meta (ROADMAP.md queue 1, "
             f"item 7)")
     if opts is None:
         opts = RunOptions(**CELL_OPTS.get((arch, shape), {}))

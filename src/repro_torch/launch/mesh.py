@@ -16,9 +16,10 @@ CUDA stream.
 
 A slot's device may repeat: ``make_host_mesh(2, 4)`` on one card is eight
 slots of ``cuda:0``, each on its own stream. ``pod`` and ``multipod`` name
-the JAX package's production meshes and hold no devices: the sharded
-model code that would run on them (``Rules`` on the parameters) is the
-next slice of the substrate's mesh options.
+the JAX package's production meshes and hold no devices: the LM serving
+path runs over a host layout of slots (``transformer.LM(..., mesh=...)``),
+and the dry run on these shapes waits for the sharded train step and the
+GNN and recsys parameter splits.
 """
 from __future__ import annotations
 

@@ -2,17 +2,19 @@
 roofline meta.
 
 A port of ``repro/launch/steps.py``'s LM, GNN and recsys bundles
-(``_lm_bundle``, ``_gnn_bundle``, ``_recsys_bundle`` and their meta). The
-weights are on one device, so no shardings, abstract inputs or donation:
-a train step takes and returns the parameter tree and the optimizer state
-(updated in place), a prefill step an :class:`~..models.transformer.LM`
-and tokens, a decode step the model, a token and its cache
-(``LM.init_cache``, which follows ``RunOptions.kv_cache_dtype``: float8
-under ``"f8"``, as the JAX bundle's abstract cache). The decode step runs
-over the layout the model holds (``LM(..., mesh=layout)``, under
-``flash_decode``: the cache cut as the JAX bundle's ``cache_logical``
-shardings cut it, the attention merged across its slots), a recsys serve
-step the
+(``_lm_bundle``, ``_gnn_bundle``, ``_recsys_bundle`` and their meta). A
+train step takes and returns the parameter tree and the optimizer state
+(updated in place) on one device, a prefill step an
+:class:`~..models.transformer.LM` and tokens, a decode step the model, a
+token and its cache (``LM.init_cache``, which follows
+``RunOptions.kv_cache_dtype``: float8 under ``"f8"``, as the JAX bundle's
+abstract cache). The LM serving bundles take ``mesh``, a layout of slots,
+as the JAX ``_lm_bundle`` takes its ``Rules``: their steps run the model
+over it (``LM.with_mesh(mesh, opts)``: the parameters cut by
+``lm_param_logical`` under ``serve_param_sharding``, the cache by
+``cache_logical``, the layer tensor- and sequence-parallel, decode with or
+without ``flash_decode``); a train bundle over a layout is the next slice
+(the sharded train step) and raises. A recsys serve step takes the
 parameters, histories and items, a retrieval step the parameters, one
 history and the padded candidates, and the engine's step one superstep of
 the paper's engine (:class:`EngineSuperstep`). ``StepBundle.inputs`` gives
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -33,8 +35,10 @@ from ..config import (GNNConfig, LMConfig, PathEngineConfig, RecsysConfig,
 from ..core.enumerate import expand_level
 from ..kernels.msbfs_expand.ops import msbfs_step, pack_bits
 from ..models import gnn, recsys, transformer
+from ..models.sharding import Rules
 from ..optim import adamw_update, cosine_schedule
 from ..pytree import leaves, unflatten
+from .mesh import Layout
 
 __all__ = ["StepBundle", "TRAIN_KINDS", "build_bundle", "lm_bundle",
            "gnn_bundle", "recsys_bundle", "engine_bundle", "engine_dims",
@@ -60,6 +64,8 @@ class StepBundle:
     # the batch's padded input shapes, name -> (shape, dtype) (GNN,
     # recsys, engine)
     inputs: dict = dataclasses.field(default_factory=dict)
+    # the layout an LM serving step runs over (None: one device)
+    mesh: Optional[Layout] = None
 
     @property
     def dims(self) -> dict:
@@ -76,13 +82,22 @@ def shape_of(mod, shape_name: str, overrides: dict | None) -> ShapeSpec:
 
 
 def build_bundle(arch: str, shape_name: str, opts: RunOptions | None = None,
-                 reduced: bool = False,
-                 overrides: dict | None = None) -> StepBundle:
+                 reduced: bool = False, overrides: dict | None = None,
+                 mesh: Optional[Layout] = None) -> StepBundle:
+    """The bundle of ``arch`` at ``shape_name``; ``mesh``: the layout an
+    LM serving bundle runs over (the other families take none yet)."""
     opts = RunOptions() if opts is None else opts
     mod = config_registry.get(arch)
     cfg = mod.REDUCED if reduced else mod.CONFIG
     shape = shape_of(mod, shape_name, overrides)
-    build = {"lm": lm_bundle, "gnn": gnn_bundle, "recsys": recsys_bundle,
+    if mod.FAMILY == "lm":
+        return lm_bundle(arch, cfg, shape, opts, mesh=mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{arch}: a {mod.FAMILY} bundle over a layout needs the GNN and "
+            f"recsys parameter splits, a later slice of the sharded model "
+            f"code (ROADMAP.md queue 1, item 7)")
+    build = {"gnn": gnn_bundle, "recsys": recsys_bundle,
              "engine": engine_bundle}[mod.FAMILY]
     return build(arch, cfg, shape, opts)
 
@@ -110,17 +125,30 @@ def _lm_meta(cfg: LMConfig, shape: ShapeSpec) -> dict:
 
 
 def lm_bundle(arch: str, cfg: LMConfig, shape: ShapeSpec,
-              opts: RunOptions) -> StepBundle:
-    """The bundle of an LM config (e.g. one cut in depth) at ``shape``."""
+              opts: RunOptions, mesh: Optional[Layout] = None) -> StepBundle:
+    """The bundle of an LM config (e.g. one cut in depth) at ``shape``;
+    its serving step over ``mesh`` where given: the model it is handed
+    runs there (``LM.with_mesh(mesh, opts)``, the weights shared, unless
+    it is placed so already)."""
     S, B = shape.dim("seq_len"), shape.dim("global_batch")
     meta = _lm_meta(cfg, shape)
+    dp = 1 if mesh is None else Rules(mesh).size("batch")
+    if cfg.moe is not None and dp > 1 and opts.moe_groups != dp:
+        opts = dataclasses.replace(opts, moe_groups=dp)
 
     def bundle(step_fn):
         return StepBundle(arch=arch, shape=shape.name, kind=shape.kind,
                           step_fn=step_fn, cfg=cfg, opts=opts, meta=meta,
-                          spec=shape)
+                          spec=shape, mesh=mesh)
 
     if shape.kind == "train":
+        if mesh is not None:
+            raise NotImplementedError(
+                f"{arch} {shape.name} over a layout: the sharded train step "
+                f"(FSDP gradient reduce-scatters, the optimizer state cut "
+                f"as the parameters) is the next slice of the sharded model "
+                f"code (ROADMAP.md queue 1, item 7); the port trains on one "
+                f"device")
         transformer.check_trainable(opts)
         A = max(opts.grad_accum, 1)
         if B % A:
@@ -156,9 +184,17 @@ def lm_bundle(arch: str, cfg: LMConfig, shape: ShapeSpec,
         return bundle(train_step)
 
     transformer.check_supported(cfg, opts)
-    if shape.kind == "prefill":
-        return bundle(transformer.prefill)
-    return bundle(transformer.decode_step)
+    step = (transformer.prefill if shape.kind == "prefill"
+            else transformer.decode_step)
+    if mesh is None:
+        return bundle(step)
+
+    def placed(model, *args):
+        if model.mesh != mesh or model.opts != opts:
+            model = model.with_mesh(mesh, opts)
+        return step(model, *args)
+
+    return bundle(placed)
 
 
 def _train_step(loss_fn: Callable) -> Callable:

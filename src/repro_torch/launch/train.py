@@ -12,8 +12,9 @@ arch's small same-family config, cut to a CPU size as the JAX CLI cuts it
 ``max(--batch, 8)``; graphsage's ``minibatch_lg`` on a 2,000-node graph);
 without it the published config at the shape's full size. One device: a
 mesh other than ``host`` is refused, since training over one needs the
-sharded model code (``Rules`` on the parameters), the next slice of the
-substrate's mesh options (ROADMAP.md queue 1, item 7).
+sharded train step (FSDP gradient reduce-scatters, the optimizer state
+cut as the parameters) and the GNN and recsys parameter splits, the next
+slice of the sharded model code (ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -140,9 +141,10 @@ def run_training(arch: str, shape_name: str, steps: int,
     if mesh_name != "host":
         raise NotImplementedError(
             f"mesh {mesh_name!r}: training over a mesh needs the sharded "
-            f"model code (Rules on the parameters), the next slice of the "
-            f"substrate's mesh options (ROADMAP.md queue 1, item 7); the "
-            f"port trains on one device")
+            f"train step (FSDP gradient reduce-scatters, the optimizer state "
+            f"cut as the parameters) and the GNN and recsys parameter "
+            f"splits, the next slice of the sharded model code (ROADMAP.md "
+            f"queue 1, item 7); the port trains on one device")
     dev = resolve_device(device)
     opts = opts or RunOptions(seq_parallel=False, loss_chunk=64,
                               attn_chunk=256, moe_groups=4)

@@ -13,21 +13,29 @@ it to the axes of a layout (``launch/mesh.py``):
 dimension, ``None`` (replicated), one axis name, or a tuple of names.
 :meth:`Rules.shard` cuts a tensor into one piece per slot of the layout,
 as ``jax.device_put`` with a ``NamedSharding`` places its shards, and
-:meth:`Rules.assemble` puts the pieces back together. The model's
-parameters are not sharded yet: that is the sharded model code, the next
-slice of the substrate's mesh options; the programs over a layout
-(``flash_decode``, ``gnn.ring_aggregate``, ``ef_compressed_psum_axis``)
-shard their own inputs.
+:meth:`Rules.assemble` puts the pieces back together;
+:func:`shard_tree` and :func:`assemble_tree` do the same for a tree of
+tensors named by a tree of logical axes (the JAX ``in_shardings`` of a
+parameter tree, ``launch/steps.py``'s ``_spec_tree``). The LM serving
+path cuts its parameters so (``transformer.lm_param_logical``, under
+:func:`serve_logical`); the other programs over a layout
+(``flash_decode``'s cache, ``gnn.ring_aggregate``,
+``ef_compressed_psum_axis``) shard their own inputs.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
 from ..launch.mesh import Layout
 
-__all__ = ["Rules"]
+__all__ = ["Rules", "shard_tree", "assemble_tree", "serve_logical",
+           "SERVE_PARAM_SHARDINGS"]
+
+# RunOptions.serve_param_sharding: rows over the data axes and columns
+# over model ("2d", FSDP x tensor), or replicated over the data axes
+SERVE_PARAM_SHARDINGS = ("2d", "tp_only")
 
 
 class Rules:
@@ -151,3 +159,47 @@ class Rules:
                     view = view.narrow(d, i * p0.shape[d], p0.shape[d])
             view.copy_(p)
         return out
+
+
+def shard_tree(rules: Rules, tree: dict, logical: dict) -> list:
+    """One piece tree a slot: every tensor of ``tree`` (nested dicts)
+    cut by :meth:`Rules.shard` under the logical axes at the same place
+    of ``logical`` (a tuple a tensor). A piece on the tensor's own device
+    is a view of it."""
+    if isinstance(tree, dict):
+        cut = {k: shard_tree(rules, v, logical[k]) for k, v in tree.items()}
+        return [{k: pieces[s] for k, pieces in cut.items()}
+                for s in range(rules.layout.size)]
+    return rules.shard(tree, *logical)
+
+
+def assemble_tree(rules: Rules, pieces: Sequence[Any], logical: dict,
+                  device=None) -> Any:
+    """The inverse of :func:`shard_tree`: the global tree on ``device``
+    (default each tensor's first piece's) from one piece tree a slot."""
+    if isinstance(logical, dict):
+        return {k: assemble_tree(rules, [p[k] for p in pieces], logical[k],
+                                 device) for k in pieces[0]}
+    return rules.assemble(pieces, *logical, device=device)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def serve_logical(logical: Any, opts) -> Any:
+    """A parameter tree's logical axes for serving under
+    ``opts.serve_param_sharding``: as they are under ``"2d"``; under
+    ``"tp_only"`` (weight-stationary serving) ``"fsdp"`` becomes ``None``,
+    the weights replicated over the data axes, as the JAX ``_lm_bundle``
+    maps them."""
+    mode = opts.serve_param_sharding
+    if mode not in SERVE_PARAM_SHARDINGS:
+        raise ValueError(f"serve_param_sharding={mode!r}: one of "
+                         f"{SERVE_PARAM_SHARDINGS}")
+    if mode == "2d":
+        return logical
+    if _is_axes(logical):
+        return tuple(None if a == "fsdp" else a for a in logical)
+    return {k: serve_logical(v, opts) for k, v in logical.items()}

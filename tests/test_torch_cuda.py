@@ -25,7 +25,9 @@ slots: a slot's attention partial on each decode route (zeros and an lse
 of -inf where it sees no key, float32 out rounding to the bf16 out bit for
 bit), ``flash_decode`` against the CPU slots (float32) and the one-slot
 decode (bf16 and float8 caches), ``ring_aggregate`` against the CPU, the
-collectives and ``ef_compressed_psum_axis``.
+collectives and ``ef_compressed_psum_axis``; the sharded model (weights
+cut over the slots) against the CPU slots in float32, and in bf16 on the
+one-device routes (wgmma prefill, split-K decode, once a slot and layer).
 """
 import numpy as np
 import pytest
@@ -1456,19 +1458,15 @@ def test_attention_partial_on_card_matches_plain(dev, route, qt, kt, valid):
         assert torch.equal(out.to(torch.bfloat16), rounded)
 
 
-def _reduced_lm(dtype: str, device: str):
+def _reduced_lm(dtype: str, device: str, tp: int = 1):
+    """REDUCED granite-8b in ``dtype``, drawn on the CPU from seed 0 with
+    its q heads padded for a ``tp``-way tensor axis, on ``device``."""
     import dataclasses
     from repro_torch.configs import get
-    from repro_torch.models.transformer import LM
+    from repro_torch.models.transformer import LM, init_lm_params
     cfg = dataclasses.replace(get("granite-8b").REDUCED, dtype=dtype)
-    on_cpu = LM(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    if device == "cpu":
-        return on_cpu
-    params = {name: getattr(on_cpu, name)
-              for name in ("embed", "final_norm", "unembed")}
-    params["layers"] = {name: torch.stack([getattr(lp, name)
-                                           for lp in on_cpu.layers])
-                        for name, _ in on_cpu.layers[0].named_parameters()}
+    params = init_lm_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu", tp=tp)
     return LM(cfg, params, device=device)
 
 
@@ -1517,18 +1515,20 @@ def test_flash_decode_on_card_slots_matches_cpu(dev):
 @pytest.mark.parametrize("kv", ["bf16", "f8"])
 def test_flash_decode_on_card_matches_one_slot(dev, kv):
     """bf16 model (split-K, float8 or bf16 cache): flash_decode over (2, 4)
-    and (1, 8) slots of one card against the one-slot decode over the same
-    cache; the kernel launched once a slot and layer on the cache's
-    split-K route. The slots' float32 partials merge in another order than
+    and (1, 8) slots of one card (the weights cut over them too) against
+    the one-slot decode over the same cache; the kernel launched once a
+    slot and layer on the cache's split-K route. The slots' float32 partials merge in another order than
     the one-slot chunks: a bf16 output flips a rounding now and then, and
     in this 64-wide model one flip moves a row's logits by up to about 1%
     relative L2 (2e-2 allowed); over a float8 cache the flip also moves
     the next layer's written keys by an e4m3 step, 2**-3 relative (5e-2)."""
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.mesh import make_host_mesh
-    model = _reduced_lm("bfloat16", "cuda")
     route = "attn_splitk_f8" if kv == "f8" else "attn_splitk"
     for shape, B in (((2, 4), 4), ((1, 8), 1)):
+        # the layout cuts the weights too: the 4 q heads padded to 8 for
+        # the 8-way tensor axis, on both sides
+        model = _reduced_lm("bfloat16", "cuda", tp=shape[1])
         want = _mesh_decode(model, None, kv, B=B)
         reset_launches()
         got = _mesh_decode(model, make_host_mesh(*shape), kv, B=B)
@@ -1538,6 +1538,99 @@ def test_flash_decode_on_card_matches_one_slot(dev, kv):
         rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
         bound = 5e-2 if kv == "f8" else 2e-2
         assert float(rel.max()) <= bound, (shape, float(rel.max()))
+
+
+def _sharded_serve(model, layout, opts, B=4, S=32, steps=4):
+    """The sharded prefill of a seeded prompt and ``steps`` gathered or
+    ``flash_decode`` steps from position ``S`` of a seeded cache of
+    ``2 S``; the logits (on the CPU) and each call's launches by route."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention.ops import ROUTES
+    from repro_torch.models.transformer import shard_cache
+    m = model.with_mesh(layout, opts)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, model.cfg.vocab, (B, S + steps)))
+    reset_launches()
+    got = [m.prefill(toks[:, :S]).cpu()]
+    routes = [{r: LAUNCHES[f"attn_{r}"] for r in ROUTES}]
+    full = model.with_mesh(None, opts).init_cache(B, 2 * S)
+    gen = torch.Generator().manual_seed(11)
+    for name in ("k", "v"):
+        x = torch.randn(full[name][:, :, :S].shape, generator=gen)
+        full[name][:, :, :S] = x.to(model.device, full[name].dtype)
+    full["pos"] = S
+    cache = full if layout is None else shard_cache(full, m.rules)
+    for t in range(steps):
+        reset_launches()
+        logits, cache = m.decode_step(toks[:, S + t:S + t + 1], cache)
+        got.append(logits.cpu())
+        routes.append({r: LAUNCHES[f"attn_{r}"] for r in ROUTES})
+    return torch.cat(got, 1), routes
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+def test_sharded_lm_on_card_slots_matches_cpu(dev, arch):
+    """float32 (TF32 off): the reduced model served over eight cuda:0
+    slots, (2, 4) under "2d" with seq_parallel, prefill and the gathered
+    and flash_decode steps, equals the same over eight CPU slots at 1e-4;
+    every call one attn_scalar launch a slot and layer."""
+    import dataclasses
+    from repro_torch.config import RunOptions
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get(arch).REDUCED, dtype="float32")
+    on_cpu = LM(cfg, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+    params = {n: getattr(on_cpu, n) for n, _ in on_cpu.named_parameters()
+              if "." not in n}
+    params["layers"] = {n: torch.stack([getattr(lp, n)
+                                        for lp in on_cpu.layers])
+                        for n, _ in on_cpu.layers[0].named_parameters()}
+    on_card = LM(cfg, params, device="cuda")
+    L = cfg.n_layers
+    for flash in (False, True):
+        opts = RunOptions(flash_decode=flash)
+        want, _ = _sharded_serve(on_cpu, make_host_mesh(2, 4, ["cpu"] * 8),
+                                 opts)
+        got, routes = _sharded_serve(on_card, make_host_mesh(2, 4), opts)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        for r in routes:
+            assert r == {**dict.fromkeys(r, 0), "scalar": 8 * L}, r
+
+
+def test_sharded_lm_bf16_takes_the_one_device_routes(dev):
+    """bf16 at hd 128 (a 4-layer granite cut: 8 q heads over 4 KV heads,
+    d_model 512): over (2, 4) and (1, 8) slots of the card each slot's
+    prefill runs attn_wgmma and each decode step attn_splitk, once a slot
+    and layer, as the one-device shapes do; the logits within 2e-2 row
+    relative L2 of the one-device model's (bf16 products over other
+    widths, a rounding flipped now and then)."""
+    import dataclasses
+    from repro_torch.config import RunOptions
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    cfg = dataclasses.replace(get("granite-8b").REDUCED, dtype="bfloat16",
+                              n_layers=4, d_model=512, n_heads=8,
+                              n_kv_heads=4, head_dim=128, d_ff=1024,
+                              vocab=1024)
+    model = LM(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+               device="cuda")
+    L = cfg.n_layers
+    for shape, mode in (((2, 4), "2d"), ((1, 8), "tp_only")):
+        for flash in (False, True):
+            opts = RunOptions(flash_decode=flash, serve_param_sharding=mode)
+            want, one = _sharded_serve(model, None, opts)
+            got, routes = _sharded_serve(model, make_host_mesh(*shape), opts)
+            assert one[0]["wgmma"] == L and one[1]["splitk"] == L
+            assert routes[0] == {**dict.fromkeys(routes[0], 0),
+                                 "wgmma": 8 * L}
+            for r in routes[1:]:
+                assert r == {**dict.fromkeys(r, 0), "splitk": 8 * L}, r
+            rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+            assert float(rel.max()) <= 2e-2, (shape, flash, float(rel.max()))
 
 
 @pytest.mark.parametrize("P", [8, 3])

@@ -346,13 +346,23 @@ def test_layout_and_model_errors():
         tt.LM(cfg, generator=torch.Generator(), device="cpu",
               mesh=make_host_mesh(1, 2, devices=["cuda:0"] * 2),
               opts=RunOptions(flash_decode=True))
-    # a layout without flash_decode: the gathered decode is not ported
-    model = tt.LM(cfg, generator=torch.Generator(), device="cpu")
-    with pytest.raises(ValueError, match="needs RunOptions"):
-        model.with_mesh(_cpu((1, 2)))
-    with pytest.raises(ValueError, match="needs RunOptions"):
-        tt.LM(cfg, generator=torch.Generator(), device="cpu",
-              mesh=_cpu((1, 2)))
+    # a layout without flash_decode: the gathered decode (GSPMD's default)
+    # runs, and equals the one-device decode
+    model = tt.LM(cfg, generator=torch.Generator().manual_seed(0),
+                  device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 3),
+                         generator=torch.Generator().manual_seed(1))
+    for sharded in (model.with_mesh(_cpu((1, 2))),
+                    tt.LM(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu", mesh=_cpu((1, 2)))):
+        assert not sharded.opts.flash_decode and sharded.mesh is not None
+        caches = [m.init_cache(2, 4) for m in (model, sharded)]
+        for t in range(3):
+            want, caches[0] = model.decode_step(toks[:, t:t + 1], caches[0])
+            got, caches[1] = sharded.decode_step(toks[:, t:t + 1],
+                                                 caches[1])
+            torch.testing.assert_close(got, want, atol=ONE_SLOT_TOL,
+                                       rtol=ONE_SLOT_TOL)
 
 
 def tt_cfg():

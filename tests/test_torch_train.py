@@ -617,13 +617,14 @@ def test_build_bundle_and_run_training_under_dots(tmp_path):
 
 
 def test_launchers_refuse_what_is_not_ported(tmp_path):
-    # still refused: both need the sharded model code, the next slice
+    # still refused: both need the sharded train step and the GNN and
+    # recsys splits, the next slices of the sharded model code
     with pytest.raises(NotImplementedError,
-                       match="sharded model code.*ROADMAP"):
+                       match="sharded train step.*GNN and recsys.*ROADMAP"):
         run_training("granite-8b", "train_4k", 1, tmp_path, mesh_name="pod",
                      device="cpu")
     with pytest.raises(NotImplementedError,
-                       match="sharded model code.*mesh options"):
+                       match="sharded train step.*GNN and.*recsys.*meta"):
         dryrun_cell("path-engine", "batch_1b", "pod")
     # ported now: the ring on one CPU slot equals the JAX ring on one
     # device (tests/test_torch_mesh.py: 8 and 3 slots)
